@@ -25,7 +25,17 @@ Phases (one line each, any failure stops the run):
      version, timed, with the bound computed from those inputs; and the
      card's camera stage against the CPU's (whose rounding follows the JAX
      package's compiled CPU code) on every tile of the CLI-default render's
-     first pass.
+     first pass;
+  6. the training path through make_sharded_train_step: three replay steps
+     on suzanne 512^2 (K=16, depth 5: the camera stage with K2, K7 with its
+     residuals forward, four K8 launches backward), each split into forward
+     and backward with its peak memory, the launch counters set to 0 just
+     before the three steps and read just after; one per-bounce wavefront
+     step (fused="off") with camera gradients through K2's VJP; K7 (with and
+     without residuals) and K8 (each bounce, and twice for bitwise
+     repeatability) against their plain versions on the first step's
+     inputs, timed; and the card's step against the CPU's on a 32^2 crop of
+     cornell 512^2.
 The last two lines are the kernels JSON and the device JSON.
 """
 
@@ -53,6 +63,11 @@ OPS_SPHERE = 23
 OPS_TRIANGLE = 49
 OPS_SLAB = 24
 OPS_SHADE = 200
+# per lane of the shading adjoint (csrc/replay.cuh bounce_bwd_lane): a hit
+# lane recomputes its bounce (~110) and walks it back (~390, the diffuse
+# branch); a live miss adds beta * environment
+OPS_BWD_HIT = 500
+OPS_BWD_MISS = 6
 
 
 def fail(msg: str) -> None:
@@ -72,8 +87,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--until", type=int, default=5,
-                    help="stop after this phase (default: all five)")
+    ap.add_argument("--until", type=int, default=6,
+                    help="stop after this phase (default: all six)")
     args = ap.parse_args(argv)
     import torch
 
@@ -152,8 +167,11 @@ def main(argv=None) -> int:
     # each wrapper's launch, and the plain version with the same signature
     launchers = {"K2": (ik, "_intersect_cuda", ik.intersect_plain),
                  "K5": (mk, "_regen_table_cuda", mk.fused_passes_plain),
-                 "K4": (mk, "_regen_krng_cuda", mk.regen_krng_plain)}
-    wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng}
+                 "K4": (mk, "_regen_krng_cuda", mk.regen_krng_plain),
+                 "K7": (mk, "_fused_bounces_cuda", mk.fused_bounces_plain),
+                 "K8": (mk, "_bounce_bwd_cuda", mk.bounce_bwd_plain)}
+    wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
+                "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step}
 
     @contextlib.contextmanager
     def plain(kernel):
@@ -552,10 +570,271 @@ def main(argv=None) -> int:
           f"1e-4/atol 1e-5 {n_tight / n:.6f}), max|d| {cam_err:.3e} on them; pixels' "
           f"base agree {n_base / n_pix:.6f}; card {card_ms:.2f} ms cpu {cpu_s * 1e3:.0f} ms")
 
+    if args.until <= 5:
+        return 0
+
+    # ---- phase 6: the training path ---------------------------------------
+    captured.clear()
+    torch.cuda.empty_cache()
+    from pt_three_ways_tpu_torch.models import replay
+    from pt_three_ways_tpu_torch.parallel import train
+    from pt_three_ways_tpu_torch.parallel.train import TrainState, make_sharded_train_step
+
+    def record():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    tparams = RenderParams(width=512, height=512, max_depth=5, seed=1)
+    sb = SceneBuilder()
+    tcam = create_scene(sb, "suzanne", tparams)
+    tscene = sb.build()
+    tparams = tparams.replace(epsilon=auto_epsilon(tscene, tcam))
+    tw = tparams.width
+    tpx = torch.arange(tw * tparams.height, device=dev, dtype=torch.int32) % tw
+    tpy = torch.arange(tw * tparams.height, device=dev, dtype=torch.int32) // tw
+    tkey = rng.base_key(7)
+    # matched-RNG objective (tests/test_inverse_rendering.py): the target is
+    # the scene's own image under the step's key; training starts from a
+    # darker albedo
+    with torch.no_grad():
+        target = replay.trace_pass_replay(
+            tscene.to(dev), tcam.to(dev), tparams, rng.tile_key(rng.tile_key(tkey, 0), 0),
+            tpx, tpy)
+    mats0 = tscene.materials._replace(diffuse=tscene.materials.diffuse * 0.6)
+    step = make_sharded_train_step(tscene, tparams, learning_rate=0.05)
+
+    # CUDA events around every launch, around the backward (train._grads),
+    # and the first step's K7/K8 wrapper calls (replay's names for them)
+    tspans = []
+    marks = {}
+    tcapt = {"K7": [], "K8": []}
+    trestore = []
+
+    def patch(mod, name, hook):
+        trestore.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, hook)
+
+    def span(kernel, f):
+        def hook(*a):
+            e0 = record()
+            out = f(*a)
+            tspans.append((kernel, e0, record()))
+            return out
+        return hook
+
+    def capture_first(kernel, f):
+        def hook(*a, **kw):
+            if marks.get("step") == 0:
+                tcapt[kernel].append((a, kw))
+            return f(*a, **kw)
+        return hook
+
+    def grads_hook(f):
+        def hook(loss, leaves):
+            marks["b0"] = record()
+            out = f(loss, leaves)
+            marks["b1"] = record()
+            return out
+        return hook
+
+    for k, (m, n, _) in launchers.items():
+        if k in ("K2", "K7", "K8"):
+            patch(m, n, span(k, getattr(m, n)))
+    patch(replay, "fused_bounces", capture_first("K7", replay.fused_bounces))
+    patch(replay, "bounce_bwd_step", capture_first("K8", replay.bounce_bwd_step))
+    patch(train, "_grads", grads_hook(train._grads))
+
+    state = TrainState(mats0, tcam, 0)
+    losses = []
+    for fn in wrappers.values():
+        fn.launches = 0
+    for i in range(3):
+        marks["step"] = i
+        tspans.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        e0 = record()
+        loss, state = step(state, tkey, tpx, tpy, target)
+        e3 = record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        kms = {k: sum(a.elapsed_time(b) for kk, a, b in tspans if kk == k)
+               for k in ("K2", "K7", "K8")}
+        fwd = e0.elapsed_time(marks["b0"])
+        bwd = marks["b0"].elapsed_time(marks["b1"])
+        upd = marks["b1"].elapsed_time(e3)
+        n8 = sum(1 for kk, _, _ in tspans if kk == "K8")
+        losses.append(float(loss))
+        print(f"phase 6 train step {i} suzanne 512^2 K=16 depth 5 ({tpx.shape[0] * 16} lanes): "
+              f"loss {float(loss):.6e}, wall {wall * 1e3:.1f} ms = forward {fwd:.1f} ms "
+              f"(camera stage {fwd - kms['K7'] - kms['K2']:.1f} + K2 {kms['K2']:.3f} + K7 "
+              f"{kms['K7']:.3f}) + backward {bwd:.1f} ms (camera-stage autograd "
+              f"{bwd - kms['K8']:.1f} + K8 {kms['K8']:.3f} in {n8} launches) + update "
+              f"{upd:.2f} ms; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    marks["step"] = None
+    tlaunch = {k: fn.launches for k, fn in wrappers.items()}
+    for mod, name, orig in reversed(trestore):
+        setattr(mod, name, orig)
+    moved = sum(float((a.cpu() - b).abs().sum()) for a, b in zip(state.materials, mats0))
+    finite = all(bool(torch.isfinite(m).all()) for m in state.materials)
+    if not (all(np.isfinite(losses)) and finite and moved > 0.0):
+        fail(f"training: losses {losses}, finite materials {finite}, moved {moved}")
+    for k in ("K2", "K7", "K8"):
+        if tlaunch[k] <= 0:
+            fail(f"kernel {k} was not launched by the training steps")
+    print(f"phase 6 training: losses {[f'{x:.6e}' for x in losses]}, materials moved "
+          f"{moved:.4e} (sum |delta|), launches {tlaunch}")
+
+    # the per-bounce wavefront with camera gradients (K2's VJP on the card)
+    oparams = RenderParams(width=256, height=256, max_depth=5, seed=1)
+    sb = SceneBuilder()
+    ocam = create_scene(sb, "suzanne", oparams)
+    oscene = sb.build()
+    oparams = oparams.replace(epsilon=auto_epsilon(oscene, ocam))
+    ar = torch.arange(256 * 256, device=dev, dtype=torch.int32)
+    opx, opy = ar % 256, ar // 256
+    ostep = make_sharded_train_step(oscene, oparams, learning_rate=0.05, fused="off",
+                                    differentiate_camera=True)
+    ik.intersect_packed.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    oloss, ostate = ostep(TrainState(oscene.materials, ocam, 0), tkey, opx, opy,
+                          torch.full((opx.shape[0], 3), 0.25, device=dev))
+    torch.cuda.synchronize()
+    owall = time.time() - t0
+    cam_moved = sum(float((a.cpu() - b).abs().sum()) for a, b in zip(ostate.camera, ocam))
+    cam_finite = all(bool(torch.isfinite(c).all()) for c in ostate.camera)
+    if not (np.isfinite(float(oloss)) and cam_finite and cam_moved > 0.0
+            and ik.intersect_packed.launches > 0):
+        fail(f"fused='off' step: loss {float(oloss)}, camera finite {cam_finite}, "
+             f"moved {cam_moved}, K2 launches {ik.intersect_packed.launches}")
+    print(f"phase 6 wavefront step (fused='off', camera gradients) suzanne 256^2: loss "
+          f"{float(oloss):.6e}, wall {owall * 1e3:.1f} ms, K2 launches "
+          f"{ik.intersect_packed.launches}, camera moved {cam_moved:.4e}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K7 against its plain version on the first step's call
+    (a, kw), = tcapt["K7"]
+    out_k = mk.fused_bounces(*a, **kw)
+    with plain("K7"):
+        pms, out_p = once_ms(lambda: mk.fused_bounces(*a, **kw))
+    frac, err = cmp_acc("K7", out_k[:2], out_p[:2])
+    idx_ok = (out_k[4] == out_p[4]).all(dim=0) & (out_k[1] == out_p[1])
+    lanes = idx_ok & torch.all(torch.isclose(out_k[0], out_p[0], rtol=1e-4, atol=1e-5), dim=0)
+    t_k, t_p = out_k[3][:, lanes], out_p[3][:, lanes]
+    fin = torch.isfinite(t_p)
+    res_err = max((out_k[2][:, lanes] - out_p[2][:, lanes]).abs().max().item(),
+                  (t_k[fin] - t_p[fin]).abs().max().item())
+    if (lanes.float().mean().item() < 0.99 or not res_err <= 1e-3
+            or not torch.equal(torch.isfinite(t_k), fin)):
+        fail(f"K7 residuals disagree with the plain version: lanes {lanes.float().mean()}, "
+             f"max |d| {res_err}")
+    kern_nr = mk.fused_bounces(*a)
+    with plain("K7"):
+        frac_nr, err_nr = cmp_acc("K7", kern_nr, mk.fused_bounces(*a))
+    ms = events_ms(lambda: mk.fused_bounces(*a, **kw), 3)
+    ms_nr = events_ms(lambda: mk.fused_bounces(*a), 3)
+    pk7 = a[0]
+    live7 = int(out_p[1].sum().item())
+    search = [live7 * full_scan_ops(pk7)]
+    if pk7.box_tab.shape[0] > 1 and pk7.n_tri > 0:
+        search = [0]
+        with plain("K7"), counting_search(search):
+            mk.fused_bounces(*a, **kw)
+    b7, by7 = bound(nbytes(*a[1:6], pk7.tri_tab, pk7.sph_tab, pk7.tri_attr, pk7.sph_attr)
+                    + nbytes(*out_k), search[0] + live7 * OPS_SHADE)
+    checks["K7"] = {"train": dict(launches=tlaunch["K7"], max_abs_err=max(err, res_err),
+                                  ms=ms, plain_ms=pms, bound_ms=b7, bound_by=by7)}
+    print(f"phase 6 K7 N={a[1].shape[1]} nb={a[7]}: lanes agree {frac:.6f} max|dacc| "
+          f"{err:.3e}, residuals on agreeing lanes max|d| {res_err:.3e} (without residuals: "
+          f"lanes {frac_nr:.6f} max|dacc| {err_nr:.3e}); kernel {ms:.3f} ms ({ms_nr:.3f} "
+          f"without residuals) plain {pms:.1f} ms bound {b7:.3f} ms ({by7}); live "
+          f"bounces {live7}")
+
+    # K8 against its plain version on each of the first step's calls
+    k8 = []
+    for a, kw in tcapt["K8"]:
+        o1 = mk.bounce_bwd_step(*a, **kw)
+        o2 = mk.bounce_bwd_step(*a, **kw)
+        with plain("K8"):
+            op = mk.bounce_bwd_step(*a, **kw)  # (the first call also warms torch.func up)
+            pms, _ = once_ms(lambda: mk.bounce_bwd_step(*a, **kw))
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x, y) for x, y in zip(o1, o2))
+        sc = op[0].abs().max().item()
+        frac = torch.all(torch.isclose(o1[0], op[0], rtol=1e-3, atol=1e-5 * sc),
+                         dim=0).float().mean().item()
+        dm = (o1[1] - op[1]).abs().max().item()
+        de = (o1[2] - op[2]).abs().max().item()
+        gm = op[1].abs().max().item()
+        ge = op[2].abs().max().item()
+        finite = all(bool(torch.isfinite(x).all()) for x in o1)
+        if not (bitwise and finite and frac >= 0.999 and dm <= 1e-3 * gm + 1e-6
+                and de <= 1e-3 * ge + 1e-6):
+            fail(f"K8 disagrees with its plain version: bitwise {bitwise}, finite {finite}, "
+                 f"lanes {frac}, d_mat {dm} of {gm}, d_env {de} of {ge}")
+        ms = events_ms(lambda: mk.bounce_bwd_step(*a, **kw), 5)
+        state_in, t_in = a[1], a[2]
+        hit = (state_in[9] != 0) & torch.isfinite(t_in) & (t_in > 0)
+        miss = (state_in[9] != 0) & ~hit
+        ops = int(hit.sum().item()) * OPS_BWD_HIT + int(miss.sum().item()) * OPS_BWD_MISS
+        b8, by8 = bound(nbytes(*a[1:6]) + nbytes(*o1), ops)
+        k8.append(dict(ms=ms, plain_ms=pms, bound_ms=b8, bound_by=by8,
+                       max_abs_err=max((o1[0] - op[0]).abs().max().item(), dm, de)))
+        print(f"phase 6 K8 bounce {len(tcapt['K8']) - len(k8)} N={state_in.shape[1]} hit "
+              f"lanes {int(hit.sum())}: bitwise repeat {bitwise}, cot lanes agree {frac:.6f} "
+              f"max|d| {(o1[0] - op[0]).abs().max().item():.3e} of {sc:.3e}, d_mat max|d| "
+              f"{dm:.3e} of {gm:.3e}, d_env {de:.3e} of {ge:.3e}; kernel {ms:.4f} ms plain "
+              f"{pms:.1f} ms bound {b8:.4f} ms ({by8})")
+    mean = lambda key: sum(r[key] for r in k8) / len(k8)
+    checks["K8"] = {"train": dict(
+        launches=tlaunch["K8"], max_abs_err=max(r["max_abs_err"] for r in k8),
+        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by=max(k8, key=lambda r: r["bound_ms"])["bound_by"])}
+    del tcapt, out_k, out_p, kern_nr
+
+    # the card's step against the CPU's on a 32^2 crop of cornell 512^2
+    cparams = RenderParams(width=512, height=512, max_depth=5, seed=1, intersector="kernel")
+    sb = SceneBuilder()
+    ccam = create_scene(sb, "cornell", cparams)
+    cscene = sb.build()
+    cparams = cparams.replace(epsilon=auto_epsilon(cscene, ccam))
+    cx = torch.arange(32 * 32, dtype=torch.int32) % 32 + 240
+    cy = torch.arange(32 * 32, dtype=torch.int32) // 32 + 240
+    ctarget = torch.full((32 * 32, 3), 0.25)
+    cstate = TrainState(cscene.materials, ccam, 0)
+    outs = {}
+    for where_ in ("cuda", "cpu"):
+        cstep = make_sharded_train_step(cscene, cparams, learning_rate=0.05,
+                                        differentiate_camera=True, device=where_)
+        outs[where_] = cstep(cstate, tkey, cx, cy, ctarget)
+    (lc, sc_), (lh, sh) = outs["cuda"], outs["cpu"]
+    worst = {}
+    for grp, new_c, new_h, old in (("materials", sc_.materials, sh.materials, cscene.materials),
+                                   ("camera", sc_.camera, sh.camera, ccam)):
+        for f, c, h, o in zip(new_h._fields, new_c, new_h, old):
+            dc, dh = c.cpu() - o, h - o
+            scale = max(dh.abs().max().item(), 1e-12)
+            worst[f"{grp}.{f}"] = (dc - dh).abs().max().item() / scale
+    loss_rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    bad = {k: v for k, v in worst.items() if v > (1e-2 if k == "materials.ior" else 1e-3)}
+    if loss_rel > 1e-4 or bad:
+        fail(f"card step vs CPU step on the cornell crop: loss rel {loss_rel}, updates {bad}")
+    print(f"phase 6 card vs CPU train step, cornell 32^2 crop of 512^2 (16384 lanes, camera "
+          f"gradients on): loss {float(lc):.6e} vs {float(lh):.6e} (rel {loss_rel:.2e}); "
+          f"largest update difference relative to the field's largest update: "
+          f"{max(worst.values()):.2e} ({max(worst, key=worst.get)})")
+
     # one row per kernel: the numbers of the path that carries it (the
-    # CLI-default cornell render for K2 and K4, square cornell for K5),
-    # and every path's under "by_path"
-    head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell"}
+    # CLI-default cornell render for K2 and K4, square cornell for K5, the
+    # training steps for K7 and K8: K8's numbers are the mean over the four
+    # bounces of the first step), and every path's under "by_path"
+    head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
+            "K8": "train"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -563,9 +842,13 @@ def main(argv=None) -> int:
                "pt_three_ways_tpu/ops/pallas_megakernel.py:1172"),
         "K4": ("K4 fused_passes_krng", "pt_three_ways_tpu_torch/csrc/megakernel.cu",
                "pt_three_ways_tpu/ops/pallas_megakernel.py:1714"),
+        "K7": ("K7 fused_bounces", "pt_three_ways_tpu_torch/csrc/fused_bounces.cu",
+               "pt_three_ways_tpu/ops/pallas_megakernel.py:883"),
+        "K8": ("K8 bounce_bwd_step", "pt_three_ways_tpu_torch/csrc/bounce_bwd.cu",
+               "pt_three_ways_tpu/ops/pallas_megakernel.py:2578"),
     }
     rows = []
-    for k in ("K2", "K5", "K4"):
+    for k in ("K2", "K5", "K4", "K7", "K8"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          path=head[k], **checks[k][head[k]], library_ms=None,

@@ -7,5 +7,6 @@ the JAX package beside it is the reference its tests compare against.
 
 Layout mirrors the JAX package: ``utils/`` (params, framebuffer, PNG, OBJ),
 ``ops/`` (RNG, vector math, camera, intersection, the kernels),
-``models/`` (materials, scene, catalog, integrator, render) and ``cli.py``.
+``models/`` (materials, scene, catalog, integrator, render, replay),
+``parallel/`` (the training step) and ``cli.py``.
 """

@@ -14,8 +14,9 @@ JAX package's ``models/integrator.py``:
   * emission added per shading event; hard depth cutoff returning black.
 
 Two paths: ``trace_pass`` (one sample pass, one bounce per loop step — the
-path the CPU render and the golden images use) and ``trace_passes_fused``
-(the camera stage for S passes, then ONE regenerating megakernel launch:
+path the CPU render and the golden images use — or, with the kernel
+backend, the pass's bounces in one launch of kernel K7) and
+``trace_passes_fused`` (the camera stage for S passes, then ONE regenerating megakernel launch:
 kernel K5 with table uniforms or K4 with in-kernel RNG). All draws come
 from the same threefry streams as the JAX package (ops/rng.py).
 """
@@ -92,12 +93,16 @@ def effective_reflectivity(mat: GatheredMat, hits: Hits, dirn) -> torch.Tensor:
 
 
 def branch_weight(refl: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
-    """Weight of the sampled event branch: P_chosen / P_chosen, which is 1.0
-    in the forward pass (the JAX package keeps it for its gradients)."""
+    """Likelihood-ratio weight of the sampled event branch:
+    P_chosen / stop_grad(P_chosen). It is exactly 1.0 in the forward pass;
+    in the backward it carries the derivative of the discrete event's
+    probability (Fresnel -> camera and ior, fixed reflectivity), which the
+    comparison ``p < refl`` alone would drop."""
+    refl_hat = refl.detach()
     return torch.where(
         spec,
-        refl / torch.clamp(refl, min=1e-12),
-        (1.0 - refl) / torch.clamp(1.0 - refl, min=1e-12),
+        refl / torch.clamp(refl_hat, min=1e-12),
+        (1.0 - refl) / torch.clamp(1.0 - refl_hat, min=1e-12),
     )
 
 
@@ -188,10 +193,24 @@ def _bounce_uniforms(key, d: int, n: int, device):
     return rng.uniforms(rng.fold_in(bkey, d), (3, n), device)
 
 
+def bounce_rows(key, nb: int, n: int, device) -> torch.Tensor:
+    """[4*nb, N] uniform table of the table-driven kernels: rows (u, acos u,
+    v, p) for depths 1..nb, on the scan's streams (acos precomputed outside
+    the kernels)."""
+    rows = []
+    for d in range(1, nb + 1):
+        bu = _bounce_uniforms(key, d, n, device)
+        acos_u = facos(torch.clamp(bu[0], 0.0, 1.0))
+        rows.append(torch.stack([bu[0], acos_u, bu[1], bu[2]]))
+    return torch.cat(rows, dim=0) if rows else torch.zeros((0, n), device=device)
+
+
 def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
                tri_chunk: int = 1024):
-    """One 1-spp pass over a tile of pixels -> radiance [R, 3]; the scan
-    wavefront (one bounce per loop step)."""
+    """One 1-spp pass over a tile of pixels -> radiance [R, 3]: the scan
+    wavefront (one bounce per loop step) or, with the kernel backend and
+    ``fused`` on, ``kill_dead_paths`` on and ``remat`` off, all bounces in
+    one launch of kernel K7 (same streams, same estimator)."""
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
@@ -233,10 +252,22 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     )
 
     n_bounces = max(params.max_depth - 1, 0)
-    for d in range(1, n_bounces + 1):
-        bu = _bounce_uniforms(key, d, r0 * k, dev)
-        state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
-                       kill_dead=params.kill_dead_paths)
+    if (backend == "kernel" and params.fused != "off" and not params.remat
+            and params.kill_dead_paths and n_bounces > 0):
+        # kernel K7: the whole depth chain in one launch, on the same
+        # streams as the loop below
+        from ..ops.megakernel import PackedSceneFused, fused_bounces
+
+        acc, _ = fused_bounces(
+            PackedSceneFused(scene), state.org, state.dirn, state.beta, state.alive,
+            bounce_rows(key, n_bounces, r0 * k, dev), eps, n_bounces,
+        )
+        state = state._replace(acc=acc)
+    else:
+        for d in range(1, n_bounces + 1):
+            bu = _bounce_uniforms(key, d, r0 * k, dev)
+            state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
+                           kill_dead=params.kill_dead_paths)
 
     path_mean = state.acc.reshape(3, r0, k).mean(dim=2)
     hit_colour = mat0.emission + path_mean
@@ -294,19 +325,10 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
         [hits0x.pos, dir1, beta1, alive1.to(torch.float32)[None, :]], dim=0
     )  # [10, R*K]
 
-    nb = max(params.max_depth - 1, 0)
     if not want_unif:
         return state_rows, base, None
-    rows = []
-    for d in range(1, nb + 1):
-        bu = _bounce_uniforms(key, d, r0 * k, dev)
-        acos_u = facos(torch.clamp(bu[0], 0.0, 1.0))
-        rows.append(torch.stack([bu[0], acos_u, bu[1], bu[2]]))
-    unif_rows = (
-        torch.cat(rows, dim=0) if rows
-        else torch.zeros((0, r0 * k), device=dev)
-    )
-    return state_rows, base, unif_rows
+    nb = max(params.max_depth - 1, 0)
+    return state_rows, base, bounce_rows(key, nb, r0 * k, dev)
 
 
 def lane_ids_for(px, py, width: int, k: int) -> torch.Tensor:

@@ -52,6 +52,16 @@ _SIGNATURES = {
     # resid_out, n, s_count, nb, eps, thresh, no_glossy, block, stream
     "pt3_regen_krng": [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
                        P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
+    # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
+    # org, dir, beta, alive, unif, acc, cnt, states, ts, idxs, n, nb, eps,
+    # no_glossy, stream
+    "pt3_fused_bounces": [P, P, P, P, I, I, I, F, F, F,
+                          P, P, P, P, P, P, P, P, P, P, I, I, F, I, P],
+    # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
+    # tri_mat, sph_mat, n_mat, state, ts, idxs, unif, cot_out, cot_in,
+    # partial, d_out, n, stream
+    "pt3_bounce_bwd": [P, P, P, P, I, I, I, F, F, F,
+                       P, P, I, P, P, P, P, P, P, P, P, I, P],
 }
 
 

@@ -23,6 +23,12 @@ same winners as the TPU kernel's whole-tile test. The reciprocal keeps the
 
 The plain PyTorch version (``intersect_plain``) repeats the arithmetic on
 whole [*, R] tensors; the wrapper takes it only for CPU tensors.
+
+Gradient: when a ray requires one, ``intersect_packed`` goes through a
+``torch.autograd.Function`` whose backward is the implicit-function-theorem
+ray derivative of ``t`` (``intersect_vjp``), as the JAX kernel's custom VJP
+(``_kernel_tx_bwd``). That backward is elementwise gather work, plain
+PyTorch on both sides (XLA in the JAX package, not Pallas).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from . import _cuda
 from .vecmath import fsqrt
+from .xla_cpu import fma
 
 TC = 64  # triangles per chunk == box-hierarchy leaf size
 SC = 64  # spheres per chunk
@@ -241,10 +248,73 @@ def _check_inputs(packed: PackedScene, org, dirn, live):
         raise ValueError(f"intersect_packed: tensors on several devices {devs}")
 
 
+def intersect_vjp(packed: PackedScene, org, dirn, t, idx, t_bar):
+    """The ray derivative of the winner distance (the JAX package's
+    ``pallas_intersect._kernel_tx_bwd``), by the implicit function theorem:
+    dt/d_org = -g / (g.d) and dt/d_dir = -t g / (g.d), g the winner's
+    unnormalised geometric normal (the Woop w-row of a triangle, x - c of a
+    sphere); |g.d| <= 1e-20 and misses give 0. Returns (d_org, d_dir)."""
+    n_tri, n_sph = packed.n_tri, packed.n_sph
+    hit = torch.isfinite(t)
+    t_safe = torch.where(hit, t, torch.zeros_like(t))
+    tri_win = (idx < n_tri) & hit
+    izero = torch.zeros_like(idx)
+    i_t = torch.where(tri_win, idx, izero).long()
+    i_s = torch.where(tri_win | ~hit, izero, idx - n_tri).long()
+    g_tri = packed.tri_tab[i_t, 8:11].T if n_tri else torch.zeros_like(org)
+    g_sph = (fma(t_safe, dirn, org) - packed.sph_tab[i_s, 0:3].T) if n_sph \
+        else torch.zeros_like(org)
+    return winner_t_vjp(torch.where(tri_win, g_tri, g_sph), dirn, t, t_bar)
+
+
+def winner_t_vjp(g, dirn, t, t_bar):
+    """(d_org, d_dir) of a winner distance ``t`` [R] (+inf on a miss) with
+    cotangent ``t_bar``, given the winner's unnormalised geometric normal
+    ``g`` [3, R]: -g / (g.d) and -t g / (g.d), 0 where |g.d| <= 1e-20 or
+    the ray missed."""
+    hit = torch.isfinite(t)
+    zero = torch.zeros_like(t)
+    t_safe = torch.where(hit, t, zero)
+    gd = g[0] * dirn[0] + g[1] * dirn[1] + g[2] * dirn[2]
+    inv = torch.where(gd.abs() > 1e-20, 1.0 / torch.where(gd == 0, torch.ones_like(gd), gd),
+                      zero)
+    scale = torch.where(hit, -torch.where(hit, t_bar, zero) * inv, zero)
+    return g * scale, g * (scale * t_safe)
+
+
+def _intersect(packed, org, dirn, live, eps):
+    if org.device.type == "cuda":
+        return _intersect_cuda(packed, org, dirn, live, eps)
+    if org.device.type != "cpu":
+        raise ValueError(f"intersect_packed: unsupported device {org.device}")
+    return intersect_plain(packed, org.float(), dirn.float(), live, eps)
+
+
+class _Intersect(torch.autograd.Function):
+    """K2 (or its plain version) as the forward; the analytic ray
+    derivative of ``t`` as the backward. The tables, ``live`` and the
+    winner index get no cotangent: geometry and liveness are constants."""
+
+    @staticmethod
+    def forward(ctx, org, dirn, live, packed, eps):
+        t, idx = _intersect(packed, org, dirn, live, eps)
+        ctx.packed = packed
+        ctx.save_for_backward(org, dirn, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, t_bar, _idx_bar):
+        org, dirn, t, idx = ctx.saved_tensors
+        d_org, d_dir = intersect_vjp(ctx.packed, org.float(), dirn.float(), t, idx, t_bar)
+        return d_org.to(org.dtype), d_dir.to(dirn.dtype), None, None, None
+
+
 def intersect_packed(packed: PackedScene, org: torch.Tensor, dirn: torch.Tensor,
                      eps: float, live: torch.Tensor | None = None):
     """Nearest hit per ray. org/dirn: [3, R]; live: [R] bool (None = all).
-    Returns (t [R] float32, +inf on miss; packed idx [R] int32).
+    Returns (t [R] float32, +inf on miss; packed idx [R] int32). ``t`` is
+    differentiable w.r.t. org and dirn (``intersect_vjp``).
 
     CUDA tensors launch the kernel (and raise if it fails); CPU tensors
     take the plain version."""
@@ -252,11 +322,9 @@ def intersect_packed(packed: PackedScene, org: torch.Tensor, dirn: torch.Tensor,
         live = torch.ones((org.shape[1],), dtype=torch.bool, device=org.device)
     live = live.to(torch.bool)
     _check_inputs(packed, org, dirn, live)
-    if org.device.type == "cuda":
-        return _intersect_cuda(packed, org, dirn, live, eps)
-    if org.device.type != "cpu":
-        raise ValueError(f"intersect_packed: unsupported device {org.device}")
-    return intersect_plain(packed, org.float(), dirn.float(), live, eps)
+    if torch.is_grad_enabled() and (org.requires_grad or dirn.requires_grad):
+        return _Intersect.apply(org, dirn, live, packed, eps)
+    return _intersect(packed, org, dirn, live, eps)
 
 
 intersect_packed.launches = 0

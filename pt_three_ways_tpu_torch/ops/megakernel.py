@@ -1,6 +1,6 @@
-"""Kernels K5 and K4: the regenerating path-tracing megakernels.
+"""The path-tracing megakernels: K5 and K4 (rendering), K7 and K8 (training).
 
-Both trace S sample passes per lane in one launch. A lane is a fixed
+K5 and K4 trace S sample passes per lane in one launch. A lane is a fixed
 (pixel, sub-stratum) slot; when its path dies it reloads the next alive
 sample's first-bounce state (computed by the camera stage,
 models/integrator._first_bounce_state) and keeps tracing, so occupancy stays
@@ -39,6 +39,19 @@ that. Without tail compaction each thread loops until its own lane is
 exhausted, so a warp's cost is its longest lane; with it, the loop is
 block-synchronous (``__syncthreads_count`` of the live lanes).
 
+K7 ``fused_bounces`` replaces ``_megakernel`` / ``_run_fused`` /
+``fused_bounces``: the ``nb`` bounces of ONE sample pass per lane with table
+uniforms ``[4*nb, N]`` and, ``with_residuals``, the path-replay residuals
+(each bounce's input state and winner) that the training path's backward
+replays (``csrc/fused_bounces.cu``). K8 ``bounce_bwd_step`` replaces
+``_bounce_bwd_kernel`` / ``_bounce_bwd_body`` / ``_run_bounce_bwd`` /
+``bounce_bwd_step``: the VJP of one replayed bounce. The JAX kernel's body
+is ``jax.vjp`` of the bounce; the CUDA kernel's is the same derivative
+written by hand in reverse mode (``csrc/replay.cuh``), and its material
+gradient is summed over lanes without float atomics, in a fixed order
+(``csrc/bounce_bwd.cu``). Its plain version is ``torch.func.vjp`` of the
+same function with the same guards.
+
 Beside each kernel is its plain PyTorch version on whole [*, N] tensors
 (masked loop iterations, like the Pallas body); the wrappers take it only
 for CPU tensors.
@@ -66,28 +79,39 @@ _M32 = 0xFFFFFFFF
 class PackedSceneFused(PackedScene):
     """PackedScene + per-primitive attribute rows for the megakernels:
     ``tri_attr`` [T, 30] and ``sph_attr`` [S, 12] float32, in the column
-    order of the JAX package's ``tri_coef``/``sph_coef`` rows."""
+    order of the JAX package's ``tri_coef``/``sph_coef`` rows; for the
+    training kernels also each primitive's material id (``tri_mat``,
+    ``sph_mat``) and the material table as ``mat9`` [M, 9] (emission 3,
+    diffuse 3, ior, reflectivity, cone angle).
+
+    The tables are kernel inputs and never differentiated through: they are
+    built from detached materials, so a training step's material gradient
+    comes only from the kernels' backward (K8) and never twice."""
 
     def __init__(self, scene):
         super().__init__(scene)
-        mats = scene.materials
+        mats = type(scene.materials)(*(m.detach() for m in scene.materials))
         dev = scene.device
         f32 = torch.float32
         cone = mats.cone_angle
         self.no_glossy = bool(cone.numel() == 0 or float(cone.max()) < EPSILON)
+        self.mat9 = torch.cat(
+            [mats.emission.to(f32), mats.diffuse.to(f32), mats.ior.to(f32)[:, None],
+             mats.reflectivity.to(f32)[:, None], mats.cone_angle.to(f32)[:, None]],
+            dim=1,
+        ).contiguous()
+        self.n_mat = int(self.mat9.shape[0])
 
         def mat_rows(mid):
-            mid = mid.long()
-            return torch.cat(
-                [
-                    mats.emission.to(f32)[mid],
-                    mats.diffuse.to(f32)[mid],
-                    mats.ior.to(f32)[mid][:, None],
-                    mats.reflectivity.to(f32)[mid][:, None],
-                    mats.cone_angle.to(f32)[mid][:, None],
-                ],
-                dim=1,
-            )
+            return self.mat9[mid.long()]
+
+        def ids(mid):
+            if mid.numel() == 0:
+                return torch.zeros((1,), dtype=torch.int32, device=dev)
+            return mid.to(torch.int32).contiguous()
+
+        self.tri_mat = ids(scene.triangles.mat_id)
+        self.sph_mat = ids(scene.spheres.mat_id)
 
         if self.n_tri:
             tri = scene.triangles
@@ -108,7 +132,7 @@ class PackedSceneFused(PackedScene):
             ).contiguous()
         else:
             self.sph_attr = torch.zeros((1, SPH_ATTR), dtype=f32, device=dev)
-        self.environment = scene.environment.to(f32)
+        self.environment = scene.environment.detach().to(f32)
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +438,195 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
     return acc, cnt, resid
 
 
+def fused_bounces_plain(pk: PackedSceneFused, org, dirn, beta, alive, unif,
+                        eps: float, nb: int, with_residuals: bool = False):
+    """Plain version of K7: ``nb`` bounces of every lane with table uniforms
+    ``unif`` [4*nb, N] (u, acos u, v, p per bounce). Returns (acc [3, N],
+    cnt [N] int32) and, ``with_residuals``, each bounce's input state
+    [13*nb, N] (org3 dir3 beta3 alive1 acc3) and winner (t [nb, N], +inf on
+    a miss; idx [nb, N], 0 on a miss)."""
+    n = org.shape[1]
+    dev = org.device
+    st = torch.cat([org, dirn, beta, alive.to(torch.float32)[None, :]]).to(torch.float32)
+    acc = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+    states, ts, idxs = [], [], []
+    for d in range(nb):
+        if with_residuals:
+            states.append(torch.cat([st, acc]))
+        active = st[9] != 0.0
+        t, idx, hit = _bounce_common(pk, st, acc, cnt, active, False, eps)
+        if with_residuals:
+            ts.append(torch.where(hit, t, torch.full_like(t, float("inf"))))
+            idxs.append(torch.where(hit, idx, torch.zeros_like(idx)))
+        u, au, v, p = (unif[4 * d + k] for k in range(4))
+        _shade_plain(pk, st, acc, t, idx, hit, u, au, v, p, pk.no_glossy)
+    if not with_residuals:
+        return acc, cnt
+    return acc, cnt, torch.cat(states), torch.stack(ts), torch.stack(idxs)
+
+
+def _bounce_fn(pk: PackedSceneFused, state, t, idx, unif):
+    """(f, t_c, hit, g) for the plain K8: f(st, mat9, env, t) is the output
+    state [13, N] of one bounce from the saved input state, as the JAX
+    package's _bounce_bwd_body writes it for jax.vjp, guards included."""
+    n_tri, n_sph = pk.n_tri, pk.n_sph
+    alive = state[9] != 0.0
+    hit = alive & torch.isfinite(t) & (t > 0.0)
+    zero = torch.zeros_like(t)
+    one = torch.ones_like(t)
+    t_c = torch.where(hit, t, zero)
+    tri_win = hit & (idx < n_tri)
+    sph_win = hit & ~tri_win
+    i_t = torch.where(tri_win, idx, torch.zeros_like(idx)).long()
+    i_s = torch.where(sph_win, idx - n_tri, torch.zeros_like(idx)).long()
+    geo_t = pk.tri_attr[i_t, :21].T if n_tri else None  # woop 12, normals 9
+    geo_s = pk.sph_attr[i_s, :3].T if n_sph else None  # centre
+    mid = torch.zeros_like(i_t)
+    if n_tri:
+        mid = torch.where(tri_win, pk.tri_mat.long()[i_t], mid)
+    if n_sph:
+        mid = torch.where(sph_win, pk.sph_mat.long()[i_s], mid)
+    u, acos_u, v, p_ev = unif[0], unif[1], unif[2], unif[3]
+    mf = (alive & ~hit).to(torch.float32)
+    hf = hit.to(torch.float32)
+
+    def unit_where(cond, x, y, z):
+        return torch.where(cond, x, one), torch.where(cond, y, zero), torch.where(cond, z, zero)
+
+    def f(st, mat9, env, tt):
+        ox, oy, oz, dx, dy, dz, bx, by, bz = (st[r] for r in range(9))
+        acc0 = st[10] + mf * bx * env[0]
+        acc1 = st[11] + mf * by * env[1]
+        acc2 = st[12] + mf * bz * env[2]
+        px_ = ox + tt * dx
+        py_ = oy + tt * dy
+        pz_ = oz + tt * dz
+        if n_tri:
+            a = geo_t
+            o_u = a[0] * ox + a[1] * oy + a[2] * oz + a[3]
+            o_v = a[4] * ox + a[5] * oy + a[6] * oz + a[7]
+            d_u = a[0] * dx + a[1] * dy + a[2] * dz
+            d_v = a[4] * dx + a[5] * dy + a[6] * dz
+            d_w = a[8] * dx + a[9] * dy + a[10] * dz
+            uu = o_u + tt * d_u
+            vv = o_v + tt * d_v
+            inx = a[12] + uu * (a[15] - a[12]) + vv * (a[18] - a[12])
+            iny = a[13] + uu * (a[16] - a[13]) + vv * (a[19] - a[13])
+            inz = a[14] + uu * (a[17] - a[14]) + vv * (a[20] - a[14])
+            # normalise(0) has infinite partials: a unit vector where untaken
+            inx, iny, inz = _normalise3(*unit_where(tri_win, inx, iny, inz))
+            flip_t = torch.where(d_w > 0.0, -one, one)
+            tn = (inx * flip_t, iny * flip_t, inz * flip_t)
+            t_inside = d_w > 0.0
+        if n_sph:
+            c = geo_s
+            snx, sny, snz = _normalise3(*unit_where(sph_win, px_ - c[0], py_ - c[1], pz_ - c[2]))
+            s_inside = snx * dx + sny * dy + snz * dz > 0.0
+            flip_s = torch.where(s_inside, -one, one)
+            sn = (snx * flip_s, sny * flip_s, snz * flip_s)
+        if n_tri and n_sph:
+            nx, ny, nz = (torch.where(tri_win, tn[k], sn[k]) for k in range(3))
+            inside = (tri_win & t_inside) | (~tri_win & s_inside)
+        elif n_tri:
+            (nx, ny, nz), inside = tn, t_inside
+        else:
+            (nx, ny, nz), inside = sn, s_inside
+        m = torch.where(hit[None, :], mat9[mid].T, torch.zeros((9, 1), device=st.device))
+        emr, emg, emb, dir_, dig, dib, ior, refl0, cone = m
+        ior = torch.where(hit, ior, one)  # no 0/0 on lanes without a winner
+        acc0 = acc0 + hf * bx * emr
+        acc1 = acc1 + hf * by * emg
+        acc2 = acc2 + hf * bz * emb
+
+        ior_from = torch.where(inside, ior, one)
+        ior_to = torch.where(inside, one, ior)
+        ratio = ior_from / ior_to
+        cos_i = torch.where(hit, -(dx * nx + dy * ny + dz * nz), one)
+        sin_t_sq = ratio * ratio * (1.0 - cos_i * cos_i)
+        # double-where sqrt: sqrt'(0) = inf stays out of the untaken branch
+        ct_pos = 1.0 - sin_t_sq > 0.0
+        cos_t = torch.where(ct_pos, fsqrt(torch.where(ct_pos, 1.0 - sin_t_sq, one)), zero)
+        den_f = ior_from * cos_i + ior_to * cos_t
+        ok_f = den_f > 0.0
+        r_perp = torch.where(ok_f, (ior_from * cos_i - ior_to * cos_t)
+                             / torch.where(ok_f, den_f, one), one)
+        fresnel = torch.where(sin_t_sq > 1.0, one, r_perp * r_perp)
+        refl = torch.where(refl0 < 0.0, fresnel, refl0)
+        spec = p_ev < refl
+
+        rdot = 2.0 * (dx * nx + dy * ny + dz * nz)
+        # pad and dead lanes carry d = 0 (r = 0): a unit r where untaken
+        rx, ry, rz = unit_where(hit, dx - nx * rdot, dy - ny * rdot, dz - nz * rdot)
+        theta = cone * (1.0 - 2.0 * acos_u / math.pi)
+        cradius = fsin(theta)
+        cz_scale = fcos(theta)
+        rth = v * (2.0 * math.pi)
+        (cxx, cxy, cxz), (cyx, cyy, cyz) = _onb_from_z(rx, ry, rz)
+        lx = fcos(rth) * cradius
+        ly = fsin(rth) * cradius
+        sx, sy, sz = _normalise3(cxx * lx + cyx * ly + rx * cz_scale,
+                                 cxy * lx + cyy * ly + ry * cz_scale,
+                                 cxz * lx + cyz * ly + rz * cz_scale)
+        mirror = cone < EPSILON
+        conex, coney, conez = (torch.where(mirror, a_, b_)
+                               for a_, b_ in ((rx, sx), (ry, sy), (rz, sz)))
+
+        (hxx, hxy, hxz), (hyx, hyy, hyz) = _onb_from_z(nx, ny, nz)
+        hth = (2.0 * math.pi) * u
+        hr = fsqrt(torch.clamp(v, min=0.0))
+        hlx = fcos(hth) * hr
+        hly = fsin(hth) * hr
+        hlz = fsqrt(torch.clamp(1.0 - v, min=0.0))
+        hx, hy, hz = _normalise3(hxx * hlx + hyx * hly + nx * hlz,
+                                 hxy * hlx + hyy * hly + ny * hlz,
+                                 hxz * hlx + hyz * hly + nz * hlz)
+        ndx, ndy, ndz = (torch.where(spec, a_, b_)
+                         for a_, b_ in ((conex, hx), (coney, hy), (conez, hz)))
+
+        # likelihood-ratio branch weight, primal 1 (integrator.branch_weight)
+        refl_hat = refl.detach()
+        w = torch.where(spec, refl / torch.clamp(refl_hat, min=1e-12),
+                        (1.0 - refl) / torch.clamp(1.0 - refl_hat, min=1e-12))
+        sf = spec.to(torch.float32)
+        nbx = bx * (sf + (1.0 - sf) * dir_) * w
+        nby = by * (sf + (1.0 - sf) * dig) * w
+        nbz = bz * (sf + (1.0 - sf) * dib) * w
+        rows = [torch.where(hit, a_, b_) for a_, b_ in
+                ((px_, ox), (py_, oy), (pz_, oz), (ndx, dx), (ndy, dy), (ndz, dz),
+                 (nbx, bx), (nby, by), (nbz, bz))]
+        return torch.stack(rows + [zero, acc0, acc1, acc2])
+
+    # the winner's unnormalised geometric normal: the Woop w-row of a
+    # triangle, x - c of a sphere
+    g_sph = state[0:3] + t_c * state[3:6] - geo_s if n_sph else None
+    if n_tri and n_sph:
+        g = torch.where(tri_win[None, :], geo_t[8:11], g_sph)
+    else:
+        g = geo_t[8:11] if n_tri else g_sph
+    return f, t_c, hit, g
+
+
+def bounce_bwd_plain(pk: PackedSceneFused, state, t, idx, unif, cot_out):
+    """Plain version of K8: ``torch.func.vjp`` of the bounce ``f`` (the JAX
+    package's kernel body is ``jax.vjp`` of the same function) at the saved
+    input state [13, N], winner (t, idx [N]) and uniforms [4, N], with the
+    winner distance's implicit-function-theorem term. Returns (cot_in
+    [13, N], d_mat [M, 9] (emission 3, diffuse 3, ior, reflectivity, cone),
+    d_env [3])."""
+    f, t_c, hit, g = _bounce_fn(pk, state, t, idx, unif)
+    _, vjp = torch.func.vjp(f, state, pk.mat9, pk.environment, t_c)
+    d_st, d_mat, d_env, d_t = vjp(cot_out)
+    # winner distance: dt/do = -g / (g.d), dt/dd = -t g / (g.d)
+    dirn = state[3:6]
+    gd = g[0] * dirn[0] + g[1] * dirn[1] + g[2] * dirn[2]
+    inv = torch.where(gd.abs() > 1e-20, 1.0 / torch.where(gd == 0.0, torch.ones_like(gd), gd),
+                      torch.zeros_like(gd))
+    scale = torch.where(hit, -d_t * inv, torch.zeros_like(gd))
+    d_st = d_st + torch.cat([g * scale, g * scale * t_c, torch.zeros_like(d_st[6:])])
+    return d_st, d_mat, d_env
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -459,6 +672,47 @@ def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
     _cuda.check(err, "pt3_regen_krng")
     fused_passes_krng.launches += 1
     return acc, cnt, resid_out
+
+
+def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residuals):
+    n = org.shape[1]
+    dev = org.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc = torch.empty((3, n), **f32)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    res = ((torch.empty((13 * nb, n), **f32), torch.empty((nb, n), **f32),
+            torch.empty((nb, n), dtype=torch.int32, device=dev))
+           if with_residuals else (None, None, None))
+    err = _cuda.lib().pt3_fused_bounces(
+        *_scene_ptrs(pk), org.data_ptr(), dirn.data_ptr(), beta.data_ptr(),
+        alive.data_ptr(), unif.data_ptr(), acc.data_ptr(), cnt.data_ptr(),
+        *(_cuda.ptr(r) for r in res), n, nb, float(eps), int(pk.no_glossy),
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "pt3_fused_bounces")
+    fused_bounces.launches += 1
+    return (acc, cnt, *res) if with_residuals else (acc, cnt)
+
+
+BWD_BLOCK = 128  # lanes per K8 block (csrc/bounce_bwd.cu kBlock)
+
+
+def _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out):
+    n = state.shape[1]
+    dev = state.device
+    n_col = 9 * pk.n_mat + 3
+    cot_in = torch.empty((13, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_col, -(-n // BWD_BLOCK)), dtype=torch.float32, device=dev)
+    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
+    err = _cuda.lib().pt3_bounce_bwd(
+        *_scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
+        state.data_ptr(), t.data_ptr(), idx.data_ptr(), unif.data_ptr(),
+        cot_out.data_ptr(), cot_in.data_ptr(), partial.data_ptr(), d_out.data_ptr(),
+        n, _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "pt3_bounce_bwd")
+    bounce_bwd_step.launches += 1
+    return cot_in, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
 
 
 def _device_kind(*tensors) -> str:
@@ -605,3 +859,54 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
 
 
 fused_passes_krng.launches = 0
+
+
+def fused_bounces(pk: PackedSceneFused, org: torch.Tensor, dirn: torch.Tensor,
+                  beta: torch.Tensor, alive: torch.Tensor, unif: torch.Tensor,
+                  eps: float, nb: int, with_residuals: bool = False):
+    """K7: ``nb`` bounces of one sample pass. org/dirn/beta [3, N], alive
+    [N], unif [4*nb, N] rows (u, acos u, v, p) per bounce. Returns (acc
+    [3, N], live-bounce counts [N] int32) and, ``with_residuals``, the
+    path-replay residuals: each bounce's input state [13*nb, N], winner t
+    [nb, N] (+inf on a miss) and packed index [nb, N] (0 on a miss)."""
+    n = org.shape[1]
+    if any(x.shape != (3, n) for x in (dirn, beta)) or alive.shape != (n,) \
+            or unif.shape != (4 * nb, n):
+        raise ValueError("fused_bounces: org/dirn/beta [3, N], alive [N], unif [4*nb, N]")
+    f32 = lambda x: x.detach().to(torch.float32).contiguous()
+    args = (f32(org), f32(dirn), f32(beta), f32(alive), f32(unif))
+    if _device_kind(*args, pk.tri_tab) == "cuda":
+        return _fused_bounces_cuda(pk, *args, eps, nb, with_residuals)
+    return fused_bounces_plain(pk, *args[:3], args[3] != 0.0, args[4], eps, nb,
+                               with_residuals)
+
+
+fused_bounces.launches = 0
+
+# the kernel's shared memory holds 4 warps x (9 * n_mat + 3) floats (48 KB)
+MAX_BWD_MATERIALS = 340
+
+
+def bounce_bwd_step(pk: PackedSceneFused, state: torch.Tensor, t: torch.Tensor,
+                    idx: torch.Tensor, unif: torch.Tensor, cot_out: torch.Tensor):
+    """K8: the VJP of one replayed bounce. state [13, N]: the saved input
+    state (org3 dir3 beta3 alive1 acc3); t, idx [N]: its saved winner; unif
+    [4, N]: its (u, acos u, v, p); cot_out [13, N]: the cotangent of the
+    output state. Returns (cot_in [13, N], d_mat [M, 9] (emission 3,
+    diffuse 3, ior, reflectivity, cone angle), d_env [3]). The geometry
+    (Woop rows, vertex normals, sphere centres) is a constant."""
+    n = state.shape[1]
+    if state.shape != (13, n) or cot_out.shape != (13, n) or unif.shape != (4, n) \
+            or t.shape != (n,) or idx.shape != (n,):
+        raise ValueError("bounce_bwd_step: state/cot_out [13, N], unif [4, N], t/idx [N]")
+    f32 = lambda x: x.detach().to(torch.float32).contiguous()
+    state, t, unif, cot_out = f32(state), f32(t), f32(unif), f32(cot_out)
+    idx = idx.detach().to(torch.int32).contiguous()
+    if _device_kind(state, t, idx, unif, cot_out, pk.tri_tab) == "cuda":
+        if pk.n_mat > MAX_BWD_MATERIALS:
+            raise ValueError(f"bounce_bwd_step: at most {MAX_BWD_MATERIALS} materials")
+        return _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out)
+    return bounce_bwd_plain(pk, state, t, idx, unif, cot_out)
+
+
+bounce_bwd_step.launches = 0

@@ -101,6 +101,11 @@ def pass_key(key: torch.Tensor, pass_index) -> torch.Tensor:
     return fold_in(key, pass_index)
 
 
+def tile_key(key: torch.Tensor, tile_index) -> torch.Tensor:
+    """Per-dispatch-tile / per-device fold so shards draw disjoint streams."""
+    return fold_in(key, tile_index)
+
+
 def stream_key(key: torch.Tensor, stream: int) -> torch.Tensor:
     return fold_in(key, stream)
 

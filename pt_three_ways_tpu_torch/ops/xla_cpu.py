@@ -129,7 +129,8 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """1 / sqrt(x) with XLA's CPU rounding (on the CPU)."""
     if not cpu32(x):
         return 1.0 / torch.sqrt(x)
-    bits = x.view(torch.int32).to(torch.int64)
+    # the estimate is a table constant: its bits carry no gradient
+    bits = x.detach().view(torch.int32).to(torch.int64)
     e = ((bits >> 23) & 0xFF) - 127
     m = (bits >> 13) & 0x3FF
     p = e & 1

@@ -4,8 +4,10 @@ Marked ``cuda``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false (a CUDA kernel has no CPU mode). On a
 machine with a card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Tolerances as in chip_smoke.py: K2 winner index on >= 99.9 % of rays and
-``t`` rtol 1e-5; K4/K5 per-lane ``acc`` rtol 1e-4 / atol 1e-5 with equal
-counts on >= 99 % of lanes.
+``t`` rtol 1e-5; K4/K5/K7 per-lane ``acc`` rtol 1e-4 / atol 1e-5 with equal
+counts on >= 99 % of lanes; K8's input-state cotangents rtol 1e-3 / atol
+1e-5 of the largest on >= 99.9 % of lanes, its material and environment
+gradients within 1e-3 of the largest, and bit-identical on a second run.
 """
 
 import pytest
@@ -99,3 +101,53 @@ def test_card_render_matches_cpu_scan_wavefront(dev, name):
     cpu = render(scene, camera, params, device="cpu").mean()
     ok = (abs(gpu - cpu) <= 2e-4 + 2e-4 * abs(cpu)).all(axis=2)
     assert ok.mean() >= 0.99, ok.mean()
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "example1"])
+def test_training_kernels_match_plain_versions(dev, name):
+    scene, state0, unif, _ = _state(name, dev, s_count=1)
+    pk = mk.PackedSceneFused(scene)
+    nb = 3
+    a = (pk, state0[0:3], state0[3:6], state0[6:9], state0[9] != 0, unif, 1e-4, nb)
+    k7 = mk.fused_bounces(*a, with_residuals=True)
+    p7 = mk.fused_bounces_plain(pk, *(x.contiguous() for x in a[1:6]), 1e-4, nb, True)
+    assert _lanes_agree(k7[:2], p7[:2]) >= 0.99
+    assert (k7[4] == p7[4]).float().mean().item() >= 0.99
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for d in range(nb):
+        args = (pk, k7[2][13 * d:13 * d + 13], k7[3][d], k7[4][d], unif[4 * d:4 * d + 4],
+                torch.randn((13, state0.shape[1]), generator=gen, device=dev))
+        o1 = mk.bounce_bwd_step(*args)
+        o2 = mk.bounce_bwd_step(*args)
+        op = mk.bounce_bwd_plain(*(x.contiguous() if torch.is_tensor(x) else x for x in args))
+        assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+        scale = op[0].abs().max()
+        lanes = torch.all(torch.isclose(o1[0], op[0], rtol=1e-3, atol=1e-5 * scale), dim=0)
+        assert lanes.float().mean().item() >= 0.999
+        for got, ref in zip(o1[1:], op[1:]):
+            assert (got - ref).abs().max() <= 1e-3 * ref.abs().max() + 1e-6
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One replay train step (K2, K7, K8 on the card) against the same step
+    on the CPU (plain versions): loss rtol 1e-4, each material update within
+    1e-3 of the field's largest (ior 1e-2: rounding noise at ior 1)."""
+    from pt_three_ways_tpu_torch.parallel.train import TrainState, make_sharded_train_step
+
+    params = RenderParams(width=16, height=16, first_bounce_u_samples=2,
+                          first_bounce_v_samples=2, max_depth=4, intersector="kernel")
+    sb = SceneBuilder()
+    camera = create_scene(sb, "cornell", params)
+    scene = sb.build()
+    px = torch.arange(256, dtype=torch.int32) % 16
+    py = torch.arange(256, dtype=torch.int32) // 16
+    target = torch.full((256, 3), 0.25)
+    out = {}
+    for where in ("cuda", "cpu"):
+        step = make_sharded_train_step(scene, params, device=where)
+        out[where] = step(TrainState(scene.materials, camera, 0), rng.base_key(2), px, py, target)
+    (lc, sc), (lh, sh) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lh)) <= 1e-4 * abs(float(lh))
+    for f, c, h, o in zip(sh.materials._fields, sc.materials, sh.materials, scene.materials):
+        tol = 1e-2 if f == "ior" else 1e-3
+        assert (c.cpu() - h).abs().max() <= tol * (h - o).abs().max() + 1e-9, f

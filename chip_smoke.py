@@ -31,7 +31,8 @@ Phases (one line each, any failure stops the run):
      residuals forward, four K8 launches backward), each split into forward
      and backward with its peak memory, the launch counters set to 0 just
      before the three steps and read just after; one per-bounce wavefront
-     step (fused="off") with camera gradients through K2's VJP; K7 (with and
+     step (fused="off") at the same size with camera gradients through K2's
+     VJP; K7 (with and
      without residuals) and K8 (each bounce, and twice for bitwise
      repeatability) against their plain versions on the first step's
      inputs, timed; and the card's step against the CPU's on a 32^2 crop of
@@ -68,6 +69,12 @@ OPS_SHADE = 200
 # branch); a live miss adds beta * environment
 OPS_BWD_HIT = 500
 OPS_BWD_MISS = 6
+# bytes the shading adjoint must move per lane: a dead lane only row 9 and
+# its cotangents (4 + 52 in, 52 out); a live miss adds t and beta; a hit
+# lane its whole input (state 13, t, idx, uniforms 4, cot_out 13 floats)
+BWD_BYTES_DEAD = 4 + 52 + 52
+BWD_BYTES_MISS = BWD_BYTES_DEAD + 4 + 12
+BWD_BYTES_HIT = 4 * (13 + 1 + 1 + 4 + 13) + 52
 
 
 def fail(msg: str) -> None:
@@ -689,30 +696,23 @@ def main(argv=None) -> int:
           f"{moved:.4e} (sum |delta|), launches {tlaunch}")
 
     # the per-bounce wavefront with camera gradients (K2's VJP on the card)
-    oparams = RenderParams(width=256, height=256, max_depth=5, seed=1)
-    sb = SceneBuilder()
-    ocam = create_scene(sb, "suzanne", oparams)
-    oscene = sb.build()
-    oparams = oparams.replace(epsilon=auto_epsilon(oscene, ocam))
-    ar = torch.arange(256 * 256, device=dev, dtype=torch.int32)
-    opx, opy = ar % 256, ar // 256
-    ostep = make_sharded_train_step(oscene, oparams, learning_rate=0.05, fused="off",
+    ostep = make_sharded_train_step(tscene, tparams, learning_rate=0.05, fused="off",
                                     differentiate_camera=True)
     ik.intersect_packed.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    oloss, ostate = ostep(TrainState(oscene.materials, ocam, 0), tkey, opx, opy,
-                          torch.full((opx.shape[0], 3), 0.25, device=dev))
+    oloss, ostate = ostep(TrainState(tscene.materials, tcam, 0), tkey, tpx, tpy,
+                          torch.full((tpx.shape[0], 3), 0.25, device=dev))
     torch.cuda.synchronize()
     owall = time.time() - t0
-    cam_moved = sum(float((a.cpu() - b).abs().sum()) for a, b in zip(ostate.camera, ocam))
+    cam_moved = sum(float((a.cpu() - b).abs().sum()) for a, b in zip(ostate.camera, tcam))
     cam_finite = all(bool(torch.isfinite(c).all()) for c in ostate.camera)
     if not (np.isfinite(float(oloss)) and cam_finite and cam_moved > 0.0
             and ik.intersect_packed.launches > 0):
         fail(f"fused='off' step: loss {float(oloss)}, camera finite {cam_finite}, "
              f"moved {cam_moved}, K2 launches {ik.intersect_packed.launches}")
-    print(f"phase 6 wavefront step (fused='off', camera gradients) suzanne 256^2: loss "
+    print(f"phase 6 wavefront step (fused='off', camera gradients) suzanne 512^2: loss "
           f"{float(oloss):.6e}, wall {owall * 1e3:.1f} ms, K2 launches "
           f"{ik.intersect_packed.launches}, camera moved {cam_moved:.4e}, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -778,15 +778,20 @@ def main(argv=None) -> int:
             fail(f"K8 disagrees with its plain version: bitwise {bitwise}, finite {finite}, "
                  f"lanes {frac}, d_mat {dm} of {gm}, d_env {de} of {ge}")
         ms = events_ms(lambda: mk.bounce_bwd_step(*a, **kw), 5)
-        state_in, t_in = a[1], a[2]
-        hit = (state_in[9] != 0) & torch.isfinite(t_in) & (t_in > 0)
-        miss = (state_in[9] != 0) & ~hit
-        ops = int(hit.sum().item()) * OPS_BWD_HIT + int(miss.sum().item()) * OPS_BWD_MISS
-        b8, by8 = bound(nbytes(*a[1:6]) + nbytes(*o1), ops)
+        pk8, state_in, t_in = a[0], a[1], a[2]
+        alive = state_in[9] != 0
+        hit = alive & torch.isfinite(t_in) & (t_in > 0)
+        n_hit, n_alive = int(hit.sum().item()), int(alive.sum().item())
+        n_miss, n_dead = n_alive - n_hit, state_in.shape[1] - n_alive
+        ops = n_hit * OPS_BWD_HIT + n_miss * OPS_BWD_MISS
+        # bytes by lane class, plus the attribute tables and the sums once
+        b8, by8 = bound(n_dead * BWD_BYTES_DEAD + n_miss * BWD_BYTES_MISS
+                        + n_hit * BWD_BYTES_HIT + nbytes(pk8.tri_attr, pk8.sph_attr)
+                        + nbytes(*o1[1:]), ops)
         k8.append(dict(ms=ms, plain_ms=pms, bound_ms=b8, bound_by=by8,
                        max_abs_err=max((o1[0] - op[0]).abs().max().item(), dm, de)))
-        print(f"phase 6 K8 bounce {len(tcapt['K8']) - len(k8)} N={state_in.shape[1]} hit "
-              f"lanes {int(hit.sum())}: bitwise repeat {bitwise}, cot lanes agree {frac:.6f} "
+        print(f"phase 6 K8 bounce {len(tcapt['K8']) - len(k8)} N={state_in.shape[1]} hit / "
+              f"live miss / dead lanes {n_hit} / {n_miss} / {n_dead}: bitwise repeat {bitwise}, cot lanes agree {frac:.6f} "
               f"max|d| {(o1[0] - op[0]).abs().max().item():.3e} of {sc:.3e}, d_mat max|d| "
               f"{dm:.3e} of {gm:.3e}, d_env {de:.3e} of {ge:.3e}; kernel {ms:.4f} ms plain "
               f"{pms:.1f} ms bound {b8:.4f} ms ({by8})")

@@ -20,10 +20,10 @@
 // thread-strided order and a fixed shared-memory tree. No float atomics:
 // the same inputs give bit-identical gradients on every run.
 //
-// Bound: FP32 operations of the recomputed forward and its adjoint per hit
-// lane; the bytes (state, cotangents, winner and uniforms in; cotangents
-// out: 4 * (13 + 1 + 1 + 4 + 13) in, 4 * 13 out per lane) weigh about as
-// much at catalog scene sizes.
+// Traffic: every lane reads its whole input (state, cotangents, winner and
+// uniforms: 4 * (13 + 1 + 1 + 4 + 13) B) and writes its cotangent
+// (4 * 13 B), though a dead lane needs only row 9 and the cotangents and a
+// live miss adds t and beta.
 #include "replay.cuh"
 
 namespace {

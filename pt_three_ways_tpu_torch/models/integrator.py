@@ -14,9 +14,8 @@ JAX package's ``models/integrator.py``:
   * emission added per shading event; hard depth cutoff returning black.
 
 Two paths: ``trace_pass`` (one sample pass, one bounce per loop step — the
-path the CPU render and the golden images use — or, with the kernel
-backend, the pass's bounces in one launch of kernel K7) and
-``trace_passes_fused`` (the camera stage for S passes, then ONE regenerating megakernel launch:
+path the CPU render and the golden images use) and ``trace_passes_fused``
+(the camera stage for S passes, then ONE regenerating megakernel launch:
 kernel K5 with table uniforms or K4 with in-kernel RNG). All draws come
 from the same threefry streams as the JAX package (ops/rng.py).
 """
@@ -207,10 +206,8 @@ def bounce_rows(key, nb: int, n: int, device) -> torch.Tensor:
 
 def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
                tri_chunk: int = 1024):
-    """One 1-spp pass over a tile of pixels -> radiance [R, 3]: the scan
-    wavefront (one bounce per loop step) or, with the kernel backend and
-    ``fused`` on, ``kill_dead_paths`` on and ``remat`` off, all bounces in
-    one launch of kernel K7 (same streams, same estimator)."""
+    """One 1-spp pass over a tile of pixels -> radiance [R, 3]; the scan
+    wavefront (one bounce per loop step)."""
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
@@ -252,22 +249,10 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     )
 
     n_bounces = max(params.max_depth - 1, 0)
-    if (backend == "kernel" and params.fused != "off" and not params.remat
-            and params.kill_dead_paths and n_bounces > 0):
-        # kernel K7: the whole depth chain in one launch, on the same
-        # streams as the loop below
-        from ..ops.megakernel import PackedSceneFused, fused_bounces
-
-        acc, _ = fused_bounces(
-            PackedSceneFused(scene), state.org, state.dirn, state.beta, state.alive,
-            bounce_rows(key, n_bounces, r0 * k, dev), eps, n_bounces,
-        )
-        state = state._replace(acc=acc)
-    else:
-        for d in range(1, n_bounces + 1):
-            bu = _bounce_uniforms(key, d, r0 * k, dev)
-            state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
-                           kill_dead=params.kill_dead_paths)
+    for d in range(1, n_bounces + 1):
+        bu = _bounce_uniforms(key, d, r0 * k, dev)
+        state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
+                       kill_dead=params.kill_dead_paths)
 
     path_mean = state.acc.reshape(3, r0, k).mean(dim=2)
     hit_colour = mat0.emission + path_mean

@@ -322,9 +322,7 @@ def intersect_packed(packed: PackedScene, org: torch.Tensor, dirn: torch.Tensor,
         live = torch.ones((org.shape[1],), dtype=torch.bool, device=org.device)
     live = live.to(torch.bool)
     _check_inputs(packed, org, dirn, live)
-    if torch.is_grad_enabled() and (org.requires_grad or dirn.requires_grad):
-        return _Intersect.apply(org, dirn, live, packed, eps)
-    return _intersect(packed, org, dirn, live, eps)
+    return _Intersect.apply(org, dirn, live, packed, eps)
 
 
 intersect_packed.launches = 0

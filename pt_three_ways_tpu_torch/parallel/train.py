@@ -52,7 +52,7 @@ def _grads(loss, leaves):
     return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, leaves)]
 
 
-def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "dod",
+def make_sharded_train_step(scene, params: RenderParams, mesh=None,
                             learning_rate: float = 0.05, tri_chunk: int = 1024,
                             differentiate_camera: bool = False, fused: str = "auto",
                             passes_per_step: int = 1, device="cuda"):
@@ -68,8 +68,6 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
 
     if _mesh_devices(mesh) != 1 or passes_per_step != 1:
         raise NotImplementedError("not yet ported")
-    if way not in ("dod", "wavefront"):
-        raise ValueError(f"way {way!r} is not ported yet")
     dev = resolve_device(device)
     scene = scene.to(dev)
     use_replay = (

@@ -41,8 +41,8 @@ class RenderParams:
     # broadcast "xla"-style scan elsewhere), "xla", or "kernel" (the kernel
     # wrappers: CUDA kernels for CUDA tensors, their plain versions on CPU).
     intersector: str = "auto"
-    # The JAX package's per-bounce recomputation in the backward (not
-    # ported); as there, it keeps integrator.trace_pass off kernel K7.
+    # Kept for parity with the JAX configuration (its per-bounce
+    # recomputation in the backward is not ported).
     remat: bool = False
     # Kill paths whose throughput is exactly zero (identical images, much
     # less work in light-dominated scenes).

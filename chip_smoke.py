@@ -36,7 +36,20 @@ Phases (one line each, any failure stops the run):
      without residuals) and K8 (each bounce, and twice for bitwise
      repeatability) against their plain versions on the first step's
      inputs, timed; and the card's step against the CPU's on a 32^2 crop of
-     cornell 512^2.
+     cornell 512^2;
+  7. the regenerating training path: three make_sharded_train_step steps
+     with passes_per_step=8 on suzanne 512^2 (K=16, depth 5: eight camera
+     stages with K2, one K4 launch in replay mode forward, one K9 launch
+     backward, then the camera stages' autograd), each split into forward
+     and backward with its K2/K4/K9 time and peak memory, the launch
+     counters set to 0 just before the three steps and read just after;
+     K4's replay mode against its plain version and against K4 without
+     replay, and K9 against its plain version and twice for bitwise
+     repeatability, on the first step's inputs, timed; trace_passes_replay
+     forward + backward with the feedback sort key chained across calls,
+     in ms per pass; the card's regen step against the CPU's on a 32^2
+     crop of cornell 512^2; and ten steps of the train_demo (cornell 256^2,
+     Adam, 16 passes per step).
 The last two lines are the kernels JSON and the device JSON.
 """
 
@@ -64,6 +77,11 @@ OPS_SPHERE = 23
 OPS_TRIANGLE = 49
 OPS_SLAB = 24
 OPS_SHADE = 200
+# the replay residual slot K4 writes and K9 reads per live bounce: org3
+# dir3 beta3, t, idx, sample, depth (float32)
+REPLAY_SLOT_BYTES = 13 * 4
+# passes per step of the regenerating training path (phase 7)
+S_REGEN = 8
 # per lane of the shading adjoint (csrc/replay.cuh bounce_bwd_lane): a hit
 # lane recomputes its bounce (~110) and walks it back (~390, the diffuse
 # branch); a live miss adds beta * environment
@@ -94,8 +112,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--until", type=int, default=6,
-                    help="stop after this phase (default: all six)")
+    ap.add_argument("--until", type=int, default=7,
+                    help="stop after this phase (default: all seven)")
     args = ap.parse_args(argv)
     import torch
 
@@ -176,9 +194,10 @@ def main(argv=None) -> int:
                  "K5": (mk, "_regen_table_cuda", mk.fused_passes_plain),
                  "K4": (mk, "_regen_krng_cuda", mk.regen_krng_plain),
                  "K7": (mk, "_fused_bounces_cuda", mk.fused_bounces_plain),
-                 "K8": (mk, "_bounce_bwd_cuda", mk.bounce_bwd_plain)}
+                 "K8": (mk, "_bounce_bwd_cuda", mk.bounce_bwd_plain),
+                 "K9": (mk, "_regen_replay_bwd_cuda", mk.regen_replay_bwd_plain)}
     wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
-                "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step}
+                "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd}
 
     @contextlib.contextmanager
     def plain(kernel):
@@ -834,12 +853,253 @@ def main(argv=None) -> int:
           f"largest update difference relative to the field's largest update: "
           f"{max(worst.values()):.2e} ({max(worst, key=worst.get)})")
 
+    if args.until <= 6:
+        return 0
+
+    # ---- phase 7: the regenerating training path -------------------------
+    del outs, sc_, sh, ostate, state
+    torch.cuda.empty_cache()
+    from pt_three_ways_tpu_torch.models.replay import trace_passes_replay
+
+    S = S_REGEN
+    tscene_d, tcam_d = tscene.to(dev), tcam.to(dev)
+    # matched-RNG objective: the scene's own S-pass image under the step's
+    # key (samples 0..S-1, tile 0); training starts from 0.6x the albedo
+    with torch.no_grad():
+        rtarget = trace_passes_replay(tscene_d, tcam_d, tparams, tkey, 0, 0, tpx, tpy, S) / S
+    rstep = make_sharded_train_step(tscene, tparams, learning_rate=0.05, passes_per_step=S)
+    trestore.clear()
+    tspans.clear()
+    rcapt = {}
+
+    def capture_regen(name, f, keep):
+        """Keeps host copies of the first step's call (``keep`` picks what),
+        so the later steps' memory is not held up."""
+        def hook(*a, **kw):
+            if marks.get("step") == 0:
+                rcapt[name] = keep(a, kw)
+            return f(*a, **kw)
+        return hook
+
+    host = lambda xs: [x.cpu() if torch.is_tensor(x) else x for x in xs]
+    for k in ("K2", "K4", "K9"):
+        m, n, _ = launchers[k]
+        patch(m, n, span(k, getattr(m, n)))
+    patch(replay, "fused_passes_krng", capture_regen(
+        "K4", replay.fused_passes_krng, lambda a, kw: (host(a), dict(kw))))
+    patch(replay, "regen_replay_bwd", capture_regen(
+        "K9", replay.regen_replay_bwd, lambda a, kw: a[6].cpu()))  # acc_bar
+    patch(train, "_grads", grads_hook(train._grads))
+
+    state = TrainState(mats0, tcam, 0)
+    losses = []
+    peaks = []
+    for fn in wrappers.values():
+        fn.launches = 0
+    for i in range(3):
+        marks["step"] = i
+        tspans.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        e0 = record()
+        loss, state = rstep(state, tkey, tpx, tpy, rtarget)
+        e3 = record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        kms = {k: sum(a.elapsed_time(b) for kk, a, b in tspans if kk == k)
+               for k in ("K2", "K4", "K9")}
+        fwd = e0.elapsed_time(marks["b0"])
+        bwd = marks["b0"].elapsed_time(marks["b1"])
+        upd = marks["b1"].elapsed_time(e3)
+        n2 = sum(1 for kk, _, _ in tspans if kk == "K2")
+        losses.append(float(loss))
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        print(f"phase 7 regen train step {i} suzanne 512^2 K=16 depth 5 S={S} "
+              f"({tpx.shape[0] * 16} lanes): loss {float(loss):.6e}, wall {wall * 1e3:.1f} ms "
+              f"({wall * 1e3 / S:.1f} ms per pass) = forward {fwd:.1f} ms (camera stages "
+              f"{fwd - kms['K4'] - kms['K2']:.1f} + K2 {kms['K2']:.3f} in {n2} launches + K4 "
+              f"replay {kms['K4']:.3f}) + backward {bwd:.1f} ms (camera-stage autograd "
+              f"{bwd - kms['K9']:.1f} + K9 {kms['K9']:.3f}) + update {upd:.2f} ms; peak "
+              f"device memory {peaks[-1]:.2f} GiB")
+    marks["step"] = None
+    rlaunch = {k: fn.launches for k, fn in wrappers.items()}
+    for mod, name, orig in reversed(trestore):
+        setattr(mod, name, orig)
+    moved = sum(float((a.cpu() - b).abs().sum()) for a, b in zip(state.materials, mats0))
+    finite = all(bool(torch.isfinite(m).all()) for m in state.materials)
+    if not (all(np.isfinite(losses)) and finite and moved > 0.0 and losses[2] < losses[0]):
+        fail(f"regen training: losses {losses}, finite materials {finite}, moved {moved}")
+    for k in ("K2", "K4", "K9"):
+        if rlaunch[k] <= 0:
+            fail(f"kernel {k} was not launched by the regen training steps")
+    print(f"phase 7 regen training: losses {[f'{x:.6e}' for x in losses]} (falling), "
+          f"materials moved {moved:.4e} (sum |delta|), launches {rlaunch}")
+    del state, loss
+    torch.cuda.empty_cache()
+
+    # (a, b) K4 in replay mode against its plain version and against K4
+    # without replay, on the first step's call
+    a4, kw4 = rcapt["K4"]
+    a4 = [x.to(dev) if torch.is_tensor(x) else x for x in a4]
+    pk4, s0_4, lanes4 = a4[0], a4[1], a4[2]
+    nb4, sc4 = a4[6], a4[7]
+    out_k = mk.fused_passes_krng(*a4, **kw4)
+    out_n = mk.fused_passes_krng(*a4)
+    torch.cuda.synchronize()
+    same_nr = torch.equal(out_k[0], out_n[0]) and torch.equal(out_k[1], out_n[1])
+    del out_n
+    with plain("K4"):
+        pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4))
+    frac4, err4 = cmp_acc("K4 replay", out_k[:2], out_p[:2])
+    cnt_k = out_k[1]
+    cnt_eq = torch.equal(cnt_k, out_p[1])
+    lane_ok = torch.all(torch.isclose(out_k[0], out_p[0], rtol=1e-4, atol=1e-5), dim=0) \
+        & (cnt_k == out_p[1])
+    res_k, res_p = out_k[2], out_p[2]
+    res_err = 0.0
+    slots = n_hit = 0
+    search = 0
+    for j in range(sc4 * nb4):
+        m = j < cnt_k
+        if not bool(m.any()):
+            continue
+        ok = lane_ok[m]
+        rk, rp = res_k[j][:, m], res_p[j][:, m][:, ok]
+        res_err = max(res_err, torch.where(rk[:, ok] == rp, 0.0, (rk[:, ok] - rp).abs())
+                      .max().item())
+        t_j = rk[9]
+        slots += int(m.sum().item())
+        n_hit += int(torch.isfinite(t_j).sum().item())
+        search += search_ops(pk4, rk[0:3], rk[3:6], torch.ones_like(t_j, dtype=torch.bool),
+                             t_j, a4[5])
+    del out_p, res_p
+    # the residual gate is K7's (phase 6): agreeing lanes' slots within 1e-3
+    if not (same_nr and res_err <= 1e-3):
+        fail(f"K4 replay: bit-equal to K4 without replay {same_nr}, slots max|d| {res_err}")
+    ms4 = events_ms(lambda: mk.fused_passes_krng(*a4, **kw4), 3)
+    ms4_nr = events_ms(lambda: mk.fused_passes_krng(*a4), 3)
+    # bytes: state0, lane ids and the scene in; radiance, counts and the
+    # realized slots out
+    b4, by4 = bound(nbytes(s0_4, lanes4, pk4.tri_tab, pk4.sph_tab, pk4.tri_attr, pk4.sph_attr)
+                    + nbytes(out_k[0], out_k[1]) + slots * REPLAY_SLOT_BYTES,
+                    search + slots * OPS_SHADE)
+    checks["K4r"] = {"regen-train": dict(launches=rlaunch["K4"], max_abs_err=max(err4, res_err),
+                                         ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4)}
+    print(f"phase 7 K4 replay N={s0_4.shape[1]} S={sc4} nb={nb4}: lanes agree {frac4:.6f} "
+          f"max|dacc| {err4:.3e}, counts equal {cnt_eq}, realized slots {slots} ({n_hit} hits) "
+          f"max|d| {res_err:.3e}; acc and counts bit-equal to K4 without replay {same_nr}; "
+          f"kernel {ms4:.3f} ms ({ms4_nr:.3f} without replay) plain {pms4:.1f} ms bound "
+          f"{b4:.3f} ms ({by4}); residual buffer {nbytes(res_k) / 1e9:.2f} GB")
+
+    # (c, d) K9 against its plain version, and twice, on the first step's
+    # cotangent and the residuals K4 gives again for the same call
+    acc_bar = rcapt["K9"].to(dev)
+    b9 = (pk4, lanes4, a4[3], a4[4], res_k, cnt_k, acc_bar, sc4)
+    o1 = mk.regen_replay_bwd(*b9)
+    o2 = mk.regen_replay_bwd(*b9)
+    torch.cuda.synchronize()
+    bitwise9 = all(torch.equal(x, y) for x, y in zip(o1, o2))
+    del o2
+    with plain("K9"):
+        pms9, op = once_ms(lambda: mk.regen_replay_bwd(*b9))
+    rel = [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item() for x, y in zip(o1, op)]
+    err9 = max((x - y).abs().max().item() for x, y in zip(o1, op))
+    scales = [y.abs().max().item() for y in op]
+    finite9 = all(bool(torch.isfinite(x).all()) for x in o1)
+    del op
+    if not (bitwise9 and finite9 and max(rel) <= 1e-5):
+        fail(f"K9 disagrees with its plain version: bitwise {bitwise9}, finite {finite9}, "
+             f"relative max|d| (d_state0, d_mat, d_env) {rel}")
+    ms9 = events_ms(lambda: mk.regen_replay_bwd(*b9), 3)
+    b9_, by9 = bound(slots * REPLAY_SLOT_BYTES + nbytes(cnt_k, lanes4, acc_bar, *o1)
+                     + nbytes(pk4.tri_attr, pk4.sph_attr, pk4.tri_mat, pk4.sph_mat),
+                     n_hit * OPS_BWD_HIT + (slots - n_hit) * OPS_BWD_MISS)
+    checks["K9"] = {"regen-train": dict(launches=rlaunch["K9"], max_abs_err=err9, ms=ms9,
+                                        plain_ms=pms9, bound_ms=b9_, bound_by=by9)}
+    print(f"phase 7 K9 N={lanes4.shape[0]} S={sc4}: bitwise repeat {bitwise9}; max|d| "
+          f"relative to the largest: d_state0 {rel[0]:.2e} (of {scales[0]:.3e}), d_mat "
+          f"{rel[1]:.2e} (of {scales[1]:.3e}), d_env {rel[2]:.2e} (of {scales[2]:.3e}); "
+          f"kernel {ms9:.3f} ms plain {pms9:.1f} ms bound {b9_:.3f} ms ({by9}); hit / "
+          f"live-miss slots {n_hit} / {slots - n_hit}")
+    del o1, out_k, res_k, b9, a4, rcapt
+    torch.cuda.empty_cache()
+
+    # (f) trace_passes_replay forward + backward per pass, the feedback sort
+    # key chained across calls (tools/bench_grad.py section 4)
+    def fwd_bwd(s0, sk):
+        mats = [m.detach().requires_grad_() for m in tscene_d.materials]
+        sc = tscene_d._replace(materials=type(tscene_d.materials)(*mats))
+        img, c = trace_passes_replay(sc, tcam_d, tparams, tkey, s0, 0, tpx, tpy, S,
+                                     sort_key=sk, with_lane_counts=True)
+        torch.autograd.grad(torch.mean((img / S - rtarget) ** 2), mats)
+        return c
+
+    sort_cnt = torch.zeros((tpx.shape[0] * 16,), dtype=torch.int32, device=dev)
+    for i in range(2):  # warm up and seed the sort
+        sort_cnt = sort_cnt + fwd_bwd(i * S, sort_cnt)
+    per_pass = {}
+    for label in ("sorted", "unsorted"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(2, 5):
+            c = fwd_bwd(i * S, sort_cnt if label == "sorted" else None)
+            if label == "sorted":
+                sort_cnt = sort_cnt + c
+        torch.cuda.synchronize()
+        per_pass[label] = (time.time() - t0) / 3 / S * 1e3
+    print(f"phase 7 trace_passes_replay fwd+bwd suzanne 512^2 S={S}: "
+          f"{per_pass['sorted']:.1f} ms per pass with the sort key chained across calls, "
+          f"{per_pass['unsorted']:.1f} ms per pass unsorted (3 calls each)")
+    del sort_cnt
+    torch.cuda.empty_cache()
+
+    # (g) the card's regen step against the CPU's on a 32^2 crop of cornell
+    # 512^2 (camera gradients on)
+    outs = {}
+    for where_ in ("cuda", "cpu"):
+        cstep = make_sharded_train_step(cscene, cparams, learning_rate=0.05, passes_per_step=4,
+                                        differentiate_camera=True, device=where_)
+        t0 = time.time()
+        outs[where_] = cstep(cstate, tkey, cx, cy, ctarget)
+        outs[where_ + "_s"] = time.time() - t0
+    (lc, sc_), (lh, sh) = outs["cuda"], outs["cpu"]
+    worst = {}
+    for grp, new_c, new_h, old in (("materials", sc_.materials, sh.materials, cscene.materials),
+                                   ("camera", sc_.camera, sh.camera, ccam)):
+        for f, c, h, o in zip(new_h._fields, new_c, new_h, old):
+            dc, dh = c.cpu() - o, h - o
+            scale = max(dh.abs().max().item(), 1e-12)
+            worst[f"{grp}.{f}"] = (dc - dh).abs().max().item() / scale
+    loss_rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    bad = {k: v for k, v in worst.items() if v > (1e-2 if k == "materials.ior" else 1e-3)}
+    if loss_rel > 1e-4 or bad:
+        fail(f"card regen step vs CPU on the cornell crop: loss rel {loss_rel}, updates {bad}")
+    print(f"phase 7 card vs CPU regen step (passes_per_step=4), cornell 32^2 crop of 512^2 "
+          f"(16384 lanes, camera gradients on): loss {float(lc):.6e} vs {float(lh):.6e} (rel "
+          f"{loss_rel:.2e}); largest update difference relative to the field's largest update: "
+          f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}); card {outs['cuda_s']:.2f} s "
+          f"cpu {outs['cpu_s']:.2f} s")
+    del outs, sc_, sh
+
+    # the train_demo (Adam over cornell's diffuse table, 16 passes per step)
+    from pt_three_ways_tpu_torch import train_demo
+
+    demo = train_demo.run(10, 256, "cuda", log=lambda line: print(f"phase 7 train_demo {line}"))
+    if not (np.isfinite([demo["loss0"], demo["loss1"]]).all() and demo["err1"] < demo["err0"]):
+        fail(f"train_demo: {demo}")
+    print(f"phase 7 train_demo cornell 256^2 S=16, 10 steps: observable albedo error "
+          f"{demo['err0']:.4f} -> {demo['err1']:.4f} ({demo['err0'] / demo['err1']:.2f}x "
+          f"reduction), loss {demo['loss0']:.6f} -> {demo['loss1']:.6f}, "
+          f"{demo['ms_per_step']:.0f} ms per step ({demo['ms_per_step'] / 16:.1f} ms per pass)")
+
     # one row per kernel: the numbers of the path that carries it (the
     # CLI-default cornell render for K2 and K4, square cornell for K5, the
     # training steps for K7 and K8: K8's numbers are the mean over the four
-    # bounces of the first step), and every path's under "by_path"
+    # bounces of the first step; the regen training steps for K4's replay
+    # mode and K9), and every path's under "by_path"
     head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
-            "K8": "train"}
+            "K8": "train", "K4r": "regen-train", "K9": "regen-train"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -851,9 +1111,13 @@ def main(argv=None) -> int:
                "pt_three_ways_tpu/ops/pallas_megakernel.py:883"),
         "K8": ("K8 bounce_bwd_step", "pt_three_ways_tpu_torch/csrc/bounce_bwd.cu",
                "pt_three_ways_tpu/ops/pallas_megakernel.py:2578"),
+        "K4r": ("K4 fused_passes_krng replay", "pt_three_ways_tpu_torch/csrc/megakernel.cu",
+                "pt_three_ways_tpu/ops/pallas_megakernel.py:1714"),
+        "K9": ("K9 regen_replay_bwd", "pt_three_ways_tpu_torch/csrc/regen_replay_bwd.cu",
+               "pt_three_ways_tpu/ops/pallas_megakernel.py:2808"),
     }
     rows = []
-    for k in ("K2", "K5", "K4", "K7", "K8"):
+    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          path=head[k], **checks[k][head[k]], library_ms=None,

@@ -13,31 +13,22 @@
 // returned per-primitive table gradients that the caller summed by
 // material id; here the lane adds into its winner's material directly.
 //
-// Reduction, deterministic: per warp, one butterfly shuffle sum per
-// material present in the warp (materials visited in lane order); per
-// block, the four warps' sums in warp order into a [cols, blocks] partial
-// table; then one block per column sums its partials in a fixed
-// thread-strided order and a fixed shared-memory tree. No float atomics:
-// the same inputs give bit-identical gradients on every run.
+// Reduction, deterministic (grad_reduce.cuh): per warp, one butterfly
+// shuffle sum per material present in the warp; per block, the four warps'
+// sums in warp order into a [cols, blocks] partial table; then one block
+// per column sums its partials in a fixed order. No float atomics: the
+// same inputs give bit-identical gradients on every run.
 //
 // Traffic: every lane reads its whole input (state, cotangents, winner and
 // uniforms: 4 * (13 + 1 + 1 + 4 + 13) B) and writes its cotangent
 // (4 * 13 B), though a dead lane needs only row 9 and the cotangents and a
 // live miss adds t and beta.
-#include "replay.cuh"
+#include "grad_reduce.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
-constexpr int kReduceBlock = 256;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // partial: [n_col, gridDim.x], n_col = 9 * n_mat + 3 (materials, then env)
 __global__ void __launch_bounds__(kBlock)
@@ -69,49 +60,10 @@ bounce_bwd_kernel(pt3::SceneView s, const int* __restrict__ tri_mat,
     for (int r = 0; r < 13; ++r) cot_in[(size_t)r * n + lane] = o.cot_in[r];
   }
 
-  // every thread of the block takes part in the shuffles below
-  const int warp = threadIdx.x >> 5;
-  const int wl = threadIdx.x & 31;
-  float* ws = smem + warp * n_col;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float v = warp_sum(o.g_env[c]);
-    if (wl == 0) ws[9 * n_mat + c] = v;
-  }
-  unsigned todo = __ballot_sync(kFull, o.mat >= 0);
-  while (todo) {
-    const int m = __shfl_sync(kFull, o.mat, __ffs(todo) - 1);
-    const bool mine = o.mat == m;
-    todo &= ~__ballot_sync(kFull, mine);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float v = warp_sum(mine ? o.g_mat[k] : 0.0f);
-      if (wl == 0) ws[9 * m + k] = v;
-    }
-  }
+  // every thread of the block takes part in the shuffles
+  pt3::warp_add_grads(o, smem + (threadIdx.x >> 5) * n_col, n_mat);
   __syncthreads();
-  for (int c = threadIdx.x; c < n_col; c += blockDim.x) {
-    float sum = smem[c];
-    for (int w = 1; w < kWarps; ++w) sum = sum + smem[w * n_col + c];
-    partial[(size_t)c * gridDim.x + blockIdx.x] = sum;
-  }
-}
-
-// out[c] = sum of partial[c, 0:rows] in a fixed order (one block per column)
-__global__ void __launch_bounds__(kReduceBlock)
-reduce_columns_kernel(const float* __restrict__ partial, int rows,
-                      float* __restrict__ out) {
-  __shared__ float sm[kReduceBlock];
-  const float* col = partial + (size_t)blockIdx.x * rows;
-  float sum = 0.0f;
-  for (int r = threadIdx.x; r < rows; r += kReduceBlock) sum = sum + col[r];
-  sm[threadIdx.x] = sum;
-  __syncthreads();
-  for (int w = kReduceBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sm[threadIdx.x] = sm[threadIdx.x] + sm[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = sm[0];
+  pt3::block_partials(smem, kWarps, n_col, partial);
 }
 
 }  // namespace
@@ -138,6 +90,6 @@ extern "C" int pt3_bounce_bwd(const float* tri, const float* sph,
                                                n_mat);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  reduce_columns_kernel<<<n_col, kReduceBlock, 0, st>>>(partial, grid, d_out);
+  reduce_columns_kernel<<<n_col, pt3::kReduceBlock, 0, st>>>(partial, grid, d_out);
   return (int)cudaGetLastError();
 }

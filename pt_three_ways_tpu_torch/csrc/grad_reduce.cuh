@@ -1,0 +1,80 @@
+// Deterministic sums of the shading adjoint's material and environment
+// gradients over lanes, shared by kernels K8 (bounce_bwd.cu) and K9
+// (regen_replay_bwd.cu). No float atomics: the same inputs give
+// bit-identical gradients on every run.
+//
+//   * warp_add_grads: per warp, one butterfly shuffle sum per material
+//     present in the warp (materials visited in lane order) and one per
+//     environment channel, which lane 0 adds into the warp's row of shared
+//     memory ([9 * n_mat + 3] floats: materials row-major, then the
+//     environment). Every lane of the warp must call it.
+//   * block_partials: a block's warp rows summed in warp order into column
+//     blockIdx.x of a [9 * n_mat + 3, blocks] partial table.
+//   * reduce_columns_kernel: one block per column sums its partials in a
+//     fixed thread-strided order and a fixed shared-memory tree.
+#pragma once
+
+#include "replay.cuh"
+
+namespace pt3 {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kReduceBlock = 256;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void warp_add_grads(const BwdOut& o, float* ws, int n_mat) {
+  const int wl = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v = warp_sum(o.g_env[c]);
+    if (wl == 0) ws[9 * n_mat + c] = ws[9 * n_mat + c] + v;
+  }
+  unsigned todo = __ballot_sync(kFullMask, o.mat >= 0);
+  while (todo) {
+    const int m = __shfl_sync(kFullMask, o.mat, __ffs(todo) - 1);
+    const bool mine = o.mat == m;
+    todo &= ~__ballot_sync(kFullMask, mine);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float v = warp_sum(mine ? o.g_mat[k] : 0.0f);
+      if (wl == 0) ws[9 * m + k] = ws[9 * m + k] + v;
+    }
+  }
+}
+
+__device__ __forceinline__ void block_partials(const float* smem, int n_warps, int n_col,
+                                               float* __restrict__ partial) {
+  for (int c = threadIdx.x; c < n_col; c += blockDim.x) {
+    float sum = smem[c];
+    for (int w = 1; w < n_warps; ++w) sum = sum + smem[w * n_col + c];
+    partial[(size_t)c * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+}  // namespace pt3
+
+namespace {
+
+// out[c] = sum of partial[c, 0:rows] in a fixed order (one block per column)
+__global__ void __launch_bounds__(pt3::kReduceBlock)
+reduce_columns_kernel(const float* __restrict__ partial, int rows,
+                      float* __restrict__ out) {
+  __shared__ float sm[pt3::kReduceBlock];
+  const float* col = partial + (size_t)blockIdx.x * rows;
+  float sum = 0.0f;
+  for (int r = threadIdx.x; r < rows; r += pt3::kReduceBlock) sum = sum + col[r];
+  sm[threadIdx.x] = sum;
+  __syncthreads();
+  for (int w = pt3::kReduceBlock / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sm[threadIdx.x] = sm[threadIdx.x] + sm[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = sm[0];
+}
+
+}  // namespace

@@ -3,10 +3,11 @@
 //
 // K5 replaces the JAX package's ops/pallas_megakernel.py _megakernel_regen /
 // _run_regen; K4 replaces _megakernel_regen_krng / _run_regen_krng (plain,
-// thresh and resume modes). One thread per lane: the path state lives in
-// registers, a dead lane reloads the next alive sample's first-bounce state
-// from state0 [(s * 10 + r) * N + lane] and keeps tracing until its samples
-// are exhausted. The winner search and shading are pt3_device.cuh's.
+// thresh, resume and replay modes). One thread per lane: the path state
+// lives in registers, a dead lane reloads the next alive sample's
+// first-bounce state from state0 [(s * 10 + r) * N + lane] and keeps tracing
+// until its samples are exhausted. The winner search and shading are
+// pt3_device.cuh's.
 //
 // Bound: FP32 operations of the per-bounce winner search (every live lane
 // tests every primitive; no culling, as in the TPU kernels). The bytes
@@ -16,6 +17,17 @@
 // once fewer than `thresh` lanes of the block are alive and writes the
 // in-flight state [12, N] (state rows 0..9, sample, depth) for a compacted
 // continuation launch (RESUME).
+//
+// REPLAY (the regenerating training path's forward) also writes one
+// residual slot per live iteration of a lane, [S*nb, 13, N]: slot j of a
+// lane holds the input org3 dir3 beta3 of its j-th bounce, the winner t
+// (+inf on a miss), the winner's packed index (0 on a miss), the sample and
+// the depth (exact small integers in float32). A lane is live from
+// iteration 0 until its samples are exhausted (the refill runs in the same
+// iteration), so its slots are exactly j < cnt and the loop counter is the
+// slot index; a sample takes at most nb iterations, so S*nb slots suffice.
+// The TPU kernel's 16-row padding and per-tile iteration count are not
+// needed: cnt says which slots are real. Residual bytes: 52 per live bounce.
 #include "kernel_rng.cuh"
 #include "pt3_device.cuh"
 
@@ -119,6 +131,7 @@ struct KrngArgs {
   float* __restrict__ acc_out;       // [3, N]
   int* __restrict__ cnt_out;         // [N]
   float* __restrict__ resid_out;     // [12, N] (THRESH)
+  float* __restrict__ rresid;        // [S*nb, 13, N] (REPLAY)
   int n, S, nb, thresh;
   float eps;
 };
@@ -164,12 +177,25 @@ __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
   }
 }
 
-template <bool NO_GLOSSY>
+template <bool NO_GLOSSY, bool REPLAY>
 __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K,
                                             const KrngArgs& a, int lane) {
+  // REPLAY: slot cnt (this iteration's), rows (j * 13 + r) * N + lane
+  float* slot = REPLAY ? a.rresid + (size_t)K.L.cnt * 13 * a.n + lane : nullptr;
+  if (REPLAY) {
+#pragma unroll
+    for (int r = 0; r < 9; ++r) slot[(size_t)r * a.n] = K.L.st[r];
+  }
   float t;
   int idx;
-  if (intersect_step<true>(s, K.L, a.eps, t, idx)) {
+  const bool hit = intersect_step<true>(s, K.L, a.eps, t, idx);
+  if (REPLAY) {
+    slot[(size_t)9 * a.n] = hit ? t : pt3::kInf;
+    slot[(size_t)10 * a.n] = hit ? (float)idx : 0.0f;
+    slot[(size_t)11 * a.n] = (float)K.L.s_cur;
+    slot[(size_t)12 * a.n] = (float)K.L.d_cur;
+  }
+  if (hit) {
     const uint32_t base = K.hlane + K.sdt;
     const float u = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[0]));
     const float v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
@@ -183,7 +209,7 @@ __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K
   if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
 }
 
-template <bool NO_GLOSSY, bool THRESH, bool RESUME>
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, bool REPLAY>
 __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < a.n;
@@ -210,15 +236,15 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
       krng_refill(K, a, lane, true);
     }
   }
-  const int max_iter = a.S * (a.nb + 1);
+  const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
   if (!THRESH) {
     for (int it = 0; valid && K.L.st[9] != 0.0f && it < max_iter; ++it)
-      krng_bounce<NO_GLOSSY>(s, K, a, lane);
+      krng_bounce<NO_GLOSSY, REPLAY>(s, K, a, lane);
   } else {
     const int th = max(a.thresh, 1);
     int live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     for (int it = 0; live >= th && it < max_iter; ++it) {
-      if (valid && K.L.st[9] != 0.0f) krng_bounce<NO_GLOSSY>(s, K, a, lane);
+      if (valid && K.L.st[9] != 0.0f) krng_bounce<NO_GLOSSY, false>(s, K, a, lane);
       live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     }
     if (valid) {
@@ -237,15 +263,17 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
 
 template <bool NO_GLOSSY>
 void launch_krng(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
-                 int grid, int block, cudaStream_t st) {
-  if (thresh && resume)
-    regen_krng_kernel<NO_GLOSSY, true, true><<<grid, block, 0, st>>>(s, a);
+                 bool replay, int grid, int block, cudaStream_t st) {
+  if (replay)
+    regen_krng_kernel<NO_GLOSSY, false, false, true><<<grid, block, 0, st>>>(s, a);
+  else if (thresh && resume)
+    regen_krng_kernel<NO_GLOSSY, true, true, false><<<grid, block, 0, st>>>(s, a);
   else if (thresh)
-    regen_krng_kernel<NO_GLOSSY, true, false><<<grid, block, 0, st>>>(s, a);
+    regen_krng_kernel<NO_GLOSSY, true, false, false><<<grid, block, 0, st>>>(s, a);
   else if (resume)
-    regen_krng_kernel<NO_GLOSSY, false, true><<<grid, block, 0, st>>>(s, a);
+    regen_krng_kernel<NO_GLOSSY, false, true, false><<<grid, block, 0, st>>>(s, a);
   else
-    regen_krng_kernel<NO_GLOSSY, false, false><<<grid, block, 0, st>>>(s, a);
+    regen_krng_kernel<NO_GLOSSY, false, false, false><<<grid, block, 0, st>>>(s, a);
 }
 
 }  // namespace
@@ -278,23 +306,26 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               unsigned seed1, unsigned seed2, int sample0,
                               const int* lane_ids, const int* amask,
                               const float* state0, const float* resid_in,
-                              float* acc, int* cnt, float* resid_out, int n,
-                              int S, int nb, float eps, int thresh,
-                              int no_glossy, int block, void* stream) {
+                              float* acc, int* cnt, float* resid_out,
+                              float* rresid, int n, int S, int nb, float eps,
+                              int thresh, int no_glossy, int block,
+                              void* stream) {
   pt3::SceneView s{tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad,
                    {env_r, env_g, env_b}};
   if (n <= 0) return (int)cudaGetLastError();
-  if (block <= 0 || block > 1024 || (thresh > 0 && resid_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
-             acc, cnt, resid_out, n, S, nb, thresh, eps};
-  const int grid = (n + block - 1) / block;
-  cudaStream_t st = (cudaStream_t)stream;
   const bool th = thresh > 0;
   const bool resume = resid_in != nullptr;
+  const bool replay = rresid != nullptr;
+  if (block <= 0 || block > 1024 || (th && resid_out == nullptr) ||
+      (replay && (th || resume)))
+    return (int)cudaErrorInvalidValue;
+  KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
+             acc, cnt, resid_out, rresid, n, S, nb, thresh, eps};
+  const int grid = (n + block - 1) / block;
+  cudaStream_t st = (cudaStream_t)stream;
   if (no_glossy)
-    launch_krng<true>(s, a, th, resume, grid, block, st);
+    launch_krng<true>(s, a, th, resume, replay, grid, block, st);
   else
-    launch_krng<false>(s, a, th, resume, grid, block, st);
+    launch_krng<false>(s, a, th, resume, replay, grid, block, st);
   return (int)cudaGetLastError();
 }

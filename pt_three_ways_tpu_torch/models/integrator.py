@@ -113,7 +113,7 @@ def sample_direction(mat: GatheredMat, hits: Hits, dirn, u, v, spec):
 
 
 def _static_no_glossy(materials) -> bool:
-    ca = materials.cone_angle
+    ca = materials.cone_angle.detach()
     return bool(ca.numel() == 0 or float(ca.max()) < _VEPS)
 
 

@@ -17,6 +17,22 @@ The port of the JAX package's ``models/replay.py`` (``trace_pass_replay``):
     derivative is the implicit-function-theorem formula of K2's VJP
     (``ops/intersect_kernel.winner_t_vjp``).
 
+``trace_passes_replay`` is the port of ``trace_passes_replay``, the
+REGENERATING replay chain for ``n_passes`` samples at once:
+
+  * FORWARD: one camera stage per sample (``integrator._first_bounce_state``,
+    K2 inside, differentiable), then ONE launch of K4 in replay mode
+    (``ops/megakernel.fused_passes_krng(replay=True)``): a dead lane reloads
+    its next sample's first-bounce state, and every live iteration writes
+    one residual slot (input state, winner, sample, depth).
+  * BACKWARD: kernel K9 (``regen_replay_bwd``) walks each lane's realized
+    slots in reverse and returns the first-bounce states' cotangent, which
+    autograd carries through the S camera stages (K2's VJP). The feedback
+    sort's permutation lives inside the chain, residuals stay in sorted
+    lane space, and every transpose is a gather. ``kernel_bwd=False``
+    replays ``bounce_from_hits`` under autograd over the same slots: the
+    test oracle.
+
 Estimator: the likelihood-ratio branch weight (``integrator.branch_weight``,
 primal exactly 1) is applied in the replay; the discrete decisions (event
 choice, winner, liveness) are constants; the zero-throughput kill is on, so
@@ -27,24 +43,35 @@ Reference for the estimator: src/dod/Scene.cpp:124-179.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..ops import kernel_rng as kr
 from ..ops import rng
 from ..ops.camera import generate_rays
 from ..ops.intersect import Hits, hits_from_winner, intersect_scene
 from ..ops.intersect_kernel import winner_t_vjp
-from ..ops.megakernel import PackedSceneFused, bounce_bwd_step, fused_bounces
+from ..ops.megakernel import (
+    PackedSceneFused,
+    bounce_bwd_step,
+    fused_bounces,
+    fused_passes_krng,
+    regen_replay_bwd,
+)
 from ..utils.render_params import RenderParams
 from .integrator import (
     GatheredMat,
     PathState,
     _expand,
+    _first_bounce_state,
     _first_bounce_uniforms,
     bounce_from_hits,
     bounce_rows,
     branch_weight,
     effective_reflectivity,
     gather_materials,
+    lane_ids_for,
     resolve_intersector,
     sample_direction,
 )
@@ -227,3 +254,191 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     if with_ray_count:
         return radiance, nrays
     return radiance
+
+
+def _regen_oracle(geo_scene, mats, env, lane_ids, key_words, sample0, resid, cnt,
+                  acc_bar, s_count):
+    """The regenerating chain's backward without K9: the same reverse walk
+    (slots from the last down, a lane active while j < cnt, the cotangent
+    reset at sample changes), each bounce replayed through
+    ``bounce_from_hits`` at its saved winner under autograd. Inactive lanes
+    get a zero state with a unit direction (the plain bounce has no guards
+    for a zero one). Returns (five material gradients, d_env, d_state0)."""
+    n = acc_bar.shape[1]
+    dev = acc_bar.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    cnt = cnt.to(torch.int64)
+    seeds = torch.tensor(kr.channel_seeds(int(key_words[0]), int(key_words[1])),
+                         dtype=torch.int64, device=dev).reshape(3, 1)
+    hlane = kr.mul32(lane_ids.to(torch.int64) & 0xFFFFFFFF, kr._IN_P1)
+    cot = torch.cat([torch.zeros((10, n), **f32), acc_bar])
+    prev = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    d0 = torch.zeros((s_count, 10, n), **f32)
+    lanes = torch.arange(n, device=dev)
+    with torch.enable_grad():
+        leaves = [m.detach().requires_grad_() for m in (*mats, env)]
+        total = [torch.zeros_like(x) for x in leaves]
+        scene = geo_scene._replace(materials=MaterialTable(*leaves[:5]), environment=leaves[5])
+        for j in reversed(range(resid.shape[0])):
+            active = j < cnt
+            if not bool(active.any()):
+                continue
+            blk = resid[j]
+            s = torch.where(active, blk[11].to(torch.int64), 0)
+            d = torch.where(active, blk[12].to(torch.int64), 1)
+            newseg = active & (s != prev)
+            cot = torch.cat([torch.where(newseg, 0.0, cot[0:10]), cot[10:13]])
+            u, v, p = kr.event_uniforms_premixed(
+                ((hlane + kr.sd_term(sample0, s, d)) & 0xFFFFFFFF)[None, :], seeds)
+            rows = torch.cat([
+                torch.where(active, blk[0:5], 0.0), torch.where(active, blk[5], 1.0)[None],
+                torch.where(active, blk[6:9], 0.0), active.to(torch.float32)[None],
+                torch.zeros((3, n), **f32)]).requires_grad_()
+            st = _rows_to_state(rows)
+            t = torch.where(active, blk[9], math.inf)
+            pidx = torch.where(active, blk[10], 0.0).to(torch.int32)
+            hits = _hits_from_saved(scene, st.org, st.dirn, t, pidx)
+            new = bounce_from_hits(scene, st, hits, u, v, p, kill_dead=True)
+            gs = torch.autograd.grad(_state_to_rows(new), (*leaves, rows), cot,
+                                     allow_unused=True)
+            for i, g in enumerate(gs[:6]):
+                if g is not None:
+                    total[i] = total[i] + g
+            cin = gs[6] if gs[6] is not None else torch.zeros_like(cot)
+            start = active & (d == 1)
+            d0[s[start], 0:9, lanes[start]] = cin[0:9, start].T
+            cot = torch.where(active, cin, cot)
+            prev = torch.where(active, s, prev)
+    return (*total, d0.reshape(s_count * 10, n))
+
+
+def _regen_launch(pk, state0, lane_ids, key_words, sample0, order, inv, eps, nb,
+                  s_count, replay):
+    """K4 on the feedback sort's lane order (``order``; ``inv`` unsorts the
+    outputs). With ``replay`` also the residuals and the lane ids, both in
+    sorted lane space."""
+    if order is not None:
+        state0 = state0[:, order]
+        lane_ids = lane_ids[order]
+    out = fused_passes_krng(pk, state0, lane_ids, key_words, sample0, eps, nb, s_count,
+                            replay=replay)
+    acc, cnt = out[0], out[1]
+    if order is not None:
+        acc = acc[:, inv]
+        cnt = cnt[inv]
+    return (acc, cnt, out[2], out[1], lane_ids) if replay else (acc, cnt)
+
+
+class _RegenChain(torch.autograd.Function):
+    """S regenerating passes of every lane: K4 in replay mode forward, the
+    reverse walk backward (K9, or ``_regen_oracle`` when ``kernel_bwd`` is
+    False). Inputs: the five material fields, the environment and the
+    first-bounce states [S*10, N]; the lane ids, key words, sample0, the
+    feedback sort's (order, inv) and the (constant) geometry ride along.
+    Outputs: acc [3, N] and the per-lane counts [N] (not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, emission, diffuse, ior, reflectivity, cone_angle, environment,
+                state0, lane_ids, key_words, sample0, order, inv, geo_scene, nb, s_count,
+                eps, kernel_bwd):
+        mats = MaterialTable(emission, diffuse, ior, reflectivity, cone_angle)
+        pk = PackedSceneFused(geo_scene._replace(materials=mats, environment=environment))
+        acc, cnt, resid, cnt_sorted, lanes_sorted = _regen_launch(
+            pk, state0, lane_ids, key_words, sample0, order, inv, eps, nb, s_count, True)
+        ctx.save_for_backward(*mats, environment, lanes_sorted, resid, cnt_sorted)
+        ctx.pk = pk
+        ctx.geo_scene = geo_scene
+        ctx.key_words = key_words
+        ctx.sample0 = sample0
+        ctx.order, ctx.inv = order, inv
+        ctx.s_count = s_count
+        ctx.kernel_bwd = kernel_bwd
+        ctx.mark_non_differentiable(cnt)
+        return acc, cnt
+
+    @staticmethod
+    def backward(ctx, acc_bar, _cnt_bar):
+        *mats, env, lane_ids, resid, cnt = ctx.saved_tensors
+        if ctx.order is not None:
+            acc_bar = acc_bar[:, ctx.order]  # into the residuals' sorted lane space
+        acc_bar = acc_bar.to(torch.float32).contiguous()
+        if ctx.kernel_bwd:
+            d_state0, d_mat, d_env = regen_replay_bwd(ctx.pk, lane_ids, ctx.key_words,
+                                                      ctx.sample0, resid, cnt, acc_bar,
+                                                      ctx.s_count)
+            grads = (d_mat[:, 0:3], d_mat[:, 3:6], d_mat[:, 6], d_mat[:, 7], d_mat[:, 8])
+            grads = tuple(g.to(m.dtype) for g, m in zip(grads, mats))
+            d_env = d_env.to(env.dtype)
+        else:
+            *grads, d_env, d_state0 = _regen_oracle(
+                ctx.geo_scene, mats, env, lane_ids, ctx.key_words, ctx.sample0, resid, cnt,
+                acc_bar, ctx.s_count)
+        if ctx.order is not None:
+            d_state0 = d_state0[:, ctx.inv]
+        return (*grads, d_env, d_state0) + (None,) * 10
+
+
+def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: int,
+                        tile_idx: int, px, py, n_passes: int, tri_chunk: int = 1024,
+                        with_ray_count: bool = False, kernel_bwd: bool = True,
+                        sort_key=None, with_lane_counts: bool = False):
+    """Differentiable ``n_passes`` sample passes through the REGENERATING
+    replay chain: the training-path drop-in for
+    ``integrator.trace_passes_fused`` (kernel RNG, no tail compaction),
+    whose radiance it equals bit for bit. Returns the radiance SUM over the
+    passes [R, 3]; differentiable w.r.t. scene.materials, scene.environment
+    and the camera. Keys follow fold(fold(base_key, sample0 + s), tile_idx).
+
+    ``sort_key`` [R*K]: the feedback work-sort (bit-exact for the radiance,
+    exact for gradients: the permutation is applied inside the chain).
+    ``with_ray_count`` adds camera rays + live bounces; ``with_lane_counts``
+    this call's per-lane bounce counts, to chain into the next sort key. A
+    forward that needs no gradient launches K4 without residuals."""
+    dev = px.device
+    if resolve_intersector(params, dev) != "kernel" or params.preview:
+        raise ValueError("trace_passes_replay needs the kernel intersector, no preview")
+    nb = max(params.max_depth - 1, 0)
+    k = params.first_bounce_samples
+    r0 = px.shape[0]
+
+    base_sum = torch.zeros((3, r0), device=dev)
+    states = []
+    for s in range(n_passes):
+        key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
+        st_rows, base, _ = _first_bounce_state(scene, camera, params, key, px, py,
+                                               tri_chunk, "kernel", want_unif=False)
+        base_sum = base_sum + base
+        states.append(st_rows)
+    nrays = torch.tensor(n_passes * r0, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((r0 * k,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        radiance = base_sum.T
+    else:
+        state0 = torch.cat(states, dim=0)  # [S*10, N]
+        del states
+        lane_ids = lane_ids_for(px, py, params.width, k)
+        order = inv = None
+        if sort_key is not None:
+            order = torch.argsort(-sort_key.to(torch.int64), stable=True)
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(order.shape[0], device=dev)
+        kw = kr.key_words(rng.stream_key(base_key, rng.KERNEL_RNG_STREAM))
+        m = scene.materials
+        diff = (m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
+                scene.environment, state0)
+        eps = float(params.epsilon)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in diff):
+            acc, cnt = _RegenChain.apply(*diff, lane_ids, kw, sample0, order, inv, scene, nb,
+                                         n_passes, eps, kernel_bwd)
+        else:
+            acc, cnt = _regen_launch(PackedSceneFused(scene), state0, lane_ids, kw, sample0,
+                                     order, inv, eps, nb, n_passes, False)
+        path_mean = acc.reshape(3, r0, k).mean(dim=2)
+        radiance = (base_sum + path_mean).T
+        nrays = nrays + cnt.sum()
+    out = (radiance,)
+    if with_ray_count:
+        out = out + (nrays,)
+    if with_lane_counts:
+        out = out + (cnt,)
+    return out if len(out) > 1 else radiance

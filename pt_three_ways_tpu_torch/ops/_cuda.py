@@ -49,9 +49,10 @@ _SIGNATURES = {
                         P, P, P, P, P, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # seed0 seed1 seed2, sample0, lane, amask, state0, resid_in, acc, cnt,
-    # resid_out, n, s_count, nb, eps, thresh, no_glossy, block, stream
+    # resid_out, replay_resid, n, s_count, nb, eps, thresh, no_glossy,
+    # block, stream
     "pt3_regen_krng": [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
-                       P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
+                       P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # org, dir, beta, alive, unif, acc, cnt, states, ts, idxs, n, nb, eps,
     # no_glossy, stream
@@ -62,6 +63,11 @@ _SIGNATURES = {
     # partial, d_out, n, stream
     "pt3_bounce_bwd": [P, P, P, P, I, I, I, F, F, F,
                        P, P, I, P, P, P, P, P, P, P, P, I, P],
+    # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
+    # tri_mat, sph_mat, n_mat, seed0 seed1 seed2, sample0, lane, resid, cnt,
+    # acc_bar, d_state0, partial, d_out, n, stream
+    "pt3_regen_replay_bwd": [P, P, P, P, I, I, I, F, F, F, P, P, I, U, U, U, I,
+                             P, P, P, P, P, P, P, I, P],
 }
 
 

@@ -1,4 +1,5 @@
-"""The path-tracing megakernels: K5 and K4 (rendering), K7 and K8 (training).
+"""The path-tracing megakernels: K5 and K4 (rendering), K7, K8, K4 replay
+and K9 (training).
 
 K5 and K4 trace S sample passes per lane in one launch. A lane is a fixed
 (pixel, sub-stratum) slot; when its path dies it reloads the next alive
@@ -25,8 +26,11 @@ winner is one packed (t, row) minimum per chunk. Its ``thresh``/``resume``
 modes are the tail compaction: a block stops once fewer than
 ``thresh = tail_frac * BLOCK`` of its lanes are alive, writes the in-flight
 state ([12, N]: state rows 0..9, sample, depth), and a continuation launch
-over the packed survivors resumes it. ``replay`` and ``stream`` are not
-ported yet.
+over the packed survivors resumes it. Its ``replay`` mode (the regenerating
+training path's forward) also writes one residual slot per live iteration
+of a lane, ``[S*nb, 13, N]``: the input org/dir/beta, the winner (t, packed
+index), the sample and the depth; a lane's slots are exactly ``j < cnt``.
+``stream`` is not ported yet.
 
 Design on the H100 (``csrc/megakernel.cu``): one thread per lane, the path
 state in registers, the scene and attribute tables in global memory behind
@@ -49,8 +53,17 @@ replays (``csrc/fused_bounces.cu``). K8 ``bounce_bwd_step`` replaces
 is ``jax.vjp`` of the bounce; the CUDA kernel's is the same derivative
 written by hand in reverse mode (``csrc/replay.cuh``), and its material
 gradient is summed over lanes without float atomics, in a fixed order
-(``csrc/bounce_bwd.cu``). Its plain version is ``torch.func.vjp`` of the
-same function with the same guards.
+(``csrc/bounce_bwd.cu``, ``csrc/grad_reduce.cuh``). Its plain version is
+``torch.func.vjp`` of the same function with the same guards.
+
+K9 ``regen_replay_bwd`` replaces ``_regen_replay_bwd_kernel`` /
+``_run_regen_replay_bwd`` / ``regen_replay_bwd``: the reverse walk over K4's
+replay residuals, one lane per thread (``csrc/regen_replay_bwd.cu``). Per
+slot, from the lane's last to its first: a sample change zeroes the state
+cotangent, the uniforms are redrawn with K1 from (lane, sample, depth), K8's
+adjoint runs at the saved state and winner, and at depth 1 the input-state
+cotangent is the sample's ``d_state0``. Its plain version runs the same walk
+on whole [*, N] tensors through ``bounce_bwd_plain``.
 
 Beside each kernel is its plain PyTorch version on whole [*, N] tensors
 (masked loop iterations, like the Pallas body); the wrappers take it only
@@ -368,13 +381,17 @@ def _next_alive(amask, s_cur, s_count: int, first: bool):
 
 def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
                      seeds, sample0: int, eps: float, nb: int, s_count: int,
-                     thresh: int = 0, no_glossy: bool = False, block: int = BLOCK):
+                     thresh: int = 0, no_glossy: bool = False, block: int = BLOCK,
+                     replay: bool = False):
     """Plain version of one K4 launch. lane_ids [N] int, amask [2, N] uint32
     words (int64), state0 [S*10, N] sample-major, resid_in [12, N] or None
     (resume), seeds: three uint32 ints. With ``thresh`` > 0, N is a multiple
     of ``block`` and each block of lanes stops once fewer than ``thresh`` of
     its lanes are alive. Returns (acc [3, N], cnt [N] int32, resid_out
-    [12, N] or None)."""
+    [12, N] or None); with ``replay`` the third output is instead the replay
+    residuals [S*nb, 13, N] (slot j of a lane: the input org3 dir3 beta3 of
+    its j-th live iteration, the winner t (+inf on a miss), its packed index
+    (0 on a miss), the sample and the depth; slots j >= cnt stay zero)."""
     n = state0.shape[1]
     dev = state0.device
     lanes = torch.arange(n, device=dev)
@@ -411,8 +428,10 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         sdt = torch.zeros((n,), dtype=torch.int64, device=dev)
         refill(first=True)
 
+    # a sample takes at most nb iterations: S*nb replay slots suffice
+    rres = torch.zeros((s_count * nb, 13, n), dtype=torch.float32, device=dev) if replay else None
     it = 0
-    while it < s_count * (nb + 1):
+    while it < (s_count * nb if replay else s_count * (nb + 1)):
         alive = st[9] != 0.0
         if thresh:
             tile_live = alive.reshape(-1, block).sum(dim=1)
@@ -423,6 +442,12 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         if not bool(active.any()):
             break
         t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps)
+        if replay:
+            # a live lane's slot is its iteration count: slot it
+            slot = torch.cat([st[0:9], torch.where(hit, t, torch.full_like(t, math.inf))[None],
+                              torch.where(hit, idx, torch.zeros_like(idx)).to(torch.float32)[None],
+                              s_cur.to(torch.float32)[None], d_cur.to(torch.float32)[None]])
+            rres[it] = torch.where(active[None, :], slot, rres[it])
         u, v, p = kr.event_uniforms_premixed(((hlane + sdt) & _M32)[None, :], seeds_col)
         au = u if no_glossy else kr.acos01(u)
         _shade_plain(pk, st, acc, t, idx, hit, u, au, v, p, no_glossy)
@@ -432,7 +457,7 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         # a stopped block's lanes are alive or exhausted: refill skips them
         refill(first=False)
         it += 1
-    resid = None
+    resid = rres
     if thresh:
         resid = torch.cat([st, s_cur.to(torch.float32)[None], d_cur.to(torch.float32)[None]])
     return acc, cnt, resid
@@ -467,9 +492,12 @@ def fused_bounces_plain(pk: PackedSceneFused, org, dirn, beta, alive, unif,
 
 
 def _bounce_fn(pk: PackedSceneFused, state, t, idx, unif):
-    """(f, t_c, hit, g) for the plain K8: f(st, mat9, env, t) is the output
-    state [13, N] of one bounce from the saved input state, as the JAX
-    package's _bounce_bwd_body writes it for jax.vjp, guards included."""
+    """(f, t_c, hit, g, mid) for the plain K8: f(st, m, env, t) is the
+    output state [13, N] of one bounce from the saved input state, as the
+    JAX package's _bounce_bwd_body writes it for jax.vjp, guards included;
+    m [9, N] is each lane's winner material row (``mat9[mid].T``) and env
+    [3, N] the environment per lane, so the VJP gives per-lane material and
+    environment gradients."""
     n_tri, n_sph = pk.n_tri, pk.n_sph
     alive = state[9] != 0.0
     hit = alive & torch.isfinite(t) & (t > 0.0)
@@ -494,7 +522,7 @@ def _bounce_fn(pk: PackedSceneFused, state, t, idx, unif):
     def unit_where(cond, x, y, z):
         return torch.where(cond, x, one), torch.where(cond, y, zero), torch.where(cond, z, zero)
 
-    def f(st, mat9, env, tt):
+    def f(st, m_lane, env, tt):
         ox, oy, oz, dx, dy, dz, bx, by, bz = (st[r] for r in range(9))
         acc0 = st[10] + mf * bx * env[0]
         acc1 = st[11] + mf * by * env[1]
@@ -532,7 +560,7 @@ def _bounce_fn(pk: PackedSceneFused, state, t, idx, unif):
             (nx, ny, nz), inside = tn, t_inside
         else:
             (nx, ny, nz), inside = sn, s_inside
-        m = torch.where(hit[None, :], mat9[mid].T, torch.zeros((9, 1), device=st.device))
+        m = torch.where(hit[None, :], m_lane, torch.zeros((9, 1), device=st.device))
         emr, emg, emb, dir_, dig, dib, ior, refl0, cone = m
         ior = torch.where(hit, ior, one)  # no 0/0 on lanes without a winner
         acc0 = acc0 + hf * bx * emr
@@ -604,19 +632,21 @@ def _bounce_fn(pk: PackedSceneFused, state, t, idx, unif):
         g = torch.where(tri_win[None, :], geo_t[8:11], g_sph)
     else:
         g = geo_t[8:11] if n_tri else g_sph
-    return f, t_c, hit, g
+    return f, t_c, hit, g, mid
 
 
-def bounce_bwd_plain(pk: PackedSceneFused, state, t, idx, unif, cot_out):
-    """Plain version of K8: ``torch.func.vjp`` of the bounce ``f`` (the JAX
-    package's kernel body is ``jax.vjp`` of the same function) at the saved
-    input state [13, N], winner (t, idx [N]) and uniforms [4, N], with the
-    winner distance's implicit-function-theorem term. Returns (cot_in
-    [13, N], d_mat [M, 9] (emission 3, diffuse 3, ior, reflectivity, cone),
-    d_env [3])."""
-    f, t_c, hit, g = _bounce_fn(pk, state, t, idx, unif)
-    _, vjp = torch.func.vjp(f, state, pk.mat9, pk.environment, t_c)
-    d_st, d_mat, d_env, d_t = vjp(cot_out)
+def _bounce_bwd64(pk: PackedSceneFused, state, t, idx, unif, cot_out):
+    """``bounce_bwd_plain`` with the lane sums of the material and
+    environment gradients taken in float64 (each lane's terms are the
+    float32 adjoint's)."""
+    f, t_c, hit, g, mid = _bounce_fn(pk, state, t, idx, unif)
+    n = state.shape[1]
+    env = pk.environment[:, None].expand(3, n)
+    _, vjp = torch.func.vjp(f, state, pk.mat9[mid].T, env, t_c)
+    d_st, d_m, d_e, d_t = vjp(cot_out)
+    d_mat = torch.zeros((pk.n_mat, 9), dtype=torch.float64, device=state.device)
+    d_mat.index_add_(0, mid, d_m.T.to(torch.float64))
+    d_env = d_e.to(torch.float64).sum(dim=1)
     # winner distance: dt/do = -g / (g.d), dt/dd = -t g / (g.d)
     dirn = state[3:6]
     gd = g[0] * dirn[0] + g[1] * dirn[1] + g[2] * dirn[2]
@@ -625,6 +655,66 @@ def bounce_bwd_plain(pk: PackedSceneFused, state, t, idx, unif, cot_out):
     scale = torch.where(hit, -d_t * inv, torch.zeros_like(gd))
     d_st = d_st + torch.cat([g * scale, g * scale * t_c, torch.zeros_like(d_st[6:])])
     return d_st, d_mat, d_env
+
+
+def bounce_bwd_plain(pk: PackedSceneFused, state, t, idx, unif, cot_out):
+    """Plain version of K8: ``torch.func.vjp`` of the bounce ``f`` (the JAX
+    package's kernel body is ``jax.vjp`` of the same function) at the saved
+    input state [13, N], winner (t, idx [N]) and uniforms [4, N], with the
+    winner distance's implicit-function-theorem term. Returns (cot_in
+    [13, N], d_mat [M, 9] (emission 3, diffuse 3, ior, reflectivity, cone),
+    d_env [3]); the sums over lanes are taken in float64, so the kernel's
+    float32 sums are held against a reference that does not round."""
+    d_st, d_mat, d_env = _bounce_bwd64(pk, state, t, idx, unif, cot_out)
+    return d_st, d_mat.to(torch.float32), d_env.to(torch.float32)
+
+
+def regen_replay_bwd_plain(pk: PackedSceneFused, lane_ids, resid, cnt, acc_bar, seeds,
+                           sample0: int, s_count: int):
+    """Plain version of K9: every lane walks its replay slots j = cnt-1 ... 0
+    (resid [S*nb, 13, N] from K4's replay mode, cnt [N]) with the running
+    output-state cotangent, which starts as (0, acc_bar) and loses rows
+    0..9 at each sample change; per slot the uniforms come from K1 at
+    (lane, sample0 + s, d) and the bounce's adjoint is ``bounce_bwd_plain``
+    (a lane past its count runs it as a dead lane: zero state, +inf t).
+    Returns (d_state0 [S*10, N] sample-major, zero alive rows; d_mat [M, 9];
+    d_env [3]); the material and environment sums over lanes and slots are
+    taken in float64."""
+    n = acc_bar.shape[1]
+    dev = acc_bar.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    lanes = torch.arange(n, device=dev)
+    cnt = cnt.to(torch.int64)
+    hlane = kr.mul32(lane_ids.to(torch.int64) & _M32, kr._IN_P1)
+    seeds_col = torch.tensor(seeds, dtype=torch.int64, device=dev).reshape(3, 1)
+    d0 = torch.zeros((s_count, 10, n), **f32)
+    d_mat = torch.zeros((pk.n_mat, 9), dtype=torch.float64, device=dev)
+    d_env = torch.zeros((3,), dtype=torch.float64, device=dev)
+    cot = torch.cat([torch.zeros((10, n), **f32), acc_bar])
+    prev = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for jj in range(int(cnt.max()) if n else 0):
+        j = cnt - 1 - jj
+        active = j >= 0
+        blk = resid[j.clamp(min=0), :, lanes].T  # [13, N]
+        s = torch.where(active, blk[11].to(torch.int64), 0)
+        d = torch.where(active, blk[12].to(torch.int64), 1)
+        newseg = active & (s != prev)
+        cot = torch.cat([torch.where(newseg, 0.0, cot[0:10]), cot[10:13]])
+        u, v, p = kr.event_uniforms_premixed(
+            ((hlane + kr.sd_term(sample0, s, d)) & _M32)[None, :], seeds_col)
+        state = torch.cat([torch.where(active, blk[0:9], 0.0), active.to(torch.float32)[None],
+                           torch.zeros((3, n), **f32)])
+        t = torch.where(active, blk[9], math.inf)
+        idx = torch.where(active, blk[10], 0.0).to(torch.int32)
+        cin, dm, de = _bounce_bwd64(pk, state, t, idx, torch.stack([u, kr.acos01(u), v, p]),
+                                    cot)
+        d_mat = d_mat + dm
+        d_env = d_env + de
+        start = active & (d == 1)
+        d0[s[start], 0:9, lanes[start]] = cin[0:9, start].T
+        cot = torch.where(active, cin, cot)
+        prev = torch.where(active, s, prev)
+    return d0.reshape(s_count * 10, n), d_mat.to(torch.float32), d_env.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -655,23 +745,26 @@ def _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count):
 
 
 def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
-                     nb, s_count, thresh, no_glossy, block):
+                     nb, s_count, thresh, no_glossy, block, replay=False):
     n = state0.shape[1]
     dev = state0.device
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     resid_out = (torch.empty((12, n), dtype=torch.float32, device=dev)
                  if thresh else None)
+    # only the slots j < cnt of a lane are written
+    rres = (torch.empty((s_count * nb, 13, n), dtype=torch.float32, device=dev)
+            if replay else None)
     err = _cuda.lib().pt3_regen_krng(
         *_scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0),
         lane_ids.data_ptr(), amask.data_ptr(), state0.data_ptr(),
         _cuda.ptr(resid_in), acc.data_ptr(), cnt.data_ptr(), _cuda.ptr(resid_out),
-        n, s_count, nb, float(eps), int(thresh), int(no_glossy), int(block),
-        _cuda.stream_ptr(dev),
+        _cuda.ptr(rres), n, s_count, nb, float(eps), int(thresh), int(no_glossy),
+        int(block), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_krng")
     fused_passes_krng.launches += 1
-    return acc, cnt, resid_out
+    return acc, cnt, (rres if replay else resid_out)
 
 
 def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residuals):
@@ -694,7 +787,7 @@ def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residual
     return (acc, cnt, *res) if with_residuals else (acc, cnt)
 
 
-BWD_BLOCK = 128  # lanes per K8 block (csrc/bounce_bwd.cu kBlock)
+BWD_BLOCK = 128  # lanes per K8 / K9 block (kBlock in bounce_bwd.cu, regen_replay_bwd.cu)
 
 
 def _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out):
@@ -713,6 +806,24 @@ def _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out):
     _cuda.check(err, "pt3_bounce_bwd")
     bounce_bwd_step.launches += 1
     return cot_in, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
+
+
+def _regen_replay_bwd_cuda(pk, lane_ids, resid, cnt, acc_bar, seeds, sample0, s_count):
+    n = acc_bar.shape[1]
+    dev = acc_bar.device
+    n_col = 9 * pk.n_mat + 3
+    d_state0 = torch.zeros((s_count * 10, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_col, -(-n // BWD_BLOCK)), dtype=torch.float32, device=dev)
+    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
+    err = _cuda.lib().pt3_regen_replay_bwd(
+        *_scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
+        seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(), resid.data_ptr(),
+        cnt.data_ptr(), acc_bar.data_ptr(), d_state0.data_ptr(), partial.data_ptr(),
+        d_out.data_ptr(), n, _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "pt3_regen_replay_bwd")
+    regen_replay_bwd.launches += 1
+    return d_state0, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
 
 
 def _device_kind(*tensors) -> str:
@@ -776,12 +887,12 @@ def alive_mask_words(state0: torch.Tensor, s_count: int) -> torch.Tensor:
 
 
 def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,
-                 s_count, thresh, no_glossy, block):
+                 s_count, thresh, no_glossy, block, replay):
     if lane_ids.device.type == "cuda":
-        return _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds,
-                                sample0, eps, nb, s_count, thresh, no_glossy, block)
-    return regen_krng_plain(pk, lane_ids, amask, state0, resid_in, seeds,
-                            sample0, eps, nb, s_count, thresh, no_glossy, block)
+        return _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
+                                eps, nb, s_count, thresh, no_glossy, block, replay)
+    return regen_krng_plain(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
+                            eps, nb, s_count, thresh, no_glossy, block, replay)
 
 
 def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
@@ -793,8 +904,13 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     as ``fused_passes``; bounce uniforms come from (lane_ids, sample0 + s,
     depth, key_words). ``tail_frac`` > 0 enables tail compaction (exact:
     per-lane contributions are unchanged; only the float32 summation
-    grouping at level boundaries differs). Returns (acc [3, N], cnt [N])."""
-    if stream or replay:
+    grouping at level boundaries differs). Returns (acc [3, N], cnt [N]);
+    with ``replay``, (acc, cnt, resid): the replay residuals [S*nb, 13, N],
+    of which a lane's slots j < cnt are written (``acc`` and ``cnt`` are
+    bit-equal to a launch without ``replay``)."""
+    if replay and (tail_frac > 0.0 or stream):
+        raise ValueError("replay residuals are incompatible with tail/stream")
+    if stream:
         raise NotImplementedError("not yet ported")
     if s_count > S_COUNT_MAX:
         raise ValueError(
@@ -805,7 +921,8 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
         raise ValueError("fused_passes_krng: state0/lane_ids shapes do not match S")
     _device_kind(state0, lane_ids, pk.tri_tab)
     dev = state0.device
-    pad = (-n) % block
+    # tail compaction needs whole blocks; the replay residuals stay unpadded
+    pad = 0 if replay else (-n) % block
     state0 = state0.to(torch.float32)
     lane_ids = lane_ids.to(torch.int32)
     if pad:
@@ -819,7 +936,8 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     npad = state0.shape[1]
     thresh = int(tail_frac * block) if npad > block else 0
     run = lambda lid, am, s0, res, th: _krng_launch(
-        pk, lid, am, s0, res, seeds, sample0, eps, nb, s_count, th, no_glossy, block)
+        pk, lid, am, s0, res, seeds, sample0, eps, nb, s_count, th, no_glossy, block,
+        replay)
     if thresh:
         # tail compaction: every level but the last stops its blocks at
         # live < thresh; survivors (sorted by remaining samples) are packed
@@ -851,7 +969,9 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
             cur = (take(cur[0]), take(cur[1]), take(cur[2]), take(resid))
             level_n = n2
     else:
-        acc, cnt, _ = run(lane_ids, amask, state0, None, 0)
+        acc, cnt, rres = run(lane_ids, amask, state0, None, 0)
+        if replay:
+            return acc, cnt, rres
     if pad:
         acc = acc[:, :n]
         cnt = cnt[:n]
@@ -910,3 +1030,33 @@ def bounce_bwd_step(pk: PackedSceneFused, state: torch.Tensor, t: torch.Tensor,
 
 
 bounce_bwd_step.launches = 0
+
+
+def regen_replay_bwd(pk: PackedSceneFused, lane_ids: torch.Tensor, key_words,
+                     sample0: int, resid: torch.Tensor, cnt: torch.Tensor,
+                     acc_bar: torch.Tensor, s_count: int):
+    """K9: the reverse walk over K4's replay residuals (``fused_passes_krng``
+    with ``replay=True``, on the same lane ids, key words and sample0).
+    resid [S*nb, 13, N], cnt [N], acc_bar [3, N]: the cotangent of K4's
+    radiance sum. Returns (d_state0 [S*10, N] in state0's sample-major
+    layout, zero alive rows; d_mat [M, 9] (emission 3, diffuse 3, ior,
+    reflectivity, cone angle); d_env [3])."""
+    n = acc_bar.shape[1]
+    if resid.dim() != 3 or resid.shape[1:] != (13, n) or resid.shape[0] % s_count \
+            or cnt.shape != (n,) or lane_ids.shape != (n,):
+        raise ValueError("regen_replay_bwd: resid [S*nb, 13, N], cnt/lane_ids [N], "
+                         "acc_bar [3, N]")
+    seeds = kr.channel_seeds(int(key_words[0]), int(key_words[1]))
+    resid = resid.detach().to(torch.float32).contiguous()
+    acc_bar = acc_bar.detach().to(torch.float32).contiguous()
+    cnt = cnt.to(torch.int32).contiguous()
+    lane_ids = lane_ids.to(torch.int32).contiguous()
+    if _device_kind(resid, cnt, lane_ids, acc_bar, pk.tri_tab) == "cuda":
+        if pk.n_mat > MAX_BWD_MATERIALS:
+            raise ValueError(f"regen_replay_bwd: at most {MAX_BWD_MATERIALS} materials")
+        return _regen_replay_bwd_cuda(pk, lane_ids, resid, cnt, acc_bar, seeds, sample0,
+                                      s_count)
+    return regen_replay_bwd_plain(pk, lane_ids, resid, cnt, acc_bar, seeds, sample0, s_count)
+
+
+regen_replay_bwd.launches = 0

@@ -7,14 +7,18 @@ backprop, then one SGD update. The JAX step is a jitted ``shard_map`` over a
 (dp, sp) mesh; on a 1x1 mesh that is: the key folded twice with index 0
 (``tile_key(tile_key(key, dp_idx), sp_idx)``), the estimate equal to the
 pass's radiance, and the loss the global mean squared error. Meshes with
-more devices and ``passes_per_step > 1`` (the regenerating replay chain)
-are not ported yet.
+more devices are not ported yet.
 
-Two forwards, as in the JAX package:
+The forwards, as in the JAX package:
 
   * ``fused="auto"`` with the kernel backend: ``models/replay
     .trace_pass_replay`` (kernel K7 forward; the backward replays each
     bounce through kernel K8, no re-intersection; zero-throughput kill on);
+  * the same with ``passes_per_step`` = S > 1: ``models/replay
+    .trace_passes_replay``, the REGENERATING replay chain, S sample passes
+    under the step's key (samples 0 .. S-1, tile 0) in one launch of K4 in
+    replay mode, the backward K9's reverse walk; the estimate is the
+    radiance sum / S;
   * ``fused="off"`` (or another backend): ``integrator.trace_pass``, the
     per-bounce wavefront, with ``kill_dead_paths=False`` (a path whose
     throughput is exactly 0 still carries d(beta)/d(param)), differentiated
@@ -61,12 +65,12 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
 
     ``px``/``py`` [R] pixel coordinates and ``target`` [R, 3];
     ``state.materials`` replaces the scene's materials; each call consumes
-    one sample pass of the estimator under ``key``. ``mesh``: None (one
-    device); a mesh of more devices, and ``passes_per_step`` > 1, are not
-    ported yet."""
+    ``passes_per_step`` sample passes of the estimator under ``key``
+    (more than one needs the replay path). ``mesh``: None (one device); a
+    mesh of more devices is not ported yet."""
     from ..models.render import resolve_device
 
-    if _mesh_devices(mesh) != 1 or passes_per_step != 1:
+    if _mesh_devices(mesh) != 1:
         raise NotImplementedError("not yet ported")
     dev = resolve_device(device)
     scene = scene.to(dev)
@@ -75,14 +79,18 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
         and resolve_intersector(params, dev) == "kernel"
         and not params.preview
     )
+    use_regen = use_replay and passes_per_step > 1
     if use_replay:
-        from ..models.replay import trace_pass_replay
+        from ..models.replay import trace_pass_replay, trace_passes_replay
 
         trace = trace_pass_replay
         params = params.replace(kill_dead_paths=True, remat=False)
     else:
         trace = trace_pass
         params = params.replace(kill_dead_paths=False, fused="off")
+        if passes_per_step > 1:
+            raise ValueError("passes_per_step > 1 needs the replay path (fused='auto' "
+                             "with the kernel backend)")
 
     def train_step(state: TrainState, key, px, py, target):
         px, py, target = px.to(dev), py.to(dev), target.to(dev)
@@ -91,9 +99,15 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
         if differentiate_camera:
             cam = [c.requires_grad_() for c in cam]
         sc = scene._replace(materials=MaterialTable(*mats))
-        k = rng.tile_key(rng.tile_key(key, 0), 0)
-        radiance = trace(sc, type(state.camera)(*cam), params, k, px, py, tri_chunk)
-        loss = torch.mean((radiance - target) ** 2)
+        camera = type(state.camera)(*cam)
+        if use_regen:
+            radiance = trace_passes_replay(sc, camera, params, key, 0, 0, px, py,
+                                           passes_per_step, tri_chunk)
+            estimate = radiance / passes_per_step
+        else:
+            k = rng.tile_key(rng.tile_key(key, 0), 0)
+            estimate = trace(sc, camera, params, k, px, py, tri_chunk)
+        loss = torch.mean((estimate - target) ** 2)
         leaves = mats + (cam if differentiate_camera else [])
         grads = _grads(loss, leaves)
         with torch.no_grad():

@@ -8,6 +8,12 @@ Tolerances as in chip_smoke.py: K2 winner index on >= 99.9 % of rays and
 counts on >= 99 % of lanes; K8's input-state cotangents rtol 1e-3 / atol
 1e-5 of the largest on >= 99.9 % of lanes, its material and environment
 gradients within 1e-3 of the largest, and bit-identical on a second run.
+K4's replay mode: ``acc`` and ``cnt`` bit-equal to K4 without it, and on >=
+99 % of lanes the plain version's ``acc``/``cnt`` (rtol 1e-4 / atol 1e-5)
+and residual slots j < cnt (the same gate). K9: ``d_state0`` within 1e-5 of
+its largest on >= 99.9 % of lanes, material and environment gradients within
+1e-5 of the largest (the plain version sums in float64), bit-identical on a
+second run.
 """
 
 import pytest
@@ -151,3 +157,34 @@ def test_train_step_on_card_matches_cpu(dev):
     for f, c, h, o in zip(sh.materials._fields, sc.materials, sh.materials, scene.materials):
         tol = 1e-2 if f == "ior" else 1e-3
         assert (c.cpu() - h).abs().max() <= tol * (h - o).abs().max() + 1e-9, f
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_regen_replay_kernels_match_plain_versions(dev, name):
+    scene, state0, _, lanes = _state(name, dev)
+    pk = mk.PackedSceneFused(scene)
+    nb, s_count = 3, 3
+    a = (pk, state0, lanes, (5, 6), 0, 1e-4, nb, s_count)
+    acc, cnt, res = mk.fused_passes_krng(*a, replay=True)
+    assert all(torch.equal(x, y) for x, y in zip((acc, cnt), mk.fused_passes_krng(*a)))
+    seeds = kernel_rng.channel_seeds(5, 6)
+    amask = mk.alive_mask_words(state0, s_count)
+    pacc, pcnt, pres = mk.regen_krng_plain(pk, lanes, amask, state0, None, seeds, 0, 1e-4,
+                                           nb, s_count, 0, pk.no_glossy, replay=True)
+    real = (torch.arange(s_count * nb, device=dev)[:, None] < cnt[None, :])[:, None, :]
+    same = torch.isclose(res, pres, rtol=1e-4, atol=1e-5) | ~real
+    lanes_ok = (torch.all(torch.isclose(acc, pacc, rtol=1e-4, atol=1e-5), dim=0)
+                & (cnt == pcnt) & same.all(dim=0).all(dim=0))
+    assert lanes_ok.float().mean().item() >= 0.99
+    gen = torch.Generator(device=dev).manual_seed(0)
+    acc_bar = torch.randn((3, state0.shape[1]), generator=gen, device=dev)
+    b = (pk, lanes, (5, 6), 0, res, cnt, acc_bar, s_count)
+    o1 = mk.regen_replay_bwd(*b)
+    o2 = mk.regen_replay_bwd(*b)
+    op = mk.regen_replay_bwd_plain(pk, lanes, res, cnt, acc_bar, seeds, 0, s_count)
+    assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+    scale = op[0].abs().max()
+    d0_ok = torch.all(torch.isclose(o1[0], op[0], rtol=0, atol=1e-5 * scale), dim=0)
+    assert d0_ok.float().mean().item() >= 0.999
+    for got, ref in zip(o1[1:], op[1:]):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-9

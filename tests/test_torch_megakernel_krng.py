@@ -66,6 +66,8 @@ def test_k4_tail_compaction_matches_exhaustion():
         np.testing.assert_array_equal(cnt_tail.numpy(), cnt_full.numpy())
         np.testing.assert_allclose(tail.numpy(), full.numpy(), rtol=1e-6, atol=1e-7)
     with pytest.raises(NotImplementedError):
-        mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True)
+        mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, stream=True)
+    with pytest.raises(ValueError):
+        mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True, tail_frac=0.125)
     with pytest.raises(ValueError):
         mk.fused_passes_krng(pk, torch.zeros(650, 4), torch.zeros(4), kw_t, 0, 1e-4, NB, 65)

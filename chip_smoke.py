@@ -49,7 +49,21 @@ Phases (one line each, any failure stops the run):
      forward + backward with the feedback sort key chained across calls,
      in ms per pass; the card's regen step against the CPU's on a 32^2
      crop of cornell 512^2; and ten steps of the train_demo (cornell 256^2,
-     Adam, 16 passes per step).
+     Adam, 16 passes per step);
+  8. the stream tier and the compacting wavefront: the Woop table size and
+     route of cornell (framed 16:9 and square) and suzanne(-sub1..3), and
+     K4 resident against K4 stream (K6) on each at 256 wide (K=16, depth 5,
+     S=8, one launch each), bit for bit; on suzanne-sub2 the same with tail
+     compaction; suzanne-sub3 through render() at 512^2, 16 spp (counters
+     set to 0 just before, read just after: K4 only in stream mode); on
+     each of that render's stream launches K4 stream against the resident
+     K4 bit for bit, and on its main launch against its plain version,
+     timed, with its bound; trace_passes_compact on suzanne 512^2 (S=4;
+     counters set to 0 just before, read just after), K10 against its plain
+     version on each bounce of its first pass (with and without the winner
+     record), timed, with its bound, and the whole against
+     trace_passes_fused in table mode (K5) on the same keys, with the ms per
+     pass of compaction, K5 and K4.
 The last two lines are the kernels JSON and the device JSON.
 """
 
@@ -112,8 +126,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--until", type=int, default=7,
-                    help="stop after this phase (default: all seven)")
+    ap.add_argument("--until", type=int, default=8,
+                    help="stop after this phase (default: all eight)")
     args = ap.parse_args(argv)
     import torch
 
@@ -195,9 +209,24 @@ def main(argv=None) -> int:
                  "K4": (mk, "_regen_krng_cuda", mk.regen_krng_plain),
                  "K7": (mk, "_fused_bounces_cuda", mk.fused_bounces_plain),
                  "K8": (mk, "_bounce_bwd_cuda", mk.bounce_bwd_plain),
-                 "K9": (mk, "_regen_replay_bwd_cuda", mk.regen_replay_bwd_plain)}
+                 "K9": (mk, "_regen_replay_bwd_cuda", mk.regen_replay_bwd_plain),
+                 "K10": (mk, "_bounce_step_cuda", mk.bounce_step_plain)}
     wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
-                "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd}
+                "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd,
+                "K10": mk.bounce_step}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        mk.fused_passes_krng.stream_launches = 0
+
+    def read_counts():
+        """Launches per kernel; K4 counts its resident launches and K6 its
+        stream-mode ones."""
+        out = {k: fn.launches for k, fn in wrappers.items()}
+        out["K6"] = mk.fused_passes_krng.stream_launches
+        out["K4"] -= out["K6"]
+        return out
 
     @contextlib.contextmanager
     def plain(kernel):
@@ -407,13 +436,12 @@ def main(argv=None) -> int:
         spans.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_counts()
         t0 = time.time()
         out = render(scene, camera, params, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches[tag] = {k: fn.launches for k, fn in wrappers.items()}
+        launches[tag] = read_counts()
         img = out.mean()
         # .raw beside the build (a 1080p one is 58 MB); the PNG comes back
         out.save(os.path.join(raw_dir, f"{tag}.raw"))
@@ -1093,13 +1121,307 @@ def main(argv=None) -> int:
           f"reduction), loss {demo['loss0']:.6f} -> {demo['loss1']:.6f}, "
           f"{demo['ms_per_step']:.0f} ms per step ({demo['ms_per_step'] / 16:.1f} ms per pass)")
 
+    if args.until <= 7:
+        return 0
+
+    # ---- phase 8: the stream tier (K4 stream mode, K6) and compaction (K10) -
+    torch.cuda.empty_cache()
+    from pt_three_ways_tpu_torch.models.integrator import (
+        trace_passes_compact,
+        trace_passes_fused,
+        uses_stream,
+    )
+
+    def pixel_grid(w, h):
+        px = torch.arange(w * h, device=dev, dtype=torch.int32) % w
+        py = torch.arange(w * h, device=dev, dtype=torch.int32) // w
+        return px, py
+
+    def krng_inputs(scene, camera, params, n_passes):
+        """(state0 [S*10, N], lane ids) of the camera stage for n passes."""
+        px, py = pixel_grid(params.width, params.height)
+        base = rng.base_key(params.seed)
+        states = [integ._first_bounce_state(
+            scene, camera, params, rng.fold_in(rng.fold_in(base, s), 0), px, py, 1024,
+            "kernel", want_unif=False)[0] for s in range(n_passes)]
+        lanes = integ.lane_ids_for(px, py, params.width, params.first_bounce_samples)
+        return torch.cat(states), lanes
+
+    # (1) routing, and K4 resident against K4 stream on the same inputs (256
+    # wide, S=8): cornell framed 16:9 (as the CLI default) and square, and
+    # each suzanne scene
+    S8, nb8 = 8, 4
+    keep = {}
+    sweep = [("cornell", "cornell", 256, 144), ("cornell-square", "cornell", 256, 256)] + [
+        (name, name, 256, 256)
+        for name in ("suzanne", "suzanne-sub1", "suzanne-sub2", "suzanne-sub3")]
+    for tag, name, w, h in sweep:
+        scene, camera, params = build_scene(name, w, h)
+        woop_kb = scene.num_triangles * mk.WOOP_ROW_BYTES / 1024
+        route = "stream" if uses_stream(params, scene, dev) else "resident"
+        state0, lanes = krng_inputs(scene, camera, params, S8)
+        a = (state0, lanes, (12345, 67890), 0, params.epsilon, nb8, S8)
+        pk, ps = mk.PackedSceneFused(scene), mk.PackedSceneStream(scene)
+        ms_r, out_r = once_ms(lambda: mk.fused_passes_krng(pk, *a))
+        ms_s, out_s = once_ms(lambda: mk.fused_passes_krng(ps, *a, stream=True))
+        if not (torch.equal(out_r[0], out_s[0]) and torch.equal(out_r[1], out_s[1])):
+            fail(f"K4 stream differs from K4 resident on {tag}")
+        print(f"phase 8 route {tag} {w}x{h}: {scene.num_triangles} triangles, Woop table "
+              f"{woop_kb:.1f} KB, {route}; {state0.shape[1]} lanes, K4 resident {ms_r:.3f} ms, "
+              f"K4 stream {ms_s:.3f} ms ({ps.n_windows} windows of {ps.window}), acc and "
+              f"counts bit-equal", flush=True)
+        if name == "suzanne-sub2":
+            keep = dict(a=a, pk=pk, ps=ps)
+        del state0, out_r, out_s, a
+    torch.cuda.empty_cache()
+
+    # (2) suzanne-sub2 256^2, S=8 (1,048,576 lanes): stream against resident
+    # with tail compaction
+    a, pk, ps = keep["a"], keep["pk"], keep["ps"]
+    tail_r = mk.fused_passes_krng(pk, *a, tail_frac=0.125)
+    tail_s = mk.fused_passes_krng(ps, *a, tail_frac=0.125, stream=True)
+    torch.cuda.synchronize()
+    d_tail = (tail_r[0] - tail_s[0]).abs().max().item()
+    if not (torch.equal(tail_r[0], tail_s[0]) and torch.equal(tail_r[1], tail_s[1])):
+        fail(f"K4 stream with tail compaction differs from resident: max|d| {d_tail}")
+    print(f"phase 8 K4 stream vs resident suzanne-sub2 256^2 S={S8} "
+          f"({a[0].shape[1]} lanes): max|dacc| 0 and counts equal without tail "
+          f"compaction, max|dacc| {d_tail:.3e} and counts equal with tail_frac=0.125")
+    del keep, a, pk, ps, tail_r, tail_s
+    torch.cuda.empty_cache()
+
+    # (3) suzanne-sub3 through render() at 512^2, 16 spp; the arguments of
+    # every stream launch (K6) are kept for (4)
+    sparams = RenderParams(width=512, height=512, samples_per_pixel=16, seed=1)
+    sb = SceneBuilder()
+    scam = create_scene(sb, "suzanne-sub3", sparams)
+    sscene = sb.build()
+    sparams = sparams.replace(epsilon=auto_epsilon(sscene, scam))
+    sspans, k6_calls = [], []
+
+    def span8(kernel, f):
+        def hook(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = f(*a)
+            e1.record()
+            sspans.append((kernel, e0, e1))
+            if kernel == "K4" and a[-1]:  # a launch in stream mode
+                k6_calls.append(a)
+            return out
+        return hook
+
+    saved = [(ik, "_intersect_cuda", ik._intersect_cuda),
+             (mk, "_regen_krng_cuda", mk._regen_krng_cuda),
+             (mk, "_regen_table_cuda", mk._regen_table_cuda)]
+    ik._intersect_cuda = span8("K2", ik._intersect_cuda)
+    mk._regen_krng_cuda = span8("K4", mk._regen_krng_cuda)
+    mk._regen_table_cuda = span8("K5", mk._regen_table_cuda)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        out = render(sscene, scam, sparams, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches["sub3"] = read_counts()
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    img = out.mean()
+    out.save(os.path.join(raw_dir, "suzanne-sub3.raw"))
+    write_png(os.path.join(OUT_DIR, "chip_smoke_suzanne-sub3.png"), out.to_srgb8())
+    mean = float(img.mean())
+    kms = {}
+    for k, e0, e1 in sspans:
+        kms[k] = kms.get(k, 0.0) + e0.elapsed_time(e1)
+    if not (img.shape == (512, 512, 3) and bool(np.isfinite(img).all()) and 0.005 < mean < 10.0):
+        fail(f"suzanne-sub3 render: shape {img.shape}, mean {mean}")
+    if launches["sub3"]["K6"] <= 0 or launches["sub3"]["K4"] != 0:
+        fail(f"suzanne-sub3 render launches {launches['sub3']}: K4 must run in stream mode only")
+    k6_ms = [round(e0.elapsed_time(e1), 3) for k, e0, e1 in sspans if k == "K4"]
+    print(f"phase 8 render suzanne-sub3 512x512 spp 16 ({sscene.num_triangles} triangles): "
+          f"{wall:.3f} s, samples/ms {out.total_samples() / (wall * 1000.0):.2f}, mean "
+          f"{mean:.5f}, launches {launches['sub3']}, kernel ms "
+          f"{ {k: round(v, 3) for k, v in kms.items()} } ({sum(kms.values()) / (wall * 1e3):.1%} "
+          f"of wall; K4 stream by launch {k6_ms}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del out, sscene
+    torch.cuda.empty_cache()
+
+    # (4) K6 on the render's own launches. Each stream launch again, and the
+    # resident K4 on the same inputs: acc, counts and the continuation state
+    # bit-equal. Then the main pass group's first launch (the one that stops
+    # its blocks for tail compaction) against its plain version, timed, with
+    # its bound
+    for i, a in enumerate(k6_calls):
+        o_s = mk._regen_krng_cuda(*a)
+        o_r = mk._regen_krng_cuda(*a[:-1], False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(o_s, o_r) if x is not None):
+            fail(f"the sub3 render's K4 stream launch {i} differs from the resident K4 on "
+                 f"its inputs: max|dacc| {(o_s[0] - o_r[0]).abs().max().item()}")
+        print(f"phase 8 K4 stream vs resident, the sub3 render's launch {i} (N={a[3].shape[1]}, "
+              f"S={a[9]}, thresh={a[10]}, resumed={a[4] is not None}): acc, counts"
+              f"{' and continuation state' if o_s[2] is not None else ''} bit-equal", flush=True)
+        del o_s, o_r
+    main6 = next((a for a in k6_calls if a[10]), k6_calls[-1])
+    ps = main6[0]
+    o_k = mk._regen_krng_cuda(*main6)
+    work = {"ops": torch.zeros((), dtype=torch.int64, device=dev),
+            "rows": torch.zeros((), dtype=torch.int64, device=dev),
+            "win": torch.zeros((ps.n_windows,), dtype=torch.bool, device=dev)}
+    search_orig, enter_orig = mk.stream_search_plain, mk.window_enter_plain
+
+    def count_search(pk_, org, dirn, active, eps):
+        """Per plain stream search: the sphere and window tests of its
+        active rays; the windows each ray enters, by count_enter."""
+        work["ops"] += active.sum() * (pk_.n_sph * OPS_SPHERE + pk_.n_windows * OPS_SLAB)
+        return search_orig(pk_, org, dirn, active, eps)
+
+    def count_enter(box, org, inv_d, best_t, eps):
+        e = enter_orig(box, org, inv_d, best_t, eps)  # the active rays only
+        w = box.storage_offset() // 8  # box is the view ps.wbox[w]
+        work["rows"] += e.sum() * min(ps.window, ps.n_tri - w * ps.window)
+        work["win"][w] |= e.any()
+        return e
+
+    mk.stream_search_plain, mk.window_enter_plain = count_search, count_enter
+    try:
+        pms6, o_p = once_ms(lambda: mk.regen_krng_plain(*main6))
+    finally:
+        mk.stream_search_plain, mk.window_enter_plain = search_orig, enter_orig
+    err6 = (o_k[0] - o_p[0]).abs().max().item()
+    if not (torch.equal(o_k[0], o_p[0]) and torch.equal(o_k[1], o_p[1])):
+        fail(f"K4 stream disagrees with its plain version on the sub3 render's launch: "
+             f"max|d| {err6}, counts equal {torch.equal(o_k[1], o_p[1])}")
+    ms6 = events_ms(lambda: mk._regen_krng_cuda(*main6), 3)
+    live6 = int(o_p[1].sum().item())
+    rows6, win6 = int(work["rows"].item()), int(work["win"].sum().item())
+    ops6 = int(work["ops"].item()) + rows6 * OPS_TRIANGLE + live6 * OPS_SHADE
+    # bytes: the launch's inputs, each window some ray entered read once,
+    # the boxes and attribute tables, radiance, counts and continuation out
+    bytes6 = (nbytes(*main6[1:5], ps.wbox, ps.sph_tab, ps.tri_attr, ps.sph_attr)
+              + win6 * ps.window * mk.WOOP_ROW_BYTES + nbytes(*o_k))
+    b6, by6 = bound(bytes6, ops6)
+    checks["K6"] = {"sub3": dict(launches=launches["sub3"]["K6"], max_abs_err=err6, ms=ms6,
+                                 plain_ms=pms6, bound_ms=b6, bound_by=by6)}
+    print(f"phase 8 K4 stream vs plain, the sub3 render's main launch (N={main6[3].shape[1]}, "
+          f"S={main6[9]}, thresh={main6[10]}): max|dacc| {err6:.3e}, counts equal; kernel "
+          f"{ms6:.3f} ms plain {pms6:.1f} ms bound {b6:.4f} ms ({by6}); live bounces {live6}, "
+          f"triangle tests in entered windows {rows6}, windows entered {win6} of "
+          f"{ps.n_windows}", flush=True)
+    del k6_calls, main6, ps, o_k, o_p, work
+    torch.cuda.empty_cache()
+
+    # (5) compaction (S=4) on suzanne 512^2, the launch counters set to 0
+    # just before and read just after; the first pass's K10 arguments kept
+    scene, camera, params = build_scene("suzanne", 512, 512)
+    px, py = pixel_grid(512, 512)
+    bkey = rng.base_key(params.seed)
+    S4 = 4
+    k10_calls = []
+    k10_orig = mk._bounce_step_cuda
+
+    def k10_hook(*a):
+        if len(k10_calls) < params.max_depth - 1:
+            k10_calls.append(a)
+        return k10_orig(*a)
+
+    mk._bounce_step_cuda = k10_hook
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rad_c, n_c = trace_passes_compact(scene, camera, params, bkey, 0, 0, px, py, S4,
+                                          with_ray_count=True)
+        torch.cuda.synchronize()
+        first_c = (time.time() - t0) * 1e3 / S4
+        launches["compact"] = read_counts()
+    finally:
+        mk._bounce_step_cuda = k10_orig
+    if launches["compact"]["K10"] != S4 * (params.max_depth - 1):
+        fail(f"compaction launches {launches['compact']}")
+
+    # K10 against its plain version on each bounce of the first pass (the
+    # permuted state, live lanes first; dead lanes copied through), with and
+    # without the winner record: bitwise; timed, with the bound
+    k10 = []
+    for d, (pk, state, un, eps, _) in enumerate(k10_calls, start=1):
+        for with_hit in (False, True):
+            o_k = mk.bounce_step(pk, state, un, eps, with_hit=with_hit)
+            with plain("K10"):
+                pms, o_p = once_ms(lambda: mk.bounce_step(pk, state, un, eps, with_hit=with_hit))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(o_k, o_p)):
+                fail(f"K10 (bounce {d}, with_hit={with_hit}) disagrees with its plain "
+                     f"version: max|d| {(o_k[0] - o_p[0]).abs().max().item()}")
+            if not with_hit:
+                pms10 = pms
+        ms = events_ms(lambda: mk.bounce_step(pk, state, un, eps), 10)
+        msh = events_ms(lambda: mk.bounce_step(pk, state, un, eps, with_hit=True), 10)
+        live = state[9] != 0
+        n10, n_live = state.shape[1], int(live.sum().item())
+        hits = int(torch.isfinite(o_p[2]).sum().item())
+        ops = search_ops(pk, state[0:3], state[3:6], live, o_p[2], eps) + hits * OPS_SHADE
+        b, by = bound(n10 * 4 * (17 + 14) + nbytes(pk.tri_tab, pk.sph_tab, pk.tri_attr,
+                                                   pk.sph_attr), ops)
+        k10.append(dict(ms=ms, plain_ms=pms10, bound_ms=b, bound_by=by, max_abs_err=max(
+            (x.float() - y.float()).abs().max().item() for x, y in zip(o_k, o_p))))
+        print(f"phase 8 K10 compaction pass 0 bounce {d} ({n10} lanes, {n_live} live first, "
+              f"{n10 - n_live} dead copied through, {hits} hits): bitwise equal to its plain "
+              f"version with and without the winner record; kernel {ms:.4f} ms ({msh:.4f} "
+              f"with the record) plain {pms10:.1f} ms bound {b:.4f} ms ({by})", flush=True)
+    del k10_calls, o_k, o_p, state, un
+    mean = lambda key: sum(r[key] for r in k10) / len(k10)
+    checks["K10"] = {"compact": dict(
+        launches=launches["compact"]["K10"], max_abs_err=max(r["max_abs_err"] for r in k10),
+        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by=max(k10, key=lambda r: r["bound_ms"])["bound_by"])}
+    torch.cuda.empty_cache()
+
+    # compaction against the table-mode K5 on the same keys; ms per pass of
+    # compaction, K5 and K4
+    pcount = {}
+
+    def timed_call(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / S4, out
+
+    pcount["compact"], _ = timed_call(lambda: trace_passes_compact(
+        scene, camera, params, bkey, 0, 0, px, py, S4))
+    tparams5 = params.replace(rng_mode="table")
+    pcount["K5"], (rad_5, cnt_5) = timed_call(lambda: trace_passes_fused(
+        scene, camera, tparams5, bkey, 0, 0, px, py, S4, with_lane_counts=True))
+    pcount["K4"], _ = timed_call(lambda: trace_passes_fused(
+        scene, camera, params, bkey, 0, 0, px, py, S4))
+    n_5 = S4 * px.shape[0] + int(cnt_5.sum().item())
+    rel = ((rad_c - rad_5).abs() - 3e-4 * rad_5.abs()).max().item()
+    if not (torch.allclose(rad_c, rad_5, rtol=3e-4, atol=3e-4) and int(n_c) == n_5):
+        fail(f"compaction vs K5: max excess {rel}, rays {int(n_c)} vs {n_5}")
+    print(f"phase 8 compaction suzanne 512^2 K=16 depth 5 S={S4}: radiance within rtol/atol "
+          f"3e-4 of K5's (max|d| {(rad_c - rad_5).abs().max().item():.3e}), rays {int(n_c)} "
+          f"equal; launches {launches['compact']}; ms per pass: compaction "
+          f"{pcount['compact']:.1f} (first call {first_c:.1f}), K5 {pcount['K5']:.1f}, K4 "
+          f"{pcount['K4']:.1f}", flush=True)
+    del rad_c, rad_5, cnt_5, scene
+
     # one row per kernel: the numbers of the path that carries it (the
     # CLI-default cornell render for K2 and K4, square cornell for K5, the
     # training steps for K7 and K8: K8's numbers are the mean over the four
     # bounces of the first step; the regen training steps for K4's replay
-    # mode and K9), and every path's under "by_path"
+    # mode and K9; the sub3 render's main launch for K6; compaction for K10,
+    # the mean over the four bounces of its first pass), and every path's
+    # under "by_path"
     head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
-            "K8": "train", "K4r": "regen-train", "K9": "regen-train"}
+            "K8": "train", "K4r": "regen-train", "K9": "regen-train", "K6": "sub3",
+            "K10": "compact"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -1115,9 +1437,13 @@ def main(argv=None) -> int:
                 "pt_three_ways_tpu/ops/pallas_megakernel.py:1714"),
         "K9": ("K9 regen_replay_bwd", "pt_three_ways_tpu_torch/csrc/regen_replay_bwd.cu",
                "pt_three_ways_tpu/ops/pallas_megakernel.py:2808"),
+        "K6": ("K6 fused_passes_krng stream", "pt_three_ways_tpu_torch/csrc/stream_tri.cuh",
+               "pt_three_ways_tpu/ops/pallas_megakernel.py:329"),
+        "K10": ("K10 bounce_step", "pt_three_ways_tpu_torch/csrc/bounce_step.cu",
+                "pt_three_ways_tpu/ops/pallas_megakernel.py:2078"),
     }
     rows = []
-    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9"):
+    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          path=head[k], **checks[k][head[k]], library_ms=None,

@@ -28,8 +28,19 @@
 // slot index; a sample takes at most nb iterations, so S*nb slots suffice.
 // The TPU kernel's 16-row padding and per-tile iteration count are not
 // needed: cnt says which slots are real. Residual bytes: 52 per live bounce.
+//
+// STREAM (scenes whose Woop table is larger than one SM's shared memory):
+// the triangle search is K6 (stream_tri.cuh), which stages windows of the
+// table in shared memory block by block. Its votes and loads need every
+// thread of the block, so the loop is block-synchronous
+// (__syncthreads_or / __syncthreads_count over the live lanes): a dead,
+// exhausted or out-of-range thread stays in the loop, takes part in the
+// barriers and does no math. A lane's sequence of bounces is unchanged, so
+// acc and cnt equal the resident launch bit for bit. STREAM composes with
+// THRESH and RESUME (tail compaction), not with REPLAY.
 #include "kernel_rng.cuh"
 #include "pt3_device.cuh"
+#include "stream_tri.cuh"
 
 namespace {
 
@@ -49,14 +60,9 @@ __device__ __forceinline__ void load_state(float* st, const float* __restrict__ 
   for (int r = 0; r < 10; ++r) st[r] = state0[(size_t)(s * 10 + r) * n + lane];
 }
 
-// Winner search + environment on miss; returns hit (t, idx valid). The lane
-// dies unless the shading that follows revives it.
-template <bool PACKED>
-__device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
-                                               float eps, float& t, int& idx) {
-  L.cnt += 1;
-  const pt3::Ray r{L.st[0], L.st[1], L.st[2], L.st[3], L.st[4], L.st[5]};
-  pt3::winner_search<PACKED, false>(s, r, eps, nullptr, nullptr, t, idx);
+// Environment on miss after the winner search; returns hit (t, idx valid).
+// The lane dies unless the shading that follows revives it.
+__device__ __forceinline__ bool finish_search(const pt3::SceneView& s, Lane& L, float t) {
   const bool hit = isfinite(t) && t > 0.0f;
   if (!hit) {
     L.acc[0] = L.acc[0] + L.st[6] * s.env[0];
@@ -65,6 +71,16 @@ __device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
   }
   L.st[9] = 0.0f;
   return hit;
+}
+
+// Winner search + environment on miss; returns hit (t, idx valid).
+template <bool PACKED>
+__device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
+                                               float eps, float& t, int& idx) {
+  L.cnt += 1;
+  const pt3::Ray r{L.st[0], L.st[1], L.st[2], L.st[3], L.st[4], L.st[5]};
+  pt3::winner_search<PACKED, false>(s, r, eps, nullptr, nullptr, t, idx);
+  return finish_search(s, L, t);
 }
 
 // ---------------------------------------------------------------- K5 ----
@@ -134,6 +150,7 @@ struct KrngArgs {
   float* __restrict__ rresid;        // [S*nb, 13, N] (REPLAY)
   int n, S, nb, thresh;
   float eps;
+  pt3::StreamView w;                 // window tables (STREAM)
 };
 
 // First alive sample strictly after s_cur (>= 0 when first) over the two
@@ -177,6 +194,26 @@ __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
   }
 }
 
+// Shading with the lane's K1 draws on a hit, then the refill of a lane
+// whose path ended.
+template <bool NO_GLOSSY>
+__device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngLane& K,
+                                                  const KrngArgs& a, int lane, bool hit,
+                                                  float t, int idx) {
+  if (hit) {
+    const uint32_t base = K.hlane + K.sdt;
+    const float u = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[0]));
+    const float v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
+    const float p = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[2]));
+    const float au = NO_GLOSSY ? u : pt3::acos01(u);
+    pt3::shade<NO_GLOSSY>(s, K.L.st, K.L.acc, t, idx, u, au, v, p);
+    K.L.d_cur += 1;
+    K.sdt += pt3::kInP2;
+    if (K.L.d_cur > a.nb) K.L.st[9] = 0.0f;
+  }
+  if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
+}
+
 template <bool NO_GLOSSY, bool REPLAY>
 __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K,
                                             const KrngArgs& a, int lane) {
@@ -195,22 +232,31 @@ __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K
     slot[(size_t)11 * a.n] = (float)K.L.s_cur;
     slot[(size_t)12 * a.n] = (float)K.L.d_cur;
   }
-  if (hit) {
-    const uint32_t base = K.hlane + K.sdt;
-    const float u = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[0]));
-    const float v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
-    const float p = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[2]));
-    const float au = NO_GLOSSY ? u : pt3::acos01(u);
-    pt3::shade<NO_GLOSSY>(s, K.L.st, K.L.acc, t, idx, u, au, v, p);
-    K.L.d_cur += 1;
-    K.sdt += pt3::kInP2;
-    if (K.L.d_cur > a.nb) K.L.st[9] = 0.0f;
-  }
-  if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
+  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
 }
 
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, bool REPLAY>
+// One bounce with the streamed triangle search (K6). Every thread of the
+// block calls it; only `active` ones search, shade and refill.
+template <bool NO_GLOSSY>
+__device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, KrngLane& K,
+                                                   const KrngArgs& a, int lane, bool active,
+                                                   float4* win) {
+  const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
+  float t = pt3::kInf;
+  int idx = 0;
+  if (active) {
+    K.L.cnt += 1;
+    pt3::sphere_search(s, r, a.eps, t, idx);
+  }
+  pt3::stream_search(s, a.w, win, r, active, a.eps, t, idx);
+  if (!active) return;
+  const bool hit = finish_search(s, K.L, t);
+  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
+}
+
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, bool REPLAY, bool STREAM>
 __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
+  extern __shared__ float4 win[];  // STREAM: one window of Woop rows
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < a.n;
   const int li = valid ? lane : 0;
@@ -237,14 +283,23 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
     }
   }
   const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
-  if (!THRESH) {
+  if (!THRESH && !STREAM) {
     for (int it = 0; valid && K.L.st[9] != 0.0f && it < max_iter; ++it)
       krng_bounce<NO_GLOSSY, REPLAY>(s, K, a, lane);
+  } else if (!THRESH) {
+    // a dead lane stays dead (the refill runs in the bounce that ends a
+    // path), so the block runs while any of its lanes is alive
+    for (int it = 0; it < max_iter && __syncthreads_or(valid && K.L.st[9] != 0.0f); ++it)
+      krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, valid && K.L.st[9] != 0.0f, win);
   } else {
     const int th = max(a.thresh, 1);
     int live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     for (int it = 0; live >= th && it < max_iter; ++it) {
-      if (valid && K.L.st[9] != 0.0f) krng_bounce<NO_GLOSSY, false>(s, K, a, lane);
+      const bool active = valid && K.L.st[9] != 0.0f;
+      if (STREAM)
+        krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, active, win);
+      else if (active)
+        krng_bounce<NO_GLOSSY, false>(s, K, a, lane);
       live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     }
     if (valid) {
@@ -261,19 +316,29 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
   a.cnt_out[lane] = K.L.cnt;
 }
 
+template <bool NO_GLOSSY, bool STREAM>
+void launch_krng_mode(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
+                      int grid, int block, size_t smem, cudaStream_t st) {
+  if (thresh && resume)
+    regen_krng_kernel<NO_GLOSSY, true, true, false, STREAM><<<grid, block, smem, st>>>(s, a);
+  else if (thresh)
+    regen_krng_kernel<NO_GLOSSY, true, false, false, STREAM><<<grid, block, smem, st>>>(s, a);
+  else if (resume)
+    regen_krng_kernel<NO_GLOSSY, false, true, false, STREAM><<<grid, block, smem, st>>>(s, a);
+  else
+    regen_krng_kernel<NO_GLOSSY, false, false, false, STREAM><<<grid, block, smem, st>>>(s, a);
+}
+
 template <bool NO_GLOSSY>
 void launch_krng(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
-                 bool replay, int grid, int block, cudaStream_t st) {
+                 bool replay, bool stream, int grid, int block, cudaStream_t st) {
   if (replay)
-    regen_krng_kernel<NO_GLOSSY, false, false, true><<<grid, block, 0, st>>>(s, a);
-  else if (thresh && resume)
-    regen_krng_kernel<NO_GLOSSY, true, true, false><<<grid, block, 0, st>>>(s, a);
-  else if (thresh)
-    regen_krng_kernel<NO_GLOSSY, true, false, false><<<grid, block, 0, st>>>(s, a);
-  else if (resume)
-    regen_krng_kernel<NO_GLOSSY, false, true, false><<<grid, block, 0, st>>>(s, a);
+    regen_krng_kernel<NO_GLOSSY, false, false, true, false><<<grid, block, 0, st>>>(s, a);
+  else if (stream)
+    launch_krng_mode<NO_GLOSSY, true>(s, a, thresh, resume, grid, block,
+                                      sizeof(float4) * 3 * a.w.window, st);
   else
-    regen_krng_kernel<NO_GLOSSY, false, false, false><<<grid, block, 0, st>>>(s, a);
+    launch_krng_mode<NO_GLOSSY, false>(s, a, thresh, resume, grid, block, 0, st);
 }
 
 }  // namespace
@@ -307,7 +372,8 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const int* lane_ids, const int* amask,
                               const float* state0, const float* resid_in,
                               float* acc, int* cnt, float* resid_out,
-                              float* rresid, int n, int S, int nb, float eps,
+                              float* rresid, const float* tri_win, const float* wbox,
+                              int n_windows, int window, int n, int S, int nb, float eps,
                               int thresh, int no_glossy, int block,
                               void* stream) {
   pt3::SceneView s{tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad,
@@ -316,16 +382,22 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
   const bool th = thresh > 0;
   const bool resume = resid_in != nullptr;
   const bool replay = rresid != nullptr;
+  const bool stream_mode = tri_win != nullptr;
+  // a window lives in static-limit shared memory (48 KB: 1024 rows)
   if (block <= 0 || block > 1024 || (th && resid_out == nullptr) ||
-      (replay && (th || resume)))
+      (replay && (th || resume || stream_mode)) ||
+      (stream_mode && (wbox == nullptr || n_windows <= 0 || window <= 0 ||
+                       window % pt3::kTc != 0 || window > 1024 ||
+                       (size_t)n_windows * window < (size_t)n_tri)))
     return (int)cudaErrorInvalidValue;
   KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
-             acc, cnt, resid_out, rresid, n, S, nb, thresh, eps};
+             acc, cnt, resid_out, rresid, n, S, nb, thresh, eps,
+             {reinterpret_cast<const float4*>(tri_win), wbox, n_windows, window}};
   const int grid = (n + block - 1) / block;
   cudaStream_t st = (cudaStream_t)stream;
   if (no_glossy)
-    launch_krng<true>(s, a, th, resume, replay, grid, block, st);
+    launch_krng<true>(s, a, th, resume, replay, stream_mode, grid, block, st);
   else
-    launch_krng<false>(s, a, th, resume, replay, grid, block, st);
+    launch_krng<false>(s, a, th, resume, replay, stream_mode, grid, block, st);
   return (int)cudaGetLastError();
 }

@@ -78,6 +78,31 @@ __device__ __forceinline__ void sphere_search(const SceneView& s, const Ray& r,
   }
 }
 
+// The ray's distance to one Woop triangle (w0..w11: the u, v, w rows of its
+// affine map): +inf unless it is a valid hit beyond eps. Every triangle test
+// of every kernel is this arithmetic, so the resident scan (rows from global
+// memory) and the stream scan (rows from shared memory) round alike.
+__device__ __forceinline__ float woop_hit_t(float w0, float w1, float w2, float w3,
+                                            float w4, float w5, float w6, float w7,
+                                            float w8, float w9, float w10, float w11,
+                                            const Ray& r, float eps) {
+  const float o_u = w0 * r.ox + w1 * r.oy + w2 * r.oz + w3;
+  const float o_v = w4 * r.ox + w5 * r.oy + w6 * r.oz + w7;
+  const float o_w = w8 * r.ox + w9 * r.oy + w10 * r.oz + w11;
+  const float d_u = w0 * r.dx + w1 * r.dy + w2 * r.dz;
+  const float d_v = w4 * r.dx + w5 * r.dy + w6 * r.dz;
+  const float d_w = w8 * r.dx + w9 * r.dy + w10 * r.dz;
+  const bool not_par = fabsf(d_w) > kParallelEps;
+  const float den = not_par ? d_w : 1.0f;
+  float rcp = 1.0f / den;
+  rcp = rcp * (2.0f - den * rcp);
+  const float t = -o_w * rcp;
+  const float u = o_u + t * d_u;
+  const float v = o_v + t * d_v;
+  const bool valid = not_par && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps;
+  return valid ? t : kInf;
+}
+
 // One chunk of triangles [c0, c0 + tc) (clipped to n_tri). Within the chunk
 // the lowest row wins a tie; the chunk must be strictly nearer than best_t.
 // PACKED folds the row into the low 6 bits of t's bit pattern (one minimum;
@@ -92,24 +117,10 @@ __device__ __forceinline__ void triangle_chunk(const SceneView& s, const Ray& r,
   int cp = 0x7FFFFFFF;
   for (int j = c0; j < end; ++j) {
     const float* w = s.tri + 12 * j;
-    const float w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2), w3 = __ldg(w + 3);
-    const float w4 = __ldg(w + 4), w5 = __ldg(w + 5), w6 = __ldg(w + 6), w7 = __ldg(w + 7);
-    const float w8 = __ldg(w + 8), w9 = __ldg(w + 9), w10 = __ldg(w + 10), w11 = __ldg(w + 11);
-    const float o_u = w0 * r.ox + w1 * r.oy + w2 * r.oz + w3;
-    const float o_v = w4 * r.ox + w5 * r.oy + w6 * r.oz + w7;
-    const float o_w = w8 * r.ox + w9 * r.oy + w10 * r.oz + w11;
-    const float d_u = w0 * r.dx + w1 * r.dy + w2 * r.dz;
-    const float d_v = w4 * r.dx + w5 * r.dy + w6 * r.dz;
-    const float d_w = w8 * r.dx + w9 * r.dy + w10 * r.dz;
-    const bool not_par = fabsf(d_w) > kParallelEps;
-    const float den = not_par ? d_w : 1.0f;
-    float rcp = 1.0f / den;
-    rcp = rcp * (2.0f - den * rcp);
-    float t = -o_w * rcp;
-    const float u = o_u + t * d_u;
-    const float v = o_v + t * d_v;
-    const bool valid = not_par && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps;
-    t = valid ? t : kInf;
+    const float t = woop_hit_t(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3),
+                               __ldg(w + 4), __ldg(w + 5), __ldg(w + 6), __ldg(w + 7),
+                               __ldg(w + 8), __ldg(w + 9), __ldg(w + 10), __ldg(w + 11),
+                               r, eps);
     if (PACKED) {
       const int pk = (__float_as_int(t) & ~63) | (j - c0);
       cp = min(cp, pk);
@@ -128,18 +139,26 @@ __device__ __forceinline__ void triangle_chunk(const SceneView& s, const Ray& r,
   }
 }
 
-// Conservative ray/box test: can this ray improve best_t inside the box?
-__device__ __forceinline__ bool slab_test(const float* box, const Ray& r,
-                                          float idx_, float idy, float idz,
-                                          float best_t, float eps) {
+// The ray's parameter range [tmin, tmax] inside an axis-aligned box
+// (lo3 hi3 at box), from the reciprocal direction.
+__device__ __forceinline__ void slab_range(const float* box, const Ray& r, float idx_,
+                                           float idy, float idz, float& tmin, float& tmax) {
   const float t0x = (__ldg(box) - r.ox) * idx_;
   const float t1x = (__ldg(box + 3) - r.ox) * idx_;
   const float t0y = (__ldg(box + 1) - r.oy) * idy;
   const float t1y = (__ldg(box + 4) - r.oy) * idy;
   const float t0z = (__ldg(box + 2) - r.oz) * idz;
   const float t1z = (__ldg(box + 5) - r.oz) * idz;
-  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+}
+
+// Conservative ray/box test: can this ray improve best_t inside the box?
+__device__ __forceinline__ bool slab_test(const float* box, const Ray& r,
+                                          float idx_, float idy, float idz,
+                                          float best_t, float eps) {
+  float tmin, tmax;
+  slab_range(box, r, idx_, idy, idz, tmin, tmax);
   return tmax >= fmaxf(tmin, eps) && tmin < best_t;
 }
 

@@ -13,10 +13,13 @@ JAX package's ``models/integrator.py``:
     hemisphere sample tinted by diffuse;
   * emission added per shading event; hard depth cutoff returning black.
 
-Two paths: ``trace_pass`` (one sample pass, one bounce per loop step — the
-path the CPU render and the golden images use) and ``trace_passes_fused``
+Three paths: ``trace_pass`` (one sample pass, one bounce per loop step —
+the path the CPU render and the golden images use), ``trace_passes_fused``
 (the camera stage for S passes, then ONE regenerating megakernel launch:
-kernel K5 with table uniforms or K4 with in-kernel RNG). All draws come
+kernel K5 with table uniforms or K4 with in-kernel RNG, in stream mode for
+scenes over the resident size, ``uses_stream``) and
+``trace_passes_compact`` (the compacting wavefront: per bounce, the live
+lanes packed first, then kernel K10; no CLI path uses it). All draws come
 from the same threefry streams as the JAX package (ops/rng.py).
 """
 
@@ -60,6 +63,23 @@ def resolve_rng_mode(params: RenderParams) -> str:
     if params.rng_mode == "auto":
         return "kernel"
     return params.rng_mode
+
+
+def uses_stream(params: RenderParams, scene, device) -> bool:
+    """True when the regenerating megakernel runs in stream mode (K4 with
+    K6, ops/megakernel.PackedSceneStream): the kernel intersector with the
+    in-kernel RNG, no preview, ``fused`` not "off", dead paths killed, and a
+    Woop table larger than one SM's shared memory
+    (ops/megakernel.scene_fits_resident). The JAX package's gate is its
+    VMEM budget; the conditions are its ``uses_stream``'s."""
+    if (scene is None or params.preview or params.fused == "off"
+            or not params.kill_dead_paths):
+        return False
+    if resolve_intersector(params, device) != "kernel" or resolve_rng_mode(params) != "kernel":
+        return False
+    from ..ops import megakernel
+
+    return not megakernel.scene_fits_resident(scene, device)
 
 
 class GatheredMat(NamedTuple):
@@ -337,10 +357,16 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     permuted back, which is bit-exact because per-lane results do not
     depend on a lane's position. ``with_lane_counts`` also returns this
     launch's per-lane live-bounce counts (in unsorted lane order).
-    ``packed``: a prebuilt ``PackedSceneFused`` for this scene.
+    ``packed``: a prebuilt ``PackedSceneFused`` (``PackedSceneStream`` where
+    the scene streams) for this scene.
     """
     from ..ops import kernel_rng
-    from ..ops.megakernel import PackedSceneFused, fused_passes, fused_passes_krng
+    from ..ops.megakernel import (
+        PackedSceneFused,
+        PackedSceneStream,
+        fused_passes,
+        fused_passes_krng,
+    )
 
     dev = px.device
     if resolve_intersector(params, dev) != "kernel" or params.preview:
@@ -349,9 +375,10 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     k = params.first_bounce_samples
     r0 = px.shape[0]
     use_krng = resolve_rng_mode(params) == "kernel" and nb > 0
+    stream = use_krng and uses_stream(params, scene, dev)
 
     if packed is None:
-        packed = PackedSceneFused(scene)
+        packed = PackedSceneStream(scene) if stream else PackedSceneFused(scene)
 
     base_sum = torch.zeros((3, r0), device=dev)
     states, unifs = [], []
@@ -391,6 +418,7 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
                 params.epsilon, nb, n_passes,
                 tail_frac=params.regen_tail_frac,
                 tail_levels=params.regen_tail_levels,
+                stream=stream,
             )
         else:
             acc, cnts = fused_passes(packed, state0, unif, params.epsilon, nb, n_passes)
@@ -402,4 +430,57 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
         lane_counts = cnts
     if with_lane_counts:
         return radiance, lane_counts
+    return radiance
+
+
+def trace_passes_compact(scene, camera, params: RenderParams, base_key, sample0: int,
+                         tile_idx: int, px, py, n_passes: int, tri_chunk: int = 1024,
+                         with_ray_count: bool = False):
+    """``n_passes`` sample passes through the compacting wavefront (the
+    JAX package's ``trace_passes_compact``).
+
+    Per pass: the camera stage with the threefry bounce rows; then, per
+    bounce, a stable partition of the lanes by alive (live lanes first, in
+    order), the gather of the state and of that bounce's uniform rows, and
+    one K10 launch (ops/megakernel.bounce_step) over all lanes; after the
+    last bounce the accumulator (state rows 10..12) is scattered back once.
+    Compaction only permutes lane positions, so the estimator is the
+    per-pass one, draw for draw (the table-mode K5 reproduces it). Returns
+    the radiance SUM over the passes [R, 3] and, ``with_ray_count``, the
+    camera rays plus live bounces. No CLI path uses it.
+    """
+    from ..ops.megakernel import PackedSceneFused, bounce_step
+
+    dev = px.device
+    if resolve_intersector(params, dev) != "kernel" or params.preview:
+        raise ValueError("trace_passes_compact needs the kernel intersector, no preview")
+    nb = max(params.max_depth - 1, 0)
+    k = params.first_bounce_samples
+    r0 = px.shape[0]
+    n = r0 * k
+    packed = PackedSceneFused(scene)
+    total = torch.zeros((3, r0), device=dev)
+    nrays = torch.zeros((), dtype=torch.int64, device=dev) + n_passes * r0
+    for s in range(n_passes):
+        key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
+        st_rows, base, unif_rows = _first_bounce_state(
+            scene, camera, params, key, px, py, tri_chunk, "kernel")
+        if nb == 0:
+            total = total + base
+            continue
+        state = torch.cat([st_rows, torch.zeros((3, n), device=dev)])  # [13, N]
+        orig = torch.arange(n, device=dev)
+        for d in range(1, nb + 1):
+            perm = torch.argsort((state[9] == 0.0).to(torch.int32), stable=True)
+            state = state[:, perm]
+            orig = orig[perm]
+            state, cnt = bounce_step(packed, state, unif_rows[4 * (d - 1):4 * d][:, orig],
+                                     params.epsilon)
+            nrays = nrays + cnt.sum()
+        rad = torch.zeros((3, n), device=dev)
+        rad[:, orig] = state[10:13]
+        total = total + base + rad.reshape(3, r0, k).mean(dim=2)
+    radiance = total.T
+    if with_ray_count:
+        return radiance, nrays
     return radiance

@@ -141,19 +141,15 @@ def _first_min_rows(t: torch.Tensor):
     return best, idx
 
 
-def winner_search_plain(packed: PackedScene, org, dirn, live, eps: float,
-                        packed_winner: bool = False):
-    """The shared winner search (``pt3_device.cuh: intersect``) on whole
-    [3, R] tensors. Returns (best_t [R] with -inf on dead lanes, best_i [R]).
-
-    ``packed_winner`` (the in-kernel-RNG megakernel only): each chunk folds
-    the row into the low 6 bits of ``t``'s bit pattern so one minimum finds
-    (t, row); it lowers the winner ``t`` by up to 63 ulp."""
+def sphere_search_plain(packed: PackedScene, org, dirn, live, eps: float):
+    """The sphere part of the winner search (``pt3_device.cuh:
+    sphere_search``): (best_t [R], +inf on a live miss and -inf on a dead
+    lane; best_i [R], spheres' packed indices T + s)."""
     ox, oy, oz = org[0], org[1], org[2]
     dx, dy, dz = dirn[0], dirn[1], dirn[2]
     best_t = torch.where(live, torch.full_like(ox, _INF), torch.full_like(ox, -_INF))
     best_i = torch.zeros(ox.shape, dtype=torch.int32, device=ox.device)
-    n_tri, n_sph = packed.n_tri, packed.n_sph
+    n_sph = packed.n_sph
     if n_sph > 0:
         sp = packed.sph_tab[:n_sph]
         od = ox * dx + oy * dy + oz * dz
@@ -170,41 +166,61 @@ def winner_search_plain(packed: PackedScene, org, dirn, live, eps: float,
         t = torch.where(valid, t, torch.full_like(t, _INF))
         ct, ci = _first_min_rows(t)
         take = ct < best_t
-        best_i = torch.where(take, ci + n_tri, best_i)
+        best_i = torch.where(take, ci + packed.n_tri, best_i)
         best_t = torch.where(take, ct, best_t)
-    if n_tri > 0:
-        tc = packed.chunk_rows
-        tab = packed.tri_tab
-        for c0 in range(0, n_tri, tc):
-            w = tab[c0:min(c0 + tc, n_tri)]
-            col = lambda k: w[:, k:k + 1]
-            o_u = col(0) * ox + col(1) * oy + col(2) * oz + col(3)
-            o_v = col(4) * ox + col(5) * oy + col(6) * oz + col(7)
-            o_w = col(8) * ox + col(9) * oy + col(10) * oz + col(11)
-            d_u = col(0) * dx + col(1) * dy + col(2) * dz
-            d_v = col(4) * dx + col(5) * dy + col(6) * dz
-            d_w = col(8) * dx + col(9) * dy + col(10) * dz
-            not_par = torch.abs(d_w) > _PARALLEL_EPS
-            den = torch.where(not_par, d_w, torch.ones_like(d_w))
-            rcp = 1.0 / den
-            rcp = rcp * (2.0 - den * rcp)
-            t = -o_w * rcp
-            u = o_u + t * d_u
-            v = o_v + t * d_v
-            valid = not_par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
-            t = torch.where(valid, t, torch.full_like(t, _INF))
-            if packed_winner:
-                rows = torch.arange(t.shape[0], device=t.device, dtype=torch.int32)[:, None]
-                pk = (t.view(torch.int32) & ~63) | rows
-                cp = torch.min(pk, dim=0).values
-                ct = (cp & ~63).view(torch.float32)
-                ci = (cp & 63) + c0
-            else:
-                ct, ci = _first_min_rows(t)
-                ci = ci + c0
-            take = ct < best_t
-            best_i = torch.where(take, ci.to(torch.int32), best_i)
-            best_t = torch.where(take, ct, best_t)
+    return best_t, best_i
+
+
+def chunk_min_plain(w, first: int, org, dirn, eps: float, packed_winner: bool):
+    """One chunk of Woop rows ``w`` [rows <= 64, 12] against every ray
+    (``pt3_device.cuh: triangle_chunk``): (the chunk's nearest t [R], +inf on no
+    hit; its packed index ``first + row`` [R]); the lowest row wins a tie.
+    ``packed_winner`` folds the row into the low 6 bits of t's bit pattern
+    (one minimum; t rounds down by up to 63 ulp)."""
+    ox, oy, oz = org[0], org[1], org[2]
+    dx, dy, dz = dirn[0], dirn[1], dirn[2]
+    col = lambda k: w[:, k:k + 1]
+    o_u = col(0) * ox + col(1) * oy + col(2) * oz + col(3)
+    o_v = col(4) * ox + col(5) * oy + col(6) * oz + col(7)
+    o_w = col(8) * ox + col(9) * oy + col(10) * oz + col(11)
+    d_u = col(0) * dx + col(1) * dy + col(2) * dz
+    d_v = col(4) * dx + col(5) * dy + col(6) * dz
+    d_w = col(8) * dx + col(9) * dy + col(10) * dz
+    not_par = torch.abs(d_w) > _PARALLEL_EPS
+    den = torch.where(not_par, d_w, torch.ones_like(d_w))
+    rcp = 1.0 / den
+    rcp = rcp * (2.0 - den * rcp)
+    t = -o_w * rcp
+    u = o_u + t * d_u
+    v = o_v + t * d_v
+    valid = not_par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    t = torch.where(valid, t, torch.full_like(t, _INF))
+    if packed_winner:
+        rows = torch.arange(t.shape[0], device=t.device, dtype=torch.int32)[:, None]
+        cp = torch.min((t.view(torch.int32) & ~63) | rows, dim=0).values
+        return (cp & ~63).view(torch.float32), ((cp & 63) + first).to(torch.int32)
+    ct, ci = _first_min_rows(t)
+    return ct, (ci + first).to(torch.int32)
+
+
+def winner_search_plain(packed: PackedScene, org, dirn, live, eps: float,
+                        packed_winner: bool = False):
+    """The shared winner search (``pt3_device.cuh: winner_search``) on whole
+    [3, R] tensors: spheres, then the triangles in chunks of ``tc =
+    min(t_pad, 64)`` rows, a later chunk taking over only when strictly
+    nearer. Returns (best_t [R] with -inf on dead lanes, best_i [R]).
+
+    ``packed_winner`` (the in-kernel-RNG megakernel only): each chunk folds
+    the row into the low 6 bits of ``t``'s bit pattern so one minimum finds
+    (t, row); it lowers the winner ``t`` by up to 63 ulp."""
+    best_t, best_i = sphere_search_plain(packed, org, dirn, live, eps)
+    n_tri, tc = packed.n_tri, packed.chunk_rows
+    for c0 in range(0, n_tri, tc):
+        ct, ci = chunk_min_plain(packed.tri_tab[c0:min(c0 + tc, n_tri)], c0, org, dirn, eps,
+                                 packed_winner)
+        take = ct < best_t
+        best_i = torch.where(take, ci, best_i)
+        best_t = torch.where(take, ct, best_t)
     return best_t, best_i
 
 

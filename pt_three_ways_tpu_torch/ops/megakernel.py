@@ -1,5 +1,6 @@
-"""The path-tracing megakernels: K5 and K4 (rendering), K7, K8, K4 replay
-and K9 (training).
+"""The path-tracing megakernels: K5 and K4 (rendering; K4's stream mode with
+K6 for large meshes), K10 (the compacting wavefront), K7, K8, K4 replay and
+K9 (training).
 
 K5 and K4 trace S sample passes per lane in one launch. A lane is a fixed
 (pixel, sub-stratum) slot; when its path dies it reloads the next alive
@@ -30,7 +31,20 @@ over the packed survivors resumes it. Its ``replay`` mode (the regenerating
 training path's forward) also writes one residual slot per live iteration
 of a lane, ``[S*nb, 13, N]``: the input org/dir/beta, the winner (t, packed
 index), the sample and the depth; a lane's slots are exactly ``j < cnt``.
-``stream`` is not ported yet.
+Its ``stream`` mode, for scenes whose Woop table is larger than one SM's
+shared memory (``scene_fits_resident``), takes the triangle search K6
+(``_stream_tri`` in the JAX package; ``csrc/stream_tri.cuh``): the table is
+cut into windows of ``window`` triangles with one box each
+(``PackedSceneStream``), and a block stages in shared memory, window by
+window, only the windows one of its rays can still win in. It composes with
+the tail compaction, not with ``replay``, and equals the resident launch bit
+for bit.
+
+K10 ``bounce_step`` replaces ``_bounce_kernel`` / ``_run_bounce`` /
+``bounce_step``: one bounce of the compacting wavefront
+(models/integrator.trace_passes_compact) on a [13, N] state whose rows
+10..12 carry the radiance, with the unpacked winner and table uniforms
+(``csrc/bounce_step.cu``).
 
 Design on the H100 (``csrc/megakernel.cu``): one thread per lane, the path
 state in registers, the scene and attribute tables in global memory behind
@@ -78,7 +92,13 @@ import torch
 
 from . import _cuda
 from . import kernel_rng as kr
-from .intersect_kernel import PackedScene, winner_search_plain
+from .intersect_kernel import (
+    TC,
+    PackedScene,
+    chunk_min_plain,
+    sphere_search_plain,
+    winner_search_plain,
+)
 from .vecmath import fcos, fsin, fsqrt
 
 S_COUNT_MAX = 64  # the K4 alive bitmask is two 32-bit words
@@ -87,6 +107,19 @@ BLOCK = 128  # lanes per CUDA block (and per tail-compaction tile)
 TRI_ATTR = 30  # woop 12, vertex normals 9, emission 3, diffuse 3, ior, refl, cone
 SPH_ATTR = 12  # centre 3, emission 3, diffuse 3, ior, refl, cone
 _M32 = 0xFFFFFFFF
+# triangles per K6 window (one 64-row chunk, 3 KB of Woop rows in shared
+# memory per block): the fastest of 64, 128 and 256 rows on the H100 in
+# the first measurements of the stream mode (PERF.md)
+STREAM_WINDOW = 64
+# shared memory of one H100 SM (sm_90: 228 KB); the gate's size for CPU
+# tensors, so CPU runs route as the card does
+SMEM_PER_SM_BYTES = 228 * 1024
+WOOP_ROW_BYTES = 48
+# K6's window boxes are widened by this fraction of the scene's scale (1 +
+# the largest coordinate of a vertex or a sphere's extent): 2^9 float32
+# ulps of that scale, far above the rounding of the slab and triangle
+# tests (PackedSceneStream)
+WBOX_MARGIN = 2.0 ** -15
 
 
 class PackedSceneFused(PackedScene):
@@ -146,6 +179,72 @@ class PackedSceneFused(PackedScene):
         else:
             self.sph_attr = torch.zeros((1, SPH_ATTR), dtype=f32, device=dev)
         self.environment = scene.environment.detach().to(f32)
+
+
+def scene_fits_resident(scene, device) -> bool:
+    """True when the scene's Woop table (48 B per triangle) fits one SM's
+    shared memory (``shared_memory_per_multiprocessor`` of a CUDA device,
+    ``SMEM_PER_SM_BYTES`` for the CPU). Larger scenes take K4's stream mode:
+    the resident K4 reads the whole table through L1 on every bounce of
+    every lane."""
+    cap = SMEM_PER_SM_BYTES
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        cap = getattr(props, "shared_memory_per_multiprocessor", cap)
+    return scene.num_triangles * WOOP_ROW_BYTES <= cap
+
+
+class PackedSceneStream(PackedSceneFused):
+    """PackedSceneFused + K6's window tables (the port of the JAX package's
+    ``PackedSceneStream``): the Morton-ordered Woop rows cut into
+    ``n_windows`` windows of ``window`` triangles (a multiple of 64, so
+    window chunks start where the resident scan's do), ``tri_win``
+    [n_windows * window, 12] with all-zero padding rows (rejected as
+    parallel), and one box per window, ``wbox`` [n_windows, 8] = lo3 hi3
+    pad2: the min/max of its vertices (the last window padded with the last
+    vertex, as the JAX package does) widened by ``wbox_margin`` on every
+    side. The winner's attribute row stays one indexed load from
+    ``tri_attr``: the TPU kernel's 128-column table and in-loop attribute
+    capture are not needed.
+
+    The margin keeps the window skip exact under rounding: the point at a
+    hit's computed t lies within a few float32 ulps of the scene's scale
+    of its triangle, and the slab test's entry and exit times are off by as
+    little along each axis, so a box widened by ``WBOX_MARGIN`` of that
+    scale (hundreds of ulps) is entered before, and left after, every hit a
+    ray can take in it, one on a face or an edge shared with another window
+    included."""
+
+    def __init__(self, scene, window: int = STREAM_WINDOW):
+        super().__init__(scene)
+        if window <= 0 or window % TC or window > 1024:
+            raise ValueError(f"window must be a multiple of {TC} in [64, 1024], got {window}")
+        dev = scene.device
+        f32 = torch.float32
+        self.window = int(window)
+        n_win = max(-(-self.n_tri // window), 1)
+        self.n_windows = n_win
+        self.tri_win = torch.zeros((n_win * window, 12), dtype=f32, device=dev)
+        self.tri_win[:self.n_tri] = self.tri_tab[:self.n_tri]
+        if self.n_tri:
+            verts = scene.triangles.verts.to(f32)
+            pad = n_win * window - self.n_tri
+            if pad:
+                verts = torch.cat([verts, verts[-1:, -1:, :].expand(pad, 3, 3)], dim=0)
+            v = verts.reshape(n_win, window * 3, 3)
+            sph = scene.spheres
+            reach = sph.centre.detach().abs() + sph.radius_sq.detach().sqrt()[:, None]
+            scale = max(float(verts.abs().max()), float(reach.max()) if reach.numel() else 0.0)
+            self.wbox_margin = WBOX_MARGIN * (1.0 + scale)
+            lo = v.min(dim=1).values - self.wbox_margin
+            hi = v.max(dim=1).values + self.wbox_margin
+        else:
+            self.wbox_margin = 0.0
+            lo = torch.full((1, 3), math.inf, dtype=f32, device=dev)
+            hi = torch.full((1, 3), -math.inf, dtype=f32, device=dev)
+        self.wbox = torch.cat([lo, hi, torch.zeros((n_win, 2), dtype=f32, device=dev)],
+                              dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +387,73 @@ def _shade_plain(pk: PackedSceneFused, st, acc, t, idx, hit, u, acos_u, v, p,
     st[9] = torch.where(hit, alive_next.to(st.dtype), st[9])
 
 
-def _bounce_common(pk, st, acc, cnt, active, packed_winner, eps):
+def _safe_recip(d):
+    return 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
+
+
+def window_enter_plain(box, org, inv_d, best_t, eps: float):
+    """K6's window test (``stream_tri.cuh: window_enter``) for every ray:
+    can its winner still come from inside ``box`` (lo3 hi3)? The box entry
+    is compared with the top of best_t's packing bucket (its bits | 63), so
+    a triangle the packed winner would prefer to a sphere is never
+    skipped."""
+    t0 = (box[0:3, None] - org) * inv_d
+    t1 = (box[3:6, None] - org) * inv_d
+    tmin = torch.minimum(t0, t1).amax(dim=0)
+    tmax = torch.maximum(t0, t1).amin(dim=0)
+    bucket = (best_t > 0.0) & torch.isfinite(best_t)
+    top = torch.where(bucket, (best_t.view(torch.int32) | 63).view(torch.float32), best_t)
+    return (tmax >= torch.clamp(tmin, min=eps)) & (tmin <= top)
+
+
+def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
+    """Plain version of K6's search with the packed winner: the spheres,
+    then the windows in order; a ray scans a window's chunks only where
+    ``window_enter_plain`` says its winner can still lie in the window's
+    box (the kernel's threads do the same; its block loads a window when any
+    of its rays enters it). Chunk boundaries and arithmetic are the resident
+    scan's, so the winners are bit-equal to ``winner_search_plain(...,
+    packed_winner=True)``. Returns (best_t, best_i) as it does.
+
+    Each test is per ray, so only the active rays are tested, and a
+    window's chunks only against the rays that enter it."""
+    best_t, best_i = sphere_search_plain(pk, org, dirn, active, eps)
+    n_tri, tc = pk.n_tri, pk.chunk_rows
+    if n_tri == 0:
+        return best_t, best_i
+    lanes = active.nonzero()[:, 0]
+    org, dirn = org[:, lanes], dirn[:, lanes]
+    bt, bi = best_t[lanes], best_i[lanes]
+    inv_d = _safe_recip(dirn)
+    for w in range(pk.n_windows):
+        sel = window_enter_plain(pk.wbox[w], org, inv_d, bt, eps).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        o, d = org[:, sel], dirn[:, sel]
+        t_w, i_w = bt[sel], bi[sel]
+        base = w * pk.window
+        rows = min(pk.window, n_tri - base)
+        for c in range(0, rows, tc):
+            first = base + c
+            ct, ci = chunk_min_plain(pk.tri_win[first:first + min(tc, rows - c)], first,
+                                     o, d, eps, True)
+            take = ct < t_w
+            i_w = torch.where(take, ci, i_w)
+            t_w = torch.where(take, ct, t_w)
+        bt[sel], bi[sel] = t_w, i_w
+    best_t[lanes], best_i[lanes] = bt, bi
+    return best_t, best_i
+
+
+def _bounce_common(pk, st, acc, cnt, active, packed_winner, eps, stream=False):
     """Winner search + environment on miss for the ``active`` lanes; every
     active lane dies unless the shading that follows revives it."""
     cnt += active.to(torch.int32)
-    t, idx = winner_search_plain(pk, st[0:3], st[3:6], active, eps,
-                                 packed_winner=packed_winner)
+    if stream:
+        t, idx = stream_search_plain(pk, st[0:3], st[3:6], active, eps)
+    else:
+        t, idx = winner_search_plain(pk, st[0:3], st[3:6], active, eps,
+                                     packed_winner=packed_winner)
     hit = active & torch.isfinite(t) & (t > 0.0)
     miss = active & ~hit
     env = pk.environment
@@ -382,12 +542,14 @@ def _next_alive(amask, s_cur, s_count: int, first: bool):
 def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
                      seeds, sample0: int, eps: float, nb: int, s_count: int,
                      thresh: int = 0, no_glossy: bool = False, block: int = BLOCK,
-                     replay: bool = False):
+                     replay: bool = False, stream: bool = False):
     """Plain version of one K4 launch. lane_ids [N] int, amask [2, N] uint32
     words (int64), state0 [S*10, N] sample-major, resid_in [12, N] or None
     (resume), seeds: three uint32 ints. With ``thresh`` > 0, N is a multiple
     of ``block`` and each block of lanes stops once fewer than ``thresh`` of
-    its lanes are alive. Returns (acc [3, N], cnt [N] int32, resid_out
+    its lanes are alive. ``stream`` (``pk`` a PackedSceneStream) searches
+    the triangles window by window (``stream_search_plain``): the same
+    winners, so the same outputs. Returns (acc [3, N], cnt [N] int32, resid_out
     [12, N] or None); with ``replay`` the third output is instead the replay
     residuals [S*nb, 13, N] (slot j of a lane: the input org3 dir3 beta3 of
     its j-th live iteration, the winner t (+inf on a miss), its packed index
@@ -441,7 +603,7 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
             active = alive
         if not bool(active.any()):
             break
-        t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps)
+        t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps, stream)
         if replay:
             # a live lane's slot is its iteration count: slot it
             slot = torch.cat([st[0:9], torch.where(hit, t, torch.full_like(t, math.inf))[None],
@@ -745,7 +907,7 @@ def _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count):
 
 
 def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
-                     nb, s_count, thresh, no_glossy, block, replay=False):
+                     nb, s_count, thresh, no_glossy, block, replay=False, stream=False):
     n = state0.shape[1]
     dev = state0.device
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -755,15 +917,19 @@ def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
     # only the slots j < cnt of a lane are written
     rres = (torch.empty((s_count * nb, 13, n), dtype=torch.float32, device=dev)
             if replay else None)
+    win = (pk.tri_win.data_ptr(), pk.wbox.data_ptr(), pk.n_windows, pk.window) if stream \
+        else (0, 0, 0, 0)
     err = _cuda.lib().pt3_regen_krng(
         *_scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0),
         lane_ids.data_ptr(), amask.data_ptr(), state0.data_ptr(),
         _cuda.ptr(resid_in), acc.data_ptr(), cnt.data_ptr(), _cuda.ptr(resid_out),
-        _cuda.ptr(rres), n, s_count, nb, float(eps), int(thresh), int(no_glossy),
+        _cuda.ptr(rres), *win, n, s_count, nb, float(eps), int(thresh), int(no_glossy),
         int(block), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_krng")
     fused_passes_krng.launches += 1
+    if stream:
+        fused_passes_krng.stream_launches += 1
     return acc, cnt, (rres if replay else resid_out)
 
 
@@ -785,6 +951,22 @@ def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residual
     _cuda.check(err, "pt3_fused_bounces")
     fused_bounces.launches += 1
     return (acc, cnt, *res) if with_residuals else (acc, cnt)
+
+
+def _bounce_step_cuda(pk, state, unif, eps, with_hit):
+    n = state.shape[1]
+    dev = state.device
+    out = torch.empty((13, n), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    hit = ((torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev)) if with_hit else (None, None))
+    err = _cuda.lib().pt3_bounce_step(
+        *_scene_ptrs(pk), state.data_ptr(), unif.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+        *(_cuda.ptr(h) for h in hit), n, float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "pt3_bounce_step")
+    bounce_step.launches += 1
+    return (out, cnt, *hit) if with_hit else (out, cnt)
 
 
 BWD_BLOCK = 128  # lanes per K8 / K9 block (kBlock in bounce_bwd.cu, regen_replay_bwd.cu)
@@ -887,12 +1069,12 @@ def alive_mask_words(state0: torch.Tensor, s_count: int) -> torch.Tensor:
 
 
 def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,
-                 s_count, thresh, no_glossy, block, replay):
+                 s_count, thresh, no_glossy, block, replay, stream):
     if lane_ids.device.type == "cuda":
         return _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
-                                eps, nb, s_count, thresh, no_glossy, block, replay)
+                                eps, nb, s_count, thresh, no_glossy, block, replay, stream)
     return regen_krng_plain(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
-                            eps, nb, s_count, thresh, no_glossy, block, replay)
+                            eps, nb, s_count, thresh, no_glossy, block, replay, stream)
 
 
 def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
@@ -907,11 +1089,13 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     grouping at level boundaries differs). Returns (acc [3, N], cnt [N]);
     with ``replay``, (acc, cnt, resid): the replay residuals [S*nb, 13, N],
     of which a lane's slots j < cnt are written (``acc`` and ``cnt`` are
-    bit-equal to a launch without ``replay``)."""
+    bit-equal to a launch without ``replay``). ``stream`` (``pk`` a
+    PackedSceneStream) searches the triangles with K6, window by window;
+    ``acc`` and ``cnt`` are bit-equal to the resident launch."""
     if replay and (tail_frac > 0.0 or stream):
         raise ValueError("replay residuals are incompatible with tail/stream")
-    if stream:
-        raise NotImplementedError("not yet ported")
+    if stream and not isinstance(pk, PackedSceneStream):
+        raise ValueError("stream=True needs a PackedSceneStream")
     if s_count > S_COUNT_MAX:
         raise ValueError(
             f"krng regen supports at most {S_COUNT_MAX} fused passes, got {s_count}"
@@ -937,7 +1121,7 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     thresh = int(tail_frac * block) if npad > block else 0
     run = lambda lid, am, s0, res, th: _krng_launch(
         pk, lid, am, s0, res, seeds, sample0, eps, nb, s_count, th, no_glossy, block,
-        replay)
+        replay, stream)
     if thresh:
         # tail compaction: every level but the last stops its blocks at
         # live < thresh; survivors (sorted by remaining samples) are packed
@@ -979,6 +1163,45 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
 
 
 fused_passes_krng.launches = 0
+fused_passes_krng.stream_launches = 0  # the launches in stream mode (K6)
+
+
+def bounce_step_plain(pk: PackedSceneFused, state, unif, eps: float, with_hit: bool = False):
+    """Plain version of K10: one bounce of the [13, N] state (org3 dir3
+    beta3 alive1 acc3) with the unpacked winner and this bounce's uniforms
+    [4, N]. Returns (state' [13, N], cnt [N] int32: 1 where the lane was
+    alive) and, ``with_hit``, the winner (t [N], +inf on a miss or a dead
+    lane; idx [N], 0 there)."""
+    st = state[0:10].clone()
+    acc = state[10:13].clone()
+    cnt = torch.zeros((state.shape[1],), dtype=torch.int32, device=state.device)
+    t, idx, hit = _bounce_common(pk, st, acc, cnt, st[9] != 0.0, False, eps)
+    _shade_plain(pk, st, acc, t, idx, hit, unif[0], unif[1], unif[2], unif[3], pk.no_glossy)
+    out = (torch.cat([st, acc]), cnt)
+    if not with_hit:
+        return out
+    return (*out, torch.where(hit, t, torch.full_like(t, math.inf)),
+            torch.where(hit, idx, torch.zeros_like(idx)))
+
+
+def bounce_step(pk: PackedSceneFused, state: torch.Tensor, unif: torch.Tensor, eps: float,
+                with_hit: bool = False):
+    """K10: one bounce of the compacting wavefront. state [13, N] (org3
+    dir3 beta3 alive1 acc3), unif [4, N] (u, acos u, v, p). Returns (state'
+    [13, N], cnt [N] int32, 1 where the lane was alive on entry) and, with
+    ``with_hit``, the winner record (t [N], +inf on a miss or a dead lane;
+    packed idx [N], 0 there). A dead lane's column is copied through."""
+    n = state.shape[1]
+    if state.shape != (13, n) or unif.shape != (4, n):
+        raise ValueError("bounce_step: state [13, N], unif [4, N]")
+    f32 = lambda x: x.detach().to(torch.float32).contiguous()
+    state, unif = f32(state), f32(unif)
+    if _device_kind(state, unif, pk.tri_tab) == "cuda":
+        return _bounce_step_cuda(pk, state, unif, eps, with_hit)
+    return bounce_step_plain(pk, state, unif, eps, with_hit)
+
+
+bounce_step.launches = 0
 
 
 def fused_bounces(pk: PackedSceneFused, org: torch.Tensor, dirn: torch.Tensor,

@@ -13,9 +13,16 @@ K4's replay mode: ``acc`` and ``cnt`` bit-equal to K4 without it, and on >=
 and residual slots j < cnt (the same gate). K9: ``d_state0`` within 1e-5 of
 its largest on >= 99.9 % of lanes, material and environment gradients within
 1e-5 of the largest (the plain version sums in float64), bit-identical on a
-second run.
+second run. K4's stream mode (K6) against the resident K4 bit for bit, with
+and without tail compaction and on rays aimed at the edges two windows
+share, and against its plain version on >= 99 % of
+lanes; K10 against its plain version: bit for bit (state, counts and the
+winner record) on a scene without glossy materials, else the same counts,
+winners on >= 99.9 % of lanes and states per lane (rtol 1e-4 / atol 1e-5)
+on >= 99 % (the cone sample's sinf/cosf round unlike torch.sin/cos).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +63,34 @@ def _state(name, dev, w=32, s_count=3):
         unifs.append(un)
     lanes = integ.lane_ids_for(px, py, w, 4)
     return scene, torch.cat(states), torch.cat(unifs), lanes
+
+
+def edge_rays(scene, window, seed=3):
+    """Rays aimed at both ends and the midpoint of every edge shared by two
+    triangles of different windows, from origins 0.2-2 units away in random
+    directions: (org [3, R], dirn [3, R], the pair's triangle ids [2, R])."""
+    verts = scene.triangles.verts.numpy().astype(np.float32)
+    owner = {}
+    pairs = []
+    for i, tri in enumerate(verts):
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((tuple(tri[a]), tuple(tri[b]))))
+            j = owner.setdefault(key, i)
+            if j != i and j // window != i // window:
+                pairs.append((j, i, tri[a], tri[b]))
+    rs = np.random.default_rng(seed)
+    org, dirn, ids = [], [], []
+    for j, i, p, q in pairs:
+        for target in (p, q, (p + q) * np.float32(0.5)):
+            for _ in range(4):
+                off = rs.normal(size=3)
+                o = target + off / np.linalg.norm(off) * rs.uniform(0.2, 2.0)
+                d = target - o
+                org.append(o)
+                dirn.append(d / np.linalg.norm(d))
+                ids.append((j, i))
+    as_t = lambda x, dt: torch.from_numpy(np.asarray(x, dtype=dt).T.copy())
+    return as_t(org, np.float32), as_t(dirn, np.float32), as_t(ids, np.int32)
 
 
 def _lanes_agree(a, b):
@@ -188,3 +223,63 @@ def test_regen_replay_kernels_match_plain_versions(dev, name):
     assert d0_ok.float().mean().item() >= 0.999
     for got, ref in zip(o1[1:], op[1:]):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-9
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_stream_matches_resident_bitwise(dev, name):
+    scene, state0, _, lanes = _state(name, dev)
+    pk = mk.PackedSceneFused(scene)
+    ps = mk.PackedSceneStream(scene, window=64)
+    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 3)
+    for tail in (0.0, 0.125):
+        res = mk.fused_passes_krng(pk, *a, tail_frac=tail)
+        launches = mk.fused_passes_krng.stream_launches
+        stm = mk.fused_passes_krng(ps, *a, tail_frac=tail, stream=True)
+        assert mk.fused_passes_krng.stream_launches > launches
+        assert torch.equal(stm[0], res[0]) and torch.equal(stm[1], res[1])
+    seeds = kernel_rng.channel_seeds(5, 6)
+    amask = mk.alive_mask_words(state0, 3)
+    p4 = mk.regen_krng_plain(ps, lanes, amask, state0, None, seeds, 0, 1e-4, 3, 3, 0,
+                             ps.no_glossy, stream=True)[:2]
+    assert _lanes_agree(stm, p4) >= 0.99
+
+
+@pytest.mark.parametrize("name", ["suzanne-sub1", "suzanne-sub2"])
+def test_stream_matches_resident_on_edges_shared_between_windows(dev, name):
+    """K4 streamed and resident on rays aimed at the edges two windows share
+    (one sample, unit throughput): bit-equal acc and counts."""
+    params = RenderParams(width=8, height=8)
+    sb = SceneBuilder()
+    create_scene(sb, name, params)
+    scene = sb.build()
+    org, dirn, _ = edge_rays(scene, 64)
+    n = org.shape[1]
+    state0 = torch.cat([org, dirn, torch.ones((4, n))]).to(dev)
+    scene = scene.to(dev)
+    lanes = torch.arange(n, dtype=torch.int32, device=dev)
+    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 1)
+    res = mk.fused_passes_krng(mk.PackedSceneFused(scene), *a)
+    stm = mk.fused_passes_krng(mk.PackedSceneStream(scene, window=64), *a, stream=True)
+    assert torch.equal(stm[0], res[0]) and torch.equal(stm[1], res[1])
+    assert int(res[1].sum()) > n
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_bounce_step_matches_plain_version(dev, name):
+    scene, state0, unif, _ = _state(name, dev, s_count=1)
+    pk = mk.PackedSceneFused(scene)
+    state = torch.cat([state0, torch.rand((3, state0.shape[1]), device=dev)])
+    state[9, ::3] = 0.0
+    for d in range(3):
+        un = unif[4 * d:4 * d + 4].contiguous()
+        k10 = mk.bounce_step(pk, state, un, 1e-4, with_hit=True)
+        p10 = mk.bounce_step_plain(pk, state, un, 1e-4, with_hit=True)
+        if pk.no_glossy:
+            assert all(torch.equal(x, y) for x, y in zip(k10, p10))
+        else:
+            assert torch.equal(k10[1], p10[1])
+            assert (k10[3] == p10[3]).float().mean().item() >= 0.999
+            ok = torch.all(torch.isclose(k10[0], p10[0], rtol=1e-4, atol=1e-5), dim=0)
+            assert ok.float().mean().item() >= 0.99
+        assert all(torch.equal(x, y) for x, y in zip(mk.bounce_step(pk, state, un, 1e-4), k10))
+        state = k10[0]

@@ -41,6 +41,18 @@ S = 2
 NB = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions run thousands of small ops: with one intra-op
+    thread a test worker does not wait on the barriers of a thread pool that
+    the other workers' processes oversubscribe (tens of times slower under
+    the parallel test run). Test files that import it get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def first_bounce_tables(name, n_passes=S, seed=7):
     """(JAX scene, port scene, state0 [S*10, N], unif [S*nb*4, N]) from the
     JAX camera stage, after checking the port's stage against it."""

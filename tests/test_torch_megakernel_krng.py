@@ -24,7 +24,14 @@ from pt_three_ways_tpu_torch.models.integrator import lane_ids_for
 from pt_three_ways_tpu_torch.ops import kernel_rng as krt
 from pt_three_ways_tpu_torch.ops import megakernel as mk
 from pt_three_ways_tpu_torch.ops import rng as rt
-from test_torch_megakernel import NB, S, W, assert_lanes_agree, first_bounce_tables
+from test_torch_megakernel import (  # noqa: F401 (one_torch_thread: autouse fixture)
+    NB,
+    S,
+    W,
+    assert_lanes_agree,
+    first_bounce_tables,
+    one_torch_thread,
+)
 
 
 def _lanes_and_keys(seed=7):
@@ -65,8 +72,6 @@ def test_k4_tail_compaction_matches_exhaustion():
                                               tail_frac=0.125, tail_levels=levels, block=128)
         np.testing.assert_array_equal(cnt_tail.numpy(), cnt_full.numpy())
         np.testing.assert_allclose(tail.numpy(), full.numpy(), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, stream=True)
     with pytest.raises(ValueError):
         mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True, tail_frac=0.125)
     with pytest.raises(ValueError):

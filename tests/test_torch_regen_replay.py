@@ -58,6 +58,7 @@ from pt_three_ways_tpu_torch.ops import kernel_rng as krt
 from pt_three_ways_tpu_torch.ops import megakernel as mk
 from pt_three_ways_tpu_torch.ops import rng as rt
 from test_torch_replay import _assert_grads_close, _segment_sum, make_pair
+from test_torch_megakernel import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SIDE = 10
 NB = 3  # max_depth 4

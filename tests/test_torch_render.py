@@ -30,6 +30,7 @@ from pt_three_ways_tpu_torch.utils.render_params import RenderParams
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden_images import CASES, GOLDEN_DIR  # noqa: E402
+from test_torch_megakernel import one_torch_thread  # noqa: E402, F401 (autouse fixture)
 
 
 def _render(scene_name, device="cpu", **kw):

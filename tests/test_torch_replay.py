@@ -60,6 +60,7 @@ from pt_three_ways_tpu_torch.ops import megakernel as mk
 from pt_three_ways_tpu_torch.ops import rng as rt
 from pt_three_ways_tpu_torch.ops.camera import make_camera
 from pt_three_ways_tpu_torch.utils.render_params import RenderParams
+from test_torch_megakernel import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SIDE = 6
 NB = 3  # max_depth 4

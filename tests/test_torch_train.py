@@ -31,6 +31,7 @@ from pt_three_ways_tpu.parallel.train import make_sharded_train_step as step_j
 from pt_three_ways_tpu_torch.ops import rng as rt
 from pt_three_ways_tpu_torch.parallel.train import TrainState, make_sharded_train_step
 from test_torch_replay import make_pair
+from test_torch_megakernel import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LR = 0.05
 

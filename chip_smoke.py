@@ -43,25 +43,31 @@ Phases (one line each, any failure stops the run):
      backward, then the camera stages' autograd), each split into forward
      and backward with its K2/K4/K9 time and peak memory, the launch
      counters set to 0 just before the three steps and read just after;
-     K4's replay mode against its plain version and against K4 without
-     replay, and K9 against its plain version and twice for bitwise
-     repeatability, on the first step's inputs, timed; trace_passes_replay
-     forward + backward with the feedback sort key chained across calls,
+     K4's replay mode (culled by the window boxes) with tail compaction
+     against its plain version, against K4 without replay (acc and counts
+     bit-equal) and against the chain's launch (no compaction: slots,
+     counts, acc and K9's gradients bit-equal), the chain's launch against
+     the older K4's unculled replay (bit for bit, timed in turns; see
+     PREV_COMMIT), its tail-fraction sweep, and K9 against its plain
+     version and twice for bitwise repeatability, on the first step's
+     inputs, timed; trace_passes_replay forward + backward with the feedback sort key chained across calls,
      in ms per pass; the card's regen step against the CPU's on a 32^2
      crop of cornell 512^2; and ten steps of the train_demo (cornell 256^2,
      Adam, 16 passes per step);
   8. the stream tier and the compacting wavefront: the Woop table size and
      route of cornell (framed 16:9 and square) and suzanne(-sub1..3), and
      K4 resident against K4 stream (K6) on each at 256 wide (K=16, depth 5,
-     S=8, one launch each), bit for bit; on suzanne-sub2 the same with tail
+     S=8), bit for bit, each timed over two launches after a warm-up; on suzanne-sub2 the same with tail
      compaction; suzanne-sub3 through render() at 512^2, 16 spp (counters
      set to 0 just before, read just after: K4 only in stream mode); on
      each of that render's stream launches K4 stream against the resident
-     K4 bit for bit, and on its main launch against its plain version,
-     timed, with its bound; trace_passes_compact on suzanne 512^2 (S=4;
-     counters set to 0 just before, read just after), K10 against its plain
-     version on each bounce of its first pass (with and without the winner
-     record), timed, with its bound, and the whole against
+     K4 bit for bit, and on its main launch against its plain version
+     (K6's occupancy counted from it), against the older K4's stream mode
+     (bit for bit, timed in turns), timed, with its bound, and the window x
+     fan sweep; trace_passes_compact on suzanne 512^2 (S=4; counters set
+     to 0 just before, read just after), K10 against its plain version on
+     each bounce of its first pass (with and without the winner record),
+     timed, with its bound, and the whole against
      trace_passes_fused in table mode (K5) on the same keys, with the ms per
      pass of compaction, K5 and K4.
 The last two lines are the kernels JSON and the device JSON.
@@ -78,6 +84,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# The commit whose K4 (the stream mode's flat window loop, K6, and the
+# unculled replay) the kernels line's prev_ms times on the same inputs, in
+# turns: its csrc comes from --prev, from build/prev_csrc, or from `git
+# archive` when the checkout has that commit; without it prev_ms is null.
+PREV_COMMIT = "795ae19"
+PREV_CSRC = os.path.join(ROOT, "build", "prev_csrc")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP32
 # (non-tensor) rate. Bounds are stated against these, beside the card's
@@ -122,12 +134,163 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout else "nvidia-smi unavailable"
 
 
+def prev_csrc(arg):
+    """The older K4's csrc directory (see PREV_COMMIT), or None."""
+    import io
+    import tarfile
+
+    if arg or os.path.isfile(os.path.join(PREV_CSRC, "megakernel.cu")):
+        d = arg or PREV_CSRC
+        return d if os.path.isfile(os.path.join(d, "megakernel.cu")) else None
+    try:
+        r = subprocess.run(["git", "-C", ROOT, "archive", PREV_COMMIT,
+                            "pt_three_ways_tpu_torch/csrc"], capture_output=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if r.returncode != 0:
+        return None
+    with tarfile.open(fileobj=io.BytesIO(r.stdout)) as tar:
+        for m in tar.getmembers():
+            if m.isfile():
+                m.name = os.path.basename(m.name)
+                tar.extract(m, PREV_CSRC, filter="data")
+    return PREV_CSRC
+
+
+def start_prev_build(csrc, nvcc, flags):
+    """nvcc the older megakernel.cu into build/prev_kernels/libprev.so, in
+    the background; returns (process, library path)."""
+    out = os.path.join(ROOT, "build", "prev_kernels")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libprev.so")
+    cmd = [nvcc, *flags, "-shared", "-I", csrc, os.path.join(csrc, "megakernel.cu"), "-o", lib]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), lib
+
+
+def load_prev(proc, lib):
+    """The older K4's entry point (its own argument list: no level-1 boxes,
+    no replay continuation)."""
+    import ctypes
+
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"the build of the older megakernel.cu failed:\n{report}")
+    handle = ctypes.CDLL(lib)
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    handle.pt3_regen_krng.argtypes = [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
+                                      P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, I, P]
+    handle.pt3_regen_krng.restype = ctypes.c_int
+    return handle
+
+
+def prev_krng(lib, mk, args):
+    """One launch of the older K4 on the arguments of one
+    ``mk._regen_krng_cuda`` call: a stream launch runs its flat loop over
+    the same 64-row windows and boxes, a replay launch (one column per
+    lane) its unculled search. Returns (acc, cnt, resid_out or the replay
+    slots)."""
+    import torch
+
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb, s_count, thresh, \
+        no_glossy, block, replay, stream = args
+    n = state0.shape[1]
+    dev = state0.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc = torch.empty((3, n), **f32)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    res = torch.empty((12, n), **f32) if thresh else None
+    rres = torch.empty((s_count * nb, 13, n), **f32) if replay is not None else None
+    err = lib.pt3_regen_krng(
+        *mk._scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(),
+        amask.data_ptr(), state0.data_ptr(), _cuda.ptr(resid_in), acc.data_ptr(),
+        cnt.data_ptr(), _cuda.ptr(res), _cuda.ptr(rres), _cuda.ptr(pk.tri_win if stream else None),
+        _cuda.ptr(pk.wbox if stream else None), pk.n_windows if stream else 0,
+        pk.window if stream else 0, n, s_count, nb, float(eps), int(thresh), int(no_glossy),
+        int(block), _cuda.stream_ptr(dev))
+    _cuda.check(err, "older pt3_regen_krng")
+    return acc, cnt, (res if replay is None else rres[:, :, :replay.rres.shape[2]])
+
+
+def fmt_ms(ms) -> str:
+    return "not built" if ms is None else f"{ms:.3f}"
+
+
+def k6_occupancy(mk, args, dev):
+    """The plain version of one K4 stream launch (``mk.regen_krng_plain(*args)``,
+    the arguments of ``mk._regen_krng_cuda``), timed with CUDA events, with
+    K6's occupancy counted from its window tests (hooks on
+    ``stream_search_plain`` and ``window_enter_plain``; lanes grouped by
+    ``lane // 32`` into warps and ``lane // block`` into blocks, as the
+    kernel runs them). Returns (ms, outputs, counts): lane-window scans
+    (the windows each ray enters), warp-window scans (the windows any of a
+    warp's active lanes enters), block-window loads, block votes (the older
+    flat loop: every window, each bounce of a block with a live lane; here:
+    every level-1 box), block-bounces, triangle tests of the entered
+    windows, box tests (level-1 and window boxes) and the windows any ray
+    entered."""
+    import torch
+
+    ps, block = args[0], args[12]
+    i64 = dict(dtype=torch.int64, device=dev)
+    c = {k: torch.zeros((), **i64) for k in ("lane_scans", "warp_scans", "block_loads",
+                                            "rows", "box_tests", "block_bounces")}
+    entered = torch.zeros((ps.n_windows,), dtype=torch.bool, device=dev)
+    cur = {}
+    search_orig, enter_orig = mk.stream_search_plain, mk.window_enter_plain
+    groups_at = ps.wbox1.untyped_storage().data_ptr()
+
+    def count_search(pk, org, dirn, active, eps):
+        cur["ids"] = active.nonzero()[:, 0]
+        c["block_bounces"] += torch.unique(cur["ids"] // block).numel()
+        c["box_tests"] += cur["ids"].numel() * pk.n_groups
+        return search_orig(pk, org, dirn, active, eps)
+
+    def count_enter(box, org, inv_d, best_t, eps):
+        e = enter_orig(box, org, inv_d, best_t, eps)
+        i = box.storage_offset() // 8
+        if box.untyped_storage().data_ptr() == groups_at:  # level-1 box i
+            cur["gids"] = cur["ids"][e]
+            c["box_tests"] += cur["gids"].numel() * min(ps.fan, ps.n_windows - i * ps.fan)
+            return e
+        lanes = cur["gids"][e]  # window i
+        k = lanes.numel()
+        if k:
+            c["lane_scans"] += k
+            c["warp_scans"] += torch.unique(lanes // 32).numel()
+            c["block_loads"] += torch.unique(lanes // block).numel()
+            c["rows"] += k * min(ps.window, ps.n_tri - i * ps.window)
+            entered[i] = True
+        return e
+
+    mk.stream_search_plain, mk.window_enter_plain = count_search, count_enter
+    try:
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = mk.regen_krng_plain(*args)
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        mk.stream_search_plain, mk.window_enter_plain = search_orig, enter_orig
+    occ = {k: int(v.item()) for k, v in c.items()}
+    occ["votes"] = occ["block_bounces"] * ps.n_groups
+    occ["votes_flat"] = occ["block_bounces"] * ps.n_windows
+    occ["windows_entered"] = int(entered.sum().item())
+    return t0.elapsed_time(t1), out, occ
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--until", type=int, default=8,
                     help="stop after this phase (default: all eight)")
+    ap.add_argument("--prev", help="the csrc directory of the older K4 that prev_ms times "
+                                   f"(default: build/prev_csrc, or commit {PREV_COMMIT})")
     args = ap.parse_args(argv)
     import torch
 
@@ -157,9 +320,13 @@ def main(argv=None) -> int:
     print(f"phase 1 versions: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} nvcc '{nvcc}'")
     t0 = time.time()
+    prev = prev_csrc(args.prev)
+    prev_build = start_prev_build(prev, _cuda.nvcc_path(), _cuda.NVCC_FLAGS) if prev else None
     report = _cuda.build()
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    print(f"phase 1 build: {time.time() - t0:.1f} s, ptxas: " + " | ".join(regs))
+    prev_lib = load_prev(*prev_build) if prev_build else None
+    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K4 from {prev}), ptxas: "
+          + " | ".join(regs))
     _cuda.lib()
 
     # ---- helpers ---------------------------------------------------------
@@ -966,25 +1133,65 @@ def main(argv=None) -> int:
     del state, loss
     torch.cuda.empty_cache()
 
-    # (a, b) K4 in replay mode against its plain version and against K4
-    # without replay, on the first step's call
+    # (a, b) K4 in replay mode as the chain runs it (culled by the window
+    # boxes, no compaction) and with tail compaction (tail_frac 0.125):
+    # compacted against its plain version, against K4 without replay (acc
+    # and counts bit-equal) and against the chain's launch (slots, counts,
+    # acc and K9's gradients bit-equal); the chain's launch against the
+    # older K4's unculled replay (slots, counts and acc bit-equal; timed in
+    # turns), on the first step's call
     a4, kw4 = rcapt["K4"]
     a4 = [x.to(dev) if torch.is_tensor(x) else x for x in a4]
     pk4, s0_4, lanes4 = a4[0], a4[1], a4[2]
     nb4, sc4 = a4[6], a4[7]
-    out_k = mk.fused_passes_krng(*a4, **kw4)
+    if not (isinstance(pk4, mk.PackedSceneStream) and kw4.get("replay")
+            and not kw4.get("tail_frac")):
+        fail(f"the regen chain's K4 launch is not the culled replay: {kw4}")
+    tail4 = 0.125
+    kw4_tail = dict(kw4, tail_frac=tail4)
+    out_k = mk.fused_passes_krng(*a4, **kw4_tail)
     out_n = mk.fused_passes_krng(*a4)
     torch.cuda.synchronize()
     same_nr = torch.equal(out_k[0], out_n[0]) and torch.equal(out_k[1], out_n[1])
     del out_n
+    cnt_k, res_k = out_k[1], out_k[2]
+    j_col = torch.arange(sc4 * nb4, device=dev)[:, None, None]
+    real = j_col < cnt_k[None, None, :]
+    kept = []  # the chain's launch, its kernel arguments kept for the older K4
+    launch4 = mk._regen_krng_cuda
+    mk._regen_krng_cuda = lambda *a: kept.append(a) or launch4(*a)
+    try:
+        out_c = mk.fused_passes_krng(*a4, **kw4)
+    finally:
+        mk._regen_krng_cuda = launch4
+    args4 = kept[0]
+    torch.cuda.synchronize()
+    same_chain = (torch.equal(out_c[1], cnt_k) and torch.equal(out_c[0], out_k[0])
+                  and bool(torch.where(real, res_k == out_c[2], True).all()))
+    acc_bar = rcapt["K9"].to(dev)
+    b9 = (pk4, lanes4, a4[3], a4[4], res_k, cnt_k, acc_bar, sc4)
+    same_k9 = all(torch.equal(x, y) for x, y in zip(
+        mk.regen_replay_bwd(*b9), mk.regen_replay_bwd(*b9[:4], out_c[2], out_c[1], *b9[6:])))
+    same_prev4 = None
+    if prev_lib is not None:
+        out_f = prev_krng(prev_lib, mk, args4)
+        torch.cuda.synchronize()
+        same_prev4 = (torch.equal(out_f[1], cnt_k) and torch.equal(out_f[0], out_k[0])
+                      and bool(torch.where(real, res_k == out_f[2], True).all()))
+        del out_f
+    del out_c, real
+    if not (same_nr and same_chain and same_k9 and same_prev4 is not False):
+        fail(f"K4 replay culled + tail_frac={tail4}: acc and counts bit-equal to K4 without "
+             f"replay {same_nr}; slots, counts and acc bit-equal to the chain's launch "
+             f"{same_chain} and to the older K4's unculled replay {same_prev4}; K9 on the "
+             f"compacted and the chain's slots bit-equal {same_k9}")
     with plain("K4"):
-        pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4))
+        pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4_tail))
     frac4, err4 = cmp_acc("K4 replay", out_k[:2], out_p[:2])
-    cnt_k = out_k[1]
     cnt_eq = torch.equal(cnt_k, out_p[1])
     lane_ok = torch.all(torch.isclose(out_k[0], out_p[0], rtol=1e-4, atol=1e-5), dim=0) \
         & (cnt_k == out_p[1])
-    res_k, res_p = out_k[2], out_p[2]
+    res_p = out_p[2]
     res_err = 0.0
     slots = n_hit = 0
     search = 0
@@ -1003,27 +1210,49 @@ def main(argv=None) -> int:
                              t_j, a4[5])
     del out_p, res_p
     # the residual gate is K7's (phase 6): agreeing lanes' slots within 1e-3
-    if not (same_nr and res_err <= 1e-3):
-        fail(f"K4 replay: bit-equal to K4 without replay {same_nr}, slots max|d| {res_err}")
-    ms4 = events_ms(lambda: mk.fused_passes_krng(*a4, **kw4), 3)
+    if not res_err <= 1e-3:
+        fail(f"K4 replay: slots max|d| {res_err} against the plain version")
+    # in turns: the chain's launch, the older K4 twice, the chain's launch
+    run4 = lambda: mk.fused_passes_krng(*a4, **kw4)
+    ms4a = events_ms(run4, 3)
+    ms4_prev = None
+    if prev_lib is not None:
+        ms4_prev = sum(events_ms(lambda: prev_krng(prev_lib, mk, args4), 3)
+                       for _ in range(2)) / 2
+    ms4b = events_ms(run4, 3)
+    ms4 = (ms4a + ms4b) / 2
     ms4_nr = events_ms(lambda: mk.fused_passes_krng(*a4), 3)
+    del args4, kept
     # bytes: state0, lane ids and the scene in; radiance, counts and the
     # realized slots out
     b4, by4 = bound(nbytes(s0_4, lanes4, pk4.tri_tab, pk4.sph_tab, pk4.tri_attr, pk4.sph_attr)
                     + nbytes(out_k[0], out_k[1]) + slots * REPLAY_SLOT_BYTES,
                     search + slots * OPS_SHADE)
     checks["K4r"] = {"regen-train": dict(launches=rlaunch["K4"], max_abs_err=max(err4, res_err),
-                                         ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4)}
-    print(f"phase 7 K4 replay N={s0_4.shape[1]} S={sc4} nb={nb4}: lanes agree {frac4:.6f} "
-          f"max|dacc| {err4:.3e}, counts equal {cnt_eq}, realized slots {slots} ({n_hit} hits) "
-          f"max|d| {res_err:.3e}; acc and counts bit-equal to K4 without replay {same_nr}; "
-          f"kernel {ms4:.3f} ms ({ms4_nr:.3f} without replay) plain {pms4:.1f} ms bound "
-          f"{b4:.3f} ms ({by4}); residual buffer {nbytes(res_k) / 1e9:.2f} GB")
+                                         ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4,
+                                         prev_ms=ms4_prev)}
+    print(f"phase 7 K4 replay N={s0_4.shape[1]} S={sc4} nb={nb4} culled, tail_frac={tail4} "
+          f"against its plain version: lanes agree {frac4:.6f} max|dacc| {err4:.3e}, counts "
+          f"equal {cnt_eq}, realized slots {slots} ({n_hit} hits) max|d| {res_err:.3e}; acc "
+          f"and counts bit-equal to K4 without replay {same_nr}; slots, counts and acc "
+          f"bit-equal to the chain's launch (no compaction) {same_chain} and to the older "
+          f"K4's unculled replay {same_prev4}, K9 on the compacted and the chain's slots "
+          f"bit-equal {same_k9}; the chain's launch {ms4:.3f} ms ({ms4a:.3f} / {ms4b:.3f}; "
+          f"the older K4 {fmt_ms(ms4_prev)} in turns; {ms4_nr:.3f} without replay, unculled) "
+          f"plain {pms4:.1f} ms bound {b4:.3f} ms ({by4}); residual buffer "
+          f"{nbytes(res_k) / 1e9:.2f} GB", flush=True)
+
+    # the tail-fraction sweep of the chain's launch (one level)
+    sweep4 = {}
+    for frac in (0.0, 0.0625, 0.125, 0.25):
+        sweep4[frac] = events_ms(lambda: mk.fused_passes_krng(
+            *a4, **dict(kw4, tail_frac=frac, tail_levels=1)), 3)
+    print(f"phase 7 K4 replay tail-fraction sweep (one level, ms): "
+          f"{ {k: round(v, 3) for k, v in sweep4.items()} }; the chain runs without "
+          f"compaction", flush=True)
 
     # (c, d) K9 against its plain version, and twice, on the first step's
     # cotangent and the residuals K4 gives again for the same call
-    acc_bar = rcapt["K9"].to(dev)
-    b9 = (pk4, lanes4, a4[3], a4[4], res_k, cnt_k, acc_bar, sc4)
     o1 = mk.regen_replay_bwd(*b9)
     o2 = mk.regen_replay_bwd(*b9)
     torch.cuda.synchronize()
@@ -1162,10 +1391,12 @@ def main(argv=None) -> int:
         state0, lanes = krng_inputs(scene, camera, params, S8)
         a = (state0, lanes, (12345, 67890), 0, params.epsilon, nb8, S8)
         pk, ps = mk.PackedSceneFused(scene), mk.PackedSceneStream(scene)
-        ms_r, out_r = once_ms(lambda: mk.fused_passes_krng(pk, *a))
-        ms_s, out_s = once_ms(lambda: mk.fused_passes_krng(ps, *a, stream=True))
+        out_r = mk.fused_passes_krng(pk, *a)
+        out_s = mk.fused_passes_krng(ps, *a, stream=True)
         if not (torch.equal(out_r[0], out_s[0]) and torch.equal(out_r[1], out_s[1])):
             fail(f"K4 stream differs from K4 resident on {tag}")
+        ms_r = events_ms(lambda: mk.fused_passes_krng(pk, *a), 2)
+        ms_s = events_ms(lambda: mk.fused_passes_krng(ps, *a, stream=True), 2)
         print(f"phase 8 route {tag} {w}x{h}: {scene.num_triangles} triangles, Woop table "
               f"{woop_kb:.1f} KB, {route}; {state0.shape[1]} lanes, K4 resident {ms_r:.3f} ms, "
               f"K4 stream {ms_s:.3f} ms ({ps.n_windows} windows of {ps.window}), acc and "
@@ -1248,7 +1479,7 @@ def main(argv=None) -> int:
           f"{ {k: round(v, 3) for k, v in kms.items()} } ({sum(kms.values()) / (wall * 1e3):.1%} "
           f"of wall; K4 stream by launch {k6_ms}), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del out, sscene
+    del out
     torch.cuda.empty_cache()
 
     # (4) K6 on the render's own launches. Each stream launch again, and the
@@ -1270,50 +1501,79 @@ def main(argv=None) -> int:
     main6 = next((a for a in k6_calls if a[10]), k6_calls[-1])
     ps = main6[0]
     o_k = mk._regen_krng_cuda(*main6)
-    work = {"ops": torch.zeros((), dtype=torch.int64, device=dev),
-            "rows": torch.zeros((), dtype=torch.int64, device=dev),
-            "win": torch.zeros((ps.n_windows,), dtype=torch.bool, device=dev)}
-    search_orig, enter_orig = mk.stream_search_plain, mk.window_enter_plain
-
-    def count_search(pk_, org, dirn, active, eps):
-        """Per plain stream search: the sphere and window tests of its
-        active rays; the windows each ray enters, by count_enter."""
-        work["ops"] += active.sum() * (pk_.n_sph * OPS_SPHERE + pk_.n_windows * OPS_SLAB)
-        return search_orig(pk_, org, dirn, active, eps)
-
-    def count_enter(box, org, inv_d, best_t, eps):
-        e = enter_orig(box, org, inv_d, best_t, eps)  # the active rays only
-        w = box.storage_offset() // 8  # box is the view ps.wbox[w]
-        work["rows"] += e.sum() * min(ps.window, ps.n_tri - w * ps.window)
-        work["win"][w] |= e.any()
-        return e
-
-    mk.stream_search_plain, mk.window_enter_plain = count_search, count_enter
-    try:
-        pms6, o_p = once_ms(lambda: mk.regen_krng_plain(*main6))
-    finally:
-        mk.stream_search_plain, mk.window_enter_plain = search_orig, enter_orig
+    pms6, o_p, occ = k6_occupancy(mk, main6, dev)
     err6 = (o_k[0] - o_p[0]).abs().max().item()
-    if not (torch.equal(o_k[0], o_p[0]) and torch.equal(o_k[1], o_p[1])):
+    if not all(torch.equal(x, y) for x, y in zip(o_k, o_p) if x is not None):
         fail(f"K4 stream disagrees with its plain version on the sub3 render's launch: "
              f"max|d| {err6}, counts equal {torch.equal(o_k[1], o_p[1])}")
-    ms6 = events_ms(lambda: mk._regen_krng_cuda(*main6), 3)
+    # the older K4 on the same launch (its flat loop: a block vote and a
+    # synchronous copy per 64-row window, each voting thread scanning the
+    # window itself): bit-equal, and timed in turns with this one
+    run6 = lambda: mk._regen_krng_cuda(*main6)
+    ms6_prev = same_prev6 = None
+    if prev_lib is not None:
+        run6_prev = lambda: prev_krng(prev_lib, mk, main6)
+        o_f = run6_prev()
+        torch.cuda.synchronize()
+        same_prev6 = all(torch.equal(x, y) for x, y in zip(o_k, o_f) if x is not None)
+        del o_f
+        if not same_prev6:
+            fail("K6 differs from the older K4's stream mode on the sub3 render's main launch")
+        ms6_prev = events_ms(run6_prev, 3)
+    ms6a = events_ms(run6, 3)
+    ms6b = events_ms(run6, 3)
+    if prev_lib is not None:
+        ms6_prev = (ms6_prev + events_ms(run6_prev, 3)) / 2
+    ms6 = (ms6a + ms6b) / 2
     live6 = int(o_p[1].sum().item())
-    rows6, win6 = int(work["rows"].item()), int(work["win"].sum().item())
-    ops6 = int(work["ops"].item()) + rows6 * OPS_TRIANGLE + live6 * OPS_SHADE
+    rows6, win6 = occ["rows"], occ["windows_entered"]
+    tests_sph = live6 * ps.n_sph * OPS_SPHERE
+    # two bounds: the box tests the older flat loop makes (every window for
+    # every active ray) and those of the hierarchy (the level-1 boxes, then the
+    # windows of each entered group); the triangle tests are the same
+    ops_flat = tests_sph + live6 * ps.n_windows * OPS_SLAB + rows6 * OPS_TRIANGLE \
+        + live6 * OPS_SHADE
+    ops6 = tests_sph + occ["box_tests"] * OPS_SLAB + rows6 * OPS_TRIANGLE + live6 * OPS_SHADE
     # bytes: the launch's inputs, each window some ray entered read once,
     # the boxes and attribute tables, radiance, counts and continuation out
-    bytes6 = (nbytes(*main6[1:5], ps.wbox, ps.sph_tab, ps.tri_attr, ps.sph_attr)
+    bytes6 = (nbytes(*main6[1:5], ps.wbox, ps.wbox1, ps.sph_tab, ps.tri_attr, ps.sph_attr)
               + win6 * ps.window * mk.WOOP_ROW_BYTES + nbytes(*o_k))
     b6, by6 = bound(bytes6, ops6)
+    b6_flat, _ = bound(bytes6, ops_flat)
     checks["K6"] = {"sub3": dict(launches=launches["sub3"]["K6"], max_abs_err=err6, ms=ms6,
-                                 plain_ms=pms6, bound_ms=b6, bound_by=by6)}
-    print(f"phase 8 K4 stream vs plain, the sub3 render's main launch (N={main6[3].shape[1]}, "
-          f"S={main6[9]}, thresh={main6[10]}): max|dacc| {err6:.3e}, counts equal; kernel "
-          f"{ms6:.3f} ms plain {pms6:.1f} ms bound {b6:.4f} ms ({by6}); live bounces {live6}, "
-          f"triangle tests in entered windows {rows6}, windows entered {win6} of "
-          f"{ps.n_windows}", flush=True)
-    del k6_calls, main6, ps, o_k, o_p, work
+                                 plain_ms=pms6, bound_ms=b6, bound_by=by6, prev_ms=ms6_prev)}
+    print(f"phase 8 K6 occupancy on the sub3 render's main launch (N={main6[3].shape[1]}, "
+          f"S={main6[9]}, thresh={main6[10]}; 64-row windows, fan {ps.fan}): lane-window scans "
+          f"{occ['lane_scans']}, warp-window scans {occ['warp_scans']}, lane utilisation "
+          f"{occ['lane_scans'] / max(32 * occ['warp_scans'], 1):.4f}; block-window loads "
+          f"{occ['block_loads']}; block votes: {occ['votes_flat']} in the older K4's flat loop "
+          f"(every window each block-bounce), {occ['votes']} group votes here; block-bounces "
+          f"{occ['block_bounces']}", flush=True)
+    print(f"phase 8 K4 stream vs plain, the sub3 render's main launch: max|dacc| {err6:.3e}, "
+          f"counts and continuation equal, bit-equal to the older K4 {same_prev6}; kernel "
+          f"{ms6:.3f} ms ({ms6a:.3f} / {ms6b:.3f}; the older K4 {fmt_ms(ms6_prev)} in turns) "
+          f"plain {pms6:.1f} ms bound {b6:.4f} ms ({by6}; {b6_flat:.4f} with the flat loop's "
+          f"box tests); live bounces {live6}, triangle tests in entered windows {rows6}, "
+          f"windows entered {win6} of {ps.n_windows}, box tests {occ['box_tests']} "
+          f"({live6 * ps.n_windows} in the flat loop)", flush=True)
+    del o_k, o_p
+
+    # the window/fan sweep on the same launch (each bit-equal to the default)
+    ref = mk._regen_krng_cuda(*main6)
+    sweep6 = {}
+    for window in (64, 128, 256):
+        for fan in (8, 16):
+            pw = mk.PackedSceneStream(sscene.to(dev), window=window, fan=fan)
+            aw = (pw,) + tuple(main6[1:])
+            ow = mk._regen_krng_cuda(*aw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(ref, ow) if x is not None):
+                fail(f"K6 at window {window}, fan {fan} differs from the default")
+            sweep6[f"{window}x{fan}"] = round(events_ms(lambda: mk._regen_krng_cuda(*aw), 3), 3)
+            del pw, aw, ow
+    print(f"phase 8 K6 window x fan sweep on that launch (ms, each bit-equal): {sweep6}; "
+          f"default {mk.STREAM_WINDOW}x{mk.STREAM_FAN}", flush=True)
+    del k6_calls, main6, ps, ref, sscene
     torch.cuda.empty_cache()
 
     # (5) compaction (S=4) on suzanne 512^2, the launch counters set to 0

@@ -9,25 +9,37 @@
 // until its samples are exhausted. The winner search and shading are
 // pt3_device.cuh's.
 //
-// Bound: FP32 operations of the per-bounce winner search (every live lane
-// tests every primitive; no culling, as in the TPU kernels). The bytes
-// (state tables in, radiance and counts out) are small next to it. Without
-// tail compaction each thread loops on its own lane; a warp costs its
-// longest lane. With it (THRESH), the loop is block-synchronous: it stops
-// once fewer than `thresh` lanes of the block are alive and writes the
-// in-flight state [12, N] (state rows 0..9, sample, depth) for a compacted
-// continuation launch (RESUME).
+// Bound: FP32 operations of the per-bounce winner search (the render's
+// resident K4 and K5: every live lane tests every primitive, no culling,
+// as in the TPU kernels; REPLAY and STREAM cull, below). The bytes (state
+// tables in, radiance and counts out) are small next to it. Without tail compaction each thread loops on
+// its own lane; a warp costs its longest lane. With it (THRESH), the loop is
+// block-synchronous: it stops once fewer than `thresh` lanes of the block
+// are alive and writes the in-flight state [12, N] (state rows 0..9,
+// sample, depth) for a compacted continuation launch (RESUME).
 //
 // REPLAY (the regenerating training path's forward) also writes one
-// residual slot per live iteration of a lane, [S*nb, 13, N]: slot j of a
-// lane holds the input org3 dir3 beta3 of its j-th bounce, the winner t
+// residual slot per live iteration of a lane, [S*nb, 13, rres_n]: slot j of
+// a lane holds the input org3 dir3 beta3 of its j-th bounce, the winner t
 // (+inf on a miss), the winner's packed index (0 on a miss), the sample and
 // the depth (exact small integers in float32). A lane is live from
 // iteration 0 until its samples are exhausted (the refill runs in the same
-// iteration), so its slots are exactly j < cnt and the loop counter is the
-// slot index; a sample takes at most nb iterations, so S*nb slots suffice.
-// The TPU kernel's 16-row padding and per-tile iteration count are not
-// needed: cnt says which slots are real. Residual bytes: 52 per live bounce.
+// iteration), so its slots are exactly j < cnt and its count is the slot
+// index; a sample takes at most nb iterations, so S*nb slots suffice. The
+// TPU kernel's 16-row padding and per-tile iteration count are not needed:
+// cnt says which slots are real. Residual bytes: 52 per live bounce.
+// REPLAY's search is culled by the launch's window boxes
+// (stream_tri.cuh culled_search_warp: level-1 boxes then 64-row window
+// boxes with K6's exact test, per lane, no block barrier), and each entered
+// (ray, window) pair is tested by the whole warp; the warp loops while any
+// of its lanes is alive. The winners are the resident scan's bit for bit.
+// Bound: the triangle tests of the windows each ray enters, charged per
+// lane; the residual writes are small next to them. It composes with tail
+// compaction: slots are per lane, so a continuation launch resumes a
+// survivor at slot cnt in its own column (rcol) of the residuals, with its
+// running radiance and count (acc_in, cnt_in). Nothing gathers or scatters
+// the residuals, and acc, cnt and every slot equal the uncompacted launch
+// bit for bit (the lane's sum continues in the same order).
 //
 // STREAM (scenes whose Woop table is larger than one SM's shared memory):
 // the triangle search is K6 (stream_tri.cuh), which stages windows of the
@@ -37,7 +49,11 @@
 // exhausted or out-of-range thread stays in the loop, takes part in the
 // barriers and does no math. A lane's sequence of bounces is unchanged, so
 // acc and cnt equal the resident launch bit for bit. STREAM composes with
-// THRESH and RESUME (tail compaction), not with REPLAY.
+// THRESH and RESUME (tail compaction), not with REPLAY. Its dynamic shared
+// memory (stream_layout: two windows, the rays, slots and lists; 120 KB at
+// 1024-row windows, fan 16) is opted into above 48 KB, and its registers
+// are capped so that 8 blocks of 128 fit an SM (64 registers: occupancy,
+// not arithmetic, set its time on the H100).
 #include "kernel_rng.cuh"
 #include "pt3_device.cuh"
 #include "stream_tri.cuh"
@@ -73,13 +89,13 @@ __device__ __forceinline__ bool finish_search(const pt3::SceneView& s, Lane& L, 
   return hit;
 }
 
-// Winner search + environment on miss; returns hit (t, idx valid).
-template <bool PACKED>
+// K5's winner search (unpacked) + environment on miss; returns hit (t, idx
+// valid).
 __device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
                                                float eps, float& t, int& idx) {
   L.cnt += 1;
   const pt3::Ray r{L.st[0], L.st[1], L.st[2], L.st[3], L.st[4], L.st[5]};
-  pt3::winner_search<PACKED, false>(s, r, eps, nullptr, nullptr, t, idx);
+  pt3::winner_search<false, false>(s, r, eps, nullptr, nullptr, t, idx);
   return finish_search(s, L, t);
 }
 
@@ -110,7 +126,7 @@ regen_table_kernel(pt3::SceneView s, const float* __restrict__ state0,
   for (int it = 0; L.st[9] != 0.0f && it < max_iter; ++it) {
     float t;
     int idx;
-    if (intersect_step<false>(s, L, eps, t, idx)) {
+    if (intersect_step(s, L, eps, t, idx)) {
       const size_t row = (size_t)(L.s_cur * nb + (L.d_cur - 1)) * 4;
       const float u = unif[row * n + lane];
       const float au = unif[(row + 1) * n + lane];
@@ -147,10 +163,14 @@ struct KrngArgs {
   float* __restrict__ acc_out;       // [3, N]
   int* __restrict__ cnt_out;         // [N]
   float* __restrict__ resid_out;     // [12, N] (THRESH)
-  float* __restrict__ rresid;        // [S*nb, 13, N] (REPLAY)
+  float* __restrict__ rresid;        // [S*nb, 13, rres_n] (REPLAY)
+  const int* __restrict__ rcol;      // [N] a lane's column of rresid (REPLAY; null: lane)
+  const float* __restrict__ acc_in;  // [3, N] resumed radiance (REPLAY + RESUME)
+  const int* __restrict__ cnt_in;    // [N] resumed count, the next slot (REPLAY + RESUME)
+  int rres_n;
   int n, S, nb, thresh;
   float eps;
-  pt3::StreamView w;                 // window tables (STREAM)
+  pt3::StreamView w;  // window tables (STREAM), or the boxes of REPLAY's culled search
 };
 
 // First alive sample strictly after s_cur (>= 0 when first) over the two
@@ -181,6 +201,7 @@ __device__ __forceinline__ int next_alive(uint32_t lo, uint32_t hi, int s_cur,
 struct KrngLane {
   Lane L;
   uint32_t hlane, am_lo, am_hi, sdt;
+  int col;  // REPLAY: the lane's column of the residuals
 };
 
 __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
@@ -214,24 +235,62 @@ __device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngL
   if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
 }
 
-template <bool NO_GLOSSY, bool REPLAY>
+// K4's search modes (template MODE): the resident scan; REPLAY, culled and
+// warp-compacted; STREAM, K6.
+constexpr int kResident = 0;
+constexpr int kReplay = 1;
+constexpr int kStream = 2;
+
+// K6's blocks per SM that the stream kernel's registers must allow
+// (__launch_bounds__; the stream mode launches blocks of at most 128)
+constexpr int kStreamMinBlocks = 8;
+
+// REPLAY: the lane's slot for this iteration (slot cnt), rows (j * 13 + r)
+// * rres_n + col; writes the input state rows.
+__device__ __forceinline__ float* replay_slot_open(const KrngLane& K, const KrngArgs& a) {
+  float* slot = a.rresid + (size_t)K.L.cnt * 13 * a.rres_n + K.col;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) slot[(size_t)r * a.rres_n] = K.L.st[r];
+  return slot;
+}
+
+__device__ __forceinline__ void replay_slot_close(float* slot, const KrngLane& K,
+                                                  const KrngArgs& a, bool hit, float t,
+                                                  int idx) {
+  slot[(size_t)9 * a.rres_n] = hit ? t : pt3::kInf;
+  slot[(size_t)10 * a.rres_n] = hit ? (float)idx : 0.0f;
+  slot[(size_t)11 * a.rres_n] = (float)K.L.s_cur;
+  slot[(size_t)12 * a.rres_n] = (float)K.L.d_cur;
+}
+
+// One bounce of one lane (kResident).
+template <bool NO_GLOSSY>
 __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K,
                                             const KrngArgs& a, int lane) {
-  // REPLAY: slot cnt (this iteration's), rows (j * 13 + r) * N + lane
-  float* slot = REPLAY ? a.rresid + (size_t)K.L.cnt * 13 * a.n + lane : nullptr;
-  if (REPLAY) {
-#pragma unroll
-    for (int r = 0; r < 9; ++r) slot[(size_t)r * a.n] = K.L.st[r];
-  }
   float t;
   int idx;
-  const bool hit = intersect_step<true>(s, K.L, a.eps, t, idx);
-  if (REPLAY) {
-    slot[(size_t)9 * a.n] = hit ? t : pt3::kInf;
-    slot[(size_t)10 * a.n] = hit ? (float)idx : 0.0f;
-    slot[(size_t)11 * a.n] = (float)K.L.s_cur;
-    slot[(size_t)12 * a.n] = (float)K.L.d_cur;
-  }
+  K.L.cnt += 1;
+  const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
+  pt3::winner_search<true, false>(s, r, a.eps, nullptr, nullptr, t, idx);
+  const bool hit = finish_search(s, K.L, t);
+  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
+}
+
+// One bounce with the culled warp search and a residual slot (kReplay).
+// Every lane of the warp calls it; only `active` ones write slots, shade
+// and refill.
+template <bool NO_GLOSSY>
+__device__ __forceinline__ void krng_bounce_replay(const pt3::SceneView& s, KrngLane& K,
+                                                   const KrngArgs& a, int lane, bool active) {
+  float* slot = active ? replay_slot_open(K, a) : nullptr;
+  if (active) K.L.cnt += 1;
+  const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
+  float t;
+  int idx;
+  pt3::culled_search_warp(s, a.w, r, active, a.eps, t, idx);
+  if (!active) return;
+  const bool hit = finish_search(s, K.L, t);
+  replay_slot_close(slot, K, a, hit, t, idx);
   krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
 }
 
@@ -240,7 +299,7 @@ __device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K
 template <bool NO_GLOSSY>
 __device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, KrngLane& K,
                                                    const KrngArgs& a, int lane, bool active,
-                                                   float4* win) {
+                                                   unsigned char* smem, uint32_t& phase) {
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
   float t = pt3::kInf;
   int idx = 0;
@@ -248,18 +307,43 @@ __device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, Krng
     K.L.cnt += 1;
     pt3::sphere_search(s, r, a.eps, t, idx);
   }
-  pt3::stream_search(s, a.w, win, r, active, a.eps, t, idx);
+  pt3::stream_search(s, a.w, smem, phase, r, active, a.eps, t, idx);
   if (!active) return;
   const bool hit = finish_search(s, K.L, t);
   krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
 }
 
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, bool REPLAY, bool STREAM>
-__global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
-  extern __shared__ float4 win[];  // STREAM: one window of Woop rows
+// One bounce of every thread's lane in a loop that every thread of the
+// block (STREAM, THRESH) or warp (REPLAY) runs; `active` lanes trace.
+template <bool NO_GLOSSY, int MODE>
+__device__ __forceinline__ void krng_bounce_all(const pt3::SceneView& s, KrngLane& K,
+                                                const KrngArgs& a, int lane, bool active,
+                                                unsigned char* smem, uint32_t& phase) {
+  if constexpr (MODE == kStream)
+    krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, active, smem, phase);
+  else if constexpr (MODE == kReplay)
+    krng_bounce_replay<NO_GLOSSY>(s, K, a, lane, active);
+  else if (active)
+    krng_bounce<NO_GLOSSY>(s, K, a, lane);
+}
+
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+__device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s, const KrngArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];  // STREAM: stream_layout
+  constexpr bool REPLAY = MODE == kReplay;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < a.n;
   const int li = valid ? lane : 0;
+  uint32_t phase = 0u;  // STREAM: the two window buffers' mbarrier parities
+  if constexpr (MODE == kStream) {
+    if (threadIdx.x == 0) {
+      uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // stream_layout's mbar at 0
+      pt3::mbar_init(bar);
+      pt3::mbar_init(bar + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
   KrngLane K;
 #pragma unroll
   for (int r = 0; r < 10; ++r) K.L.st[r] = 0.0f;
@@ -271,6 +355,7 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
   K.hlane = (uint32_t)a.lane_ids[li] * pt3::kInP1;
   K.am_lo = (uint32_t)a.amask[li];
   K.am_hi = (uint32_t)a.amask[a.n + li];
+  K.col = (REPLAY && a.rcol != nullptr) ? a.rcol[li] : lane;
   if (valid) {
     if (RESUME) {
 #pragma unroll
@@ -278,28 +363,37 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
       K.L.s_cur = (int)a.resid_in[(size_t)10 * a.n + lane];
       K.L.d_cur = (int)a.resid_in[(size_t)11 * a.n + lane];
       K.sdt = pt3::sd_term(a.sample0, K.L.s_cur, K.L.d_cur);
+      if (REPLAY && a.acc_in != nullptr) {  // continue the lane's sum and slots
+        K.L.acc[0] = a.acc_in[lane];
+        K.L.acc[1] = a.acc_in[a.n + lane];
+        K.L.acc[2] = a.acc_in[2 * a.n + lane];
+        K.L.cnt = a.cnt_in[lane];
+      }
     } else {
       krng_refill(K, a, lane, true);
     }
   }
   const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
-  if (!THRESH && !STREAM) {
+  if constexpr (!THRESH && MODE == kResident) {
     for (int it = 0; valid && K.L.st[9] != 0.0f && it < max_iter; ++it)
-      krng_bounce<NO_GLOSSY, REPLAY>(s, K, a, lane);
-  } else if (!THRESH) {
+      krng_bounce<NO_GLOSSY>(s, K, a, lane);
+  } else if constexpr (!THRESH && MODE == kReplay) {
+    // the warp runs while any of its lanes is alive
+    for (int it = 0; it < max_iter && __any_sync(0xFFFFFFFFu, valid && K.L.st[9] != 0.0f);
+         ++it)
+      krng_bounce_replay<NO_GLOSSY>(s, K, a, lane, valid && K.L.st[9] != 0.0f);
+  } else if constexpr (!THRESH) {
     // a dead lane stays dead (the refill runs in the bounce that ends a
     // path), so the block runs while any of its lanes is alive
     for (int it = 0; it < max_iter && __syncthreads_or(valid && K.L.st[9] != 0.0f); ++it)
-      krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, valid && K.L.st[9] != 0.0f, win);
+      krng_bounce_all<NO_GLOSSY, MODE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
+                                       phase);
   } else {
     const int th = max(a.thresh, 1);
     int live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     for (int it = 0; live >= th && it < max_iter; ++it) {
-      const bool active = valid && K.L.st[9] != 0.0f;
-      if (STREAM)
-        krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, active, win);
-      else if (active)
-        krng_bounce<NO_GLOSSY, false>(s, K, a, lane);
+      krng_bounce_all<NO_GLOSSY, MODE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
+                                       phase);
       live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     }
     if (valid) {
@@ -316,29 +410,59 @@ __global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
   a.cnt_out[lane] = K.L.cnt;
 }
 
-template <bool NO_GLOSSY, bool STREAM>
-void launch_krng_mode(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
-                      int grid, int block, size_t smem, cudaStream_t st) {
-  if (thresh && resume)
-    regen_krng_kernel<NO_GLOSSY, true, true, false, STREAM><<<grid, block, smem, st>>>(s, a);
-  else if (thresh)
-    regen_krng_kernel<NO_GLOSSY, true, false, false, STREAM><<<grid, block, smem, st>>>(s, a);
-  else if (resume)
-    regen_krng_kernel<NO_GLOSSY, false, true, false, STREAM><<<grid, block, smem, st>>>(s, a);
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+__global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
+  regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE>(s, a);
+}
+
+// K6's registers are capped so that kStreamMinBlocks blocks fit an SM
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+__global__ void __launch_bounds__(128, kStreamMinBlocks)
+    regen_krng_stream_kernel(pt3::SceneView s, KrngArgs a) {
+  regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE>(s, a);
+}
+
+// One launch of a K4 instance; shared memory above the 48 KB default is
+// opted into first.
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+cudaError_t launch_one(pt3::SceneView s, const KrngArgs& a, int grid, int block,
+                       size_t smem, cudaStream_t st) {
+  void (*kern)(pt3::SceneView, KrngArgs);
+  if constexpr (MODE == kStream)
+    kern = regen_krng_stream_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
   else
-    regen_krng_kernel<NO_GLOSSY, false, false, false, STREAM><<<grid, block, smem, st>>>(s, a);
+    kern = regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, block, smem, st>>>(s, a);
+  return cudaSuccess;
+}
+
+template <bool NO_GLOSSY, int MODE>
+cudaError_t launch_krng_mode(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
+                             int grid, int block, size_t smem, cudaStream_t st) {
+  if (thresh && resume)
+    return launch_one<NO_GLOSSY, true, true, MODE>(s, a, grid, block, smem, st);
+  if (thresh)
+    return launch_one<NO_GLOSSY, true, false, MODE>(s, a, grid, block, smem, st);
+  if (resume)
+    return launch_one<NO_GLOSSY, false, true, MODE>(s, a, grid, block, smem, st);
+  return launch_one<NO_GLOSSY, false, false, MODE>(s, a, grid, block, smem, st);
 }
 
 template <bool NO_GLOSSY>
-void launch_krng(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
-                 bool replay, bool stream, int grid, int block, cudaStream_t st) {
+cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
+                        bool replay, bool stream, int grid, int block, cudaStream_t st) {
   if (replay)
-    regen_krng_kernel<NO_GLOSSY, false, false, true, false><<<grid, block, 0, st>>>(s, a);
-  else if (stream)
-    launch_krng_mode<NO_GLOSSY, true>(s, a, thresh, resume, grid, block,
-                                      sizeof(float4) * 3 * a.w.window, st);
-  else
-    launch_krng_mode<NO_GLOSSY, false>(s, a, thresh, resume, grid, block, 0, st);
+    return launch_krng_mode<NO_GLOSSY, kReplay>(s, a, thresh, resume, grid, block, 0, st);
+  if (stream)
+    return launch_krng_mode<NO_GLOSSY, kStream>(
+        s, a, thresh, resume, grid, block, pt3::stream_layout(a.w.window, a.w.fan, block).total,
+        st);
+  return launch_krng_mode<NO_GLOSSY, kResident>(s, a, thresh, resume, grid, block, 0, st);
 }
 
 }  // namespace
@@ -372,9 +496,11 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const int* lane_ids, const int* amask,
                               const float* state0, const float* resid_in,
                               float* acc, int* cnt, float* resid_out,
-                              float* rresid, const float* tri_win, const float* wbox,
-                              int n_windows, int window, int n, int S, int nb, float eps,
-                              int thresh, int no_glossy, int block,
+                              float* rresid, const int* rcol, const float* acc_in,
+                              const int* cnt_in, int rres_n, const float* tri_win,
+                              const float* wbox, const float* wbox1, int n_windows,
+                              int n_groups, int window, int fan, int n,
+                              int S, int nb, float eps, int thresh, int no_glossy, int block,
                               void* stream) {
   pt3::SceneView s{tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad,
                    {env_r, env_g, env_b}};
@@ -383,21 +509,27 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
   const bool resume = resid_in != nullptr;
   const bool replay = rresid != nullptr;
   const bool stream_mode = tri_win != nullptr;
-  // a window lives in static-limit shared memory (48 KB: 1024 rows)
-  if (block <= 0 || block > 1024 || (th && resid_out == nullptr) ||
-      (replay && (th || resume || stream_mode)) ||
-      (stream_mode && (wbox == nullptr || n_windows <= 0 || window <= 0 ||
-                       window % pt3::kTc != 0 || window > 1024 ||
-                       (size_t)n_windows * window < (size_t)n_tri)))
+  const bool boxed = wbox != nullptr;  // STREAM, or REPLAY's culled search
+  // a window and its second buffer live in dynamic shared memory (opted in
+  // above 48 KB; 1024 rows double-buffered take 96 KB)
+  if (block <= 0 || block > 1024 || block % 32 != 0 || (th && resid_out == nullptr) ||
+      (stream_mode && block > 128) ||
+      (replay && (stream_mode || !boxed || rres_n <= 0 || (acc_in != nullptr && !resume))) ||
+      (boxed && (wbox1 == nullptr || n_windows <= 0 || window <= 0 ||
+                 window % pt3::kTc != 0 || window > 1024 || fan < 1 || fan > 32 ||
+                 n_groups != (n_windows + fan - 1) / fan ||
+                 (size_t)n_windows * window < (size_t)n_tri)) ||
+      (stream_mode && !boxed))
     return (int)cudaErrorInvalidValue;
   KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
-             acc, cnt, resid_out, rresid, n, S, nb, thresh, eps,
-             {reinterpret_cast<const float4*>(tri_win), wbox, n_windows, window}};
+             acc, cnt, resid_out, rresid, rcol, acc_in, cnt_in, rres_n, n, S, nb, thresh, eps,
+             {reinterpret_cast<const float4*>(tri_win), wbox, wbox1, n_windows, n_groups,
+              window, fan}};
   const int grid = (n + block - 1) / block;
   cudaStream_t st = (cudaStream_t)stream;
-  if (no_glossy)
-    launch_krng<true>(s, a, th, resume, replay, stream_mode, grid, block, st);
-  else
-    launch_krng<false>(s, a, th, resume, replay, stream_mode, grid, block, st);
+  const cudaError_t e =
+      no_glossy ? launch_krng<true>(s, a, th, resume, replay, stream_mode, grid, block, st)
+                : launch_krng<false>(s, a, th, resume, replay, stream_mode, grid, block, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,14 @@ REGENERATING replay chain for ``n_passes`` samples at once:
     K2 inside, differentiable), then ONE launch of K4 in replay mode
     (``ops/megakernel.fused_passes_krng(replay=True)``): a dead lane reloads
     its next sample's first-bounce state, and every live iteration writes
-    one residual slot (input state, winner, sample, depth).
+    one residual slot (input state, winner, sample, depth). The launch culls
+    its winner search by the window boxes of a ``PackedSceneStream`` at
+    window 64 (built each step with the packed scene from the detached
+    materials: a few small tensor operations over the triangles); the
+    radiance, counts and slots are bit-equal to an unculled launch. It runs
+    without tail compaction: a warp of the culled search already stops at
+    its longest lane, and compaction's block-synchronous loop cost more than
+    the tail it cut (PERF.md).
   * BACKWARD: kernel K9 (``regen_replay_bwd``) walks each lane's realized
     slots in reverse and returns the first-bounce states' cotangent, which
     autograd carries through the S camera stages (K2's VJP). The feedback
@@ -54,6 +61,7 @@ from ..ops.intersect import Hits, hits_from_winner, intersect_scene
 from ..ops.intersect_kernel import winner_t_vjp
 from ..ops.megakernel import (
     PackedSceneFused,
+    PackedSceneStream,
     bounce_bwd_step,
     fused_bounces,
     fused_passes_krng,
@@ -342,7 +350,8 @@ class _RegenChain(torch.autograd.Function):
                 state0, lane_ids, key_words, sample0, order, inv, geo_scene, nb, s_count,
                 eps, kernel_bwd):
         mats = MaterialTable(emission, diffuse, ior, reflectivity, cone_angle)
-        pk = PackedSceneFused(geo_scene._replace(materials=mats, environment=environment))
+        pk = PackedSceneStream(geo_scene._replace(materials=mats, environment=environment),
+                               window=64)
         acc, cnt, resid, cnt_sorted, lanes_sorted = _regen_launch(
             pk, state0, lane_ids, key_words, sample0, order, inv, eps, nb, s_count, True)
         ctx.save_for_backward(*mats, environment, lanes_sorted, resid, cnt_sorted)

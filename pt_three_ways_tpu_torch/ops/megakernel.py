@@ -31,14 +31,20 @@ over the packed survivors resumes it. Its ``replay`` mode (the regenerating
 training path's forward) also writes one residual slot per live iteration
 of a lane, ``[S*nb, 13, N]``: the input org/dir/beta, the winner (t, packed
 index), the sample and the depth; a lane's slots are exactly ``j < cnt``.
+Replay composes with the tail compaction (a continuation resumes a lane at
+slot ``cnt`` of its own column, with its running sum: ``ReplaySlots``) and
+culls its search by a ``PackedSceneStream``'s window boxes (the kernel
+needs them; the plain version also takes a ``PackedSceneFused`` and scans
+every triangle); both keep every output bit-equal.
 Its ``stream`` mode, for scenes whose Woop table is larger than one SM's
 shared memory (``scene_fits_resident``), takes the triangle search K6
 (``_stream_tri`` in the JAX package; ``csrc/stream_tri.cuh``): the table is
-cut into windows of ``window`` triangles with one box each
-(``PackedSceneStream``), and a block stages in shared memory, window by
-window, only the windows one of its rays can still win in. It composes with
-the tail compaction, not with ``replay``, and equals the resident launch bit
-for bit.
+cut into windows of ``window`` triangles with one box each and one level-1
+box per ``fan`` windows (``PackedSceneStream``), and a block stages in
+shared memory, window by window, only the windows one of its rays can still
+win in, spreading the voting rays' tests over the whole block. It composes
+with the tail compaction, not with ``replay``, and equals the resident
+launch bit for bit.
 
 K10 ``bounce_step`` replaces ``_bounce_kernel`` / ``_run_bounce`` /
 ``bounce_step``: one bounce of the compacting wavefront
@@ -87,6 +93,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -108,9 +115,11 @@ TRI_ATTR = 30  # woop 12, vertex normals 9, emission 3, diffuse 3, ior, refl, co
 SPH_ATTR = 12  # centre 3, emission 3, diffuse 3, ior, refl, cone
 _M32 = 0xFFFFFFFF
 # triangles per K6 window (one 64-row chunk, 3 KB of Woop rows in shared
-# memory per block): the fastest of 64, 128 and 256 rows on the H100 in
-# the first measurements of the stream mode (PERF.md)
+# memory per block) and windows per level-1 box: the window/fan sweep of
+# chip_smoke.py phase 8 on the H100 (PERF.md)
 STREAM_WINDOW = 64
+STREAM_FAN = 16
+
 # shared memory of one H100 SM (sm_90: 228 KB); the gate's size for CPU
 # tensors, so CPU runs route as the card does
 SMEM_PER_SM_BYTES = 228 * 1024
@@ -201,12 +210,16 @@ class PackedSceneStream(PackedSceneFused):
     ``n_windows`` windows of ``window`` triangles (a multiple of 64, so
     window chunks start where the resident scan's do), ``tri_win``
     [n_windows * window, 12] with all-zero padding rows (rejected as
-    parallel), and one box per window, ``wbox`` [n_windows, 8] = lo3 hi3
-    pad2: the min/max of its vertices (the last window padded with the last
+    parallel), one box per window, ``wbox`` [n_windows, 8] = lo3 hi3 pad2:
+    the min/max of its vertices (the last window padded with the last
     vertex, as the JAX package does) widened by ``wbox_margin`` on every
-    side. The winner's attribute row stays one indexed load from
-    ``tri_attr``: the TPU kernel's 128-column table and in-loop attribute
-    capture are not needed.
+    side, and one level-1 box per ``fan`` consecutive windows, ``wbox1``
+    [n_groups, 8]: the min/max of its windows' widened boxes. The winner's
+    attribute row stays one indexed load from ``tri_attr``: the TPU
+    kernel's 128-column table and in-loop attribute capture are not needed.
+
+    The same boxes at ``window`` 64 are K4 replay's culling hierarchy (one
+    box per 64-row chunk, one level-1 box per ``fan`` chunks).
 
     The margin keeps the window skip exact under rounding: the point at a
     hit's computed t lies within a few float32 ulps of the scene's scale
@@ -214,17 +227,24 @@ class PackedSceneStream(PackedSceneFused):
     little along each axis, so a box widened by ``WBOX_MARGIN`` of that
     scale (hundreds of ulps) is entered before, and left after, every hit a
     ray can take in it, one on a face or an edge shared with another window
-    included."""
+    included. A level-1 box contains its windows' boxes, and the slab test
+    rounds monotonically in the box's faces, so a ray that enters a window
+    box enters its level-1 box too: skipping a group is as exact as
+    skipping each of its windows."""
 
-    def __init__(self, scene, window: int = STREAM_WINDOW):
+    def __init__(self, scene, window: int = STREAM_WINDOW, fan: int = STREAM_FAN):
         super().__init__(scene)
         if window <= 0 or window % TC or window > 1024:
             raise ValueError(f"window must be a multiple of {TC} in [64, 1024], got {window}")
+        if not 1 <= fan <= 32:
+            raise ValueError(f"fan must be in [1, 32], got {fan}")
         dev = scene.device
         f32 = torch.float32
         self.window = int(window)
+        self.fan = int(fan)
         n_win = max(-(-self.n_tri // window), 1)
         self.n_windows = n_win
+        self.n_groups = -(-n_win // fan)
         self.tri_win = torch.zeros((n_win * window, 12), dtype=f32, device=dev)
         self.tri_win[:self.n_tri] = self.tri_tab[:self.n_tri]
         if self.n_tri:
@@ -243,8 +263,14 @@ class PackedSceneStream(PackedSceneFused):
             self.wbox_margin = 0.0
             lo = torch.full((1, 3), math.inf, dtype=f32, device=dev)
             hi = torch.full((1, 3), -math.inf, dtype=f32, device=dev)
-        self.wbox = torch.cat([lo, hi, torch.zeros((n_win, 2), dtype=f32, device=dev)],
-                              dim=1).contiguous()
+        zeros2 = lambda k: torch.zeros((k, 2), dtype=f32, device=dev)
+        self.wbox = torch.cat([lo, hi, zeros2(n_win)], dim=1).contiguous()
+        pad1 = self.n_groups * fan - n_win
+        lo_p = torch.cat([lo, lo[-1:].expand(pad1, 3)])
+        hi_p = torch.cat([hi, hi[-1:].expand(pad1, 3)])
+        self.wbox1 = torch.cat([lo_p.reshape(self.n_groups, fan, 3).min(dim=1).values,
+                                hi_p.reshape(self.n_groups, fan, 3).max(dim=1).values,
+                                zeros2(self.n_groups)], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -407,16 +433,20 @@ def window_enter_plain(box, org, inv_d, best_t, eps: float):
 
 
 def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
-    """Plain version of K6's search with the packed winner: the spheres,
-    then the windows in order; a ray scans a window's chunks only where
+    """Plain version of K6's search with the packed winner (and of K4
+    replay's culled search, which walks the same boxes): the spheres, then
+    the level-1 boxes in order and, inside each one a ray enters, its
+    windows in order; a ray scans a window's chunks only where
     ``window_enter_plain`` says its winner can still lie in the window's
-    box (the kernel's threads do the same; its block loads a window when any
-    of its rays enters it). Chunk boundaries and arithmetic are the resident
-    scan's, so the winners are bit-equal to ``winner_search_plain(...,
-    packed_winner=True)``. Returns (best_t, best_i) as it does.
+    box (K6's block scans a window for the rays that voted for it, K4
+    replay's warp for its lanes that entered it). Chunk boundaries and
+    arithmetic are the resident scan's, so the winners are bit-equal to
+    ``winner_search_plain(..., packed_winner=True)``. Returns (best_t,
+    best_i) as it does.
 
-    Each test is per ray, so only the active rays are tested, and a
-    window's chunks only against the rays that enter it."""
+    Each test is per ray, so only the active rays are tested, a group's
+    windows only against the rays that enter the group, and a window's
+    chunks only against the rays that enter the window."""
     best_t, best_i = sphere_search_plain(pk, org, dirn, active, eps)
     n_tri, tc = pk.n_tri, pk.chunk_rows
     if n_tri == 0:
@@ -425,22 +455,29 @@ def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
     org, dirn = org[:, lanes], dirn[:, lanes]
     bt, bi = best_t[lanes], best_i[lanes]
     inv_d = _safe_recip(dirn)
-    for w in range(pk.n_windows):
-        sel = window_enter_plain(pk.wbox[w], org, inv_d, bt, eps).nonzero()[:, 0]
-        if sel.numel() == 0:
+    for g in range(pk.n_groups):
+        sg = window_enter_plain(pk.wbox1[g], org, inv_d, bt, eps).nonzero()[:, 0]
+        if sg.numel() == 0:
             continue
-        o, d = org[:, sel], dirn[:, sel]
-        t_w, i_w = bt[sel], bi[sel]
-        base = w * pk.window
-        rows = min(pk.window, n_tri - base)
-        for c in range(0, rows, tc):
-            first = base + c
-            ct, ci = chunk_min_plain(pk.tri_win[first:first + min(tc, rows - c)], first,
-                                     o, d, eps, True)
-            take = ct < t_w
-            i_w = torch.where(take, ci, i_w)
-            t_w = torch.where(take, ct, t_w)
-        bt[sel], bi[sel] = t_w, i_w
+        og, dg, ig = org[:, sg], dirn[:, sg], inv_d[:, sg]
+        tg, jg = bt[sg], bi[sg]
+        for w in range(g * pk.fan, min((g + 1) * pk.fan, pk.n_windows)):
+            sel = window_enter_plain(pk.wbox[w], og, ig, tg, eps).nonzero()[:, 0]
+            if sel.numel() == 0:
+                continue
+            o, d = og[:, sel], dg[:, sel]
+            t_w, i_w = tg[sel], jg[sel]
+            base = w * pk.window
+            rows = min(pk.window, n_tri - base)
+            for c in range(0, rows, tc):
+                first = base + c
+                ct, ci = chunk_min_plain(pk.tri_win[first:first + min(tc, rows - c)], first,
+                                         o, d, eps, True)
+                take = ct < t_w
+                i_w = torch.where(take, ci, i_w)
+                t_w = torch.where(take, ct, t_w)
+            tg[sel], jg[sel] = t_w, i_w
+        bt[sg], bi[sg] = tg, jg
     best_t[lanes], best_i[lanes] = bt, bi
     return best_t, best_i
 
@@ -539,21 +576,38 @@ def _next_alive(amask, s_cur, s_count: int, first: bool):
     return torch.where(nz_lo, s_lo, torch.where(nz_hi, s_hi, torch.full_like(s_lo, s_count)))
 
 
+class ReplaySlots(NamedTuple):
+    """Where a K4 launch in replay mode writes its residual slots: ``rres``
+    [S*nb, 13, N0] (written in place; slot j of a lane in column
+    ``col[lane]``, or in column ``lane`` when ``col`` is None). A
+    continuation launch (tail compaction) also takes each resumed lane's
+    running radiance ``acc_in`` [3, N] and count ``cnt_in`` [N] (its next
+    slot), so its slots continue its column and its radiance sum is the
+    one an uncompacted launch takes."""
+
+    rres: torch.Tensor
+    col: torch.Tensor | None = None
+    acc_in: torch.Tensor | None = None
+    cnt_in: torch.Tensor | None = None
+
+
 def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
                      seeds, sample0: int, eps: float, nb: int, s_count: int,
                      thresh: int = 0, no_glossy: bool = False, block: int = BLOCK,
-                     replay: bool = False, stream: bool = False):
+                     replay: ReplaySlots | None = None, stream: bool = False):
     """Plain version of one K4 launch. lane_ids [N] int, amask [2, N] uint32
     words (int64), state0 [S*10, N] sample-major, resid_in [12, N] or None
     (resume), seeds: three uint32 ints. With ``thresh`` > 0, N is a multiple
     of ``block`` and each block of lanes stops once fewer than ``thresh`` of
     its lanes are alive. ``stream`` (``pk`` a PackedSceneStream) searches
     the triangles window by window (``stream_search_plain``): the same
-    winners, so the same outputs. Returns (acc [3, N], cnt [N] int32, resid_out
-    [12, N] or None); with ``replay`` the third output is instead the replay
-    residuals [S*nb, 13, N] (slot j of a lane: the input org3 dir3 beta3 of
-    its j-th live iteration, the winner t (+inf on a miss), its packed index
-    (0 on a miss), the sample and the depth; slots j >= cnt stay zero)."""
+    winners, so the same outputs. With ``replay`` (a ``ReplaySlots``) the
+    launch also writes the replay residuals (slot j of a lane: the input
+    org3 dir3 beta3 of its j-th live iteration, the winner t (+inf on a
+    miss), its packed index (0 on a miss), the sample and the depth); with
+    ``pk`` a PackedSceneStream the replay search is culled by its boxes
+    (``stream_search_plain``: the same winners). Returns (acc [3, N], cnt
+    [N] int32, resid_out [12, N] or None)."""
     n = state0.shape[1]
     dev = state0.device
     lanes = torch.arange(n, device=dev)
@@ -563,6 +617,7 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
     hlane = kr.mul32(lane_ids.to(torch.int64) & _M32, kr._IN_P1)
     amask = amask.to(torch.int64) & _M32
     seeds_col = torch.tensor(seeds, dtype=torch.int64, device=dev).reshape(3, 1)
+    culled = stream or (replay is not None and isinstance(pk, PackedSceneStream))
 
     def refill(first: bool):
         nonlocal s_cur, d_cur, sdt
@@ -583,17 +638,20 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         s_cur = resid_in[10].to(torch.int64)
         d_cur = resid_in[11].to(torch.int64)
         sdt = kr.sd_term(sample0, s_cur, d_cur)
+        if replay is not None and replay.acc_in is not None:
+            acc = replay.acc_in.clone()
+            cnt = replay.cnt_in.to(torch.int32).clone()
     else:
         st = torch.zeros((10, n), dtype=torch.float32, device=dev)
         s_cur = torch.zeros((n,), dtype=torch.int64, device=dev)
         d_cur = torch.zeros((n,), dtype=torch.int64, device=dev)
         sdt = torch.zeros((n,), dtype=torch.int64, device=dev)
         refill(first=True)
+    col = lanes if replay is None or replay.col is None else replay.col.long()
 
-    # a sample takes at most nb iterations: S*nb replay slots suffice
-    rres = torch.zeros((s_count * nb, 13, n), dtype=torch.float32, device=dev) if replay else None
     it = 0
-    while it < (s_count * nb if replay else s_count * (nb + 1)):
+    # a sample takes at most nb iterations: S*nb replay slots suffice
+    while it < (s_count * nb if replay is not None else s_count * (nb + 1)):
         alive = st[9] != 0.0
         if thresh:
             tile_live = alive.reshape(-1, block).sum(dim=1)
@@ -603,13 +661,13 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
             active = alive
         if not bool(active.any()):
             break
-        t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps, stream)
-        if replay:
-            # a live lane's slot is its iteration count: slot it
+        slot_j = cnt.long()  # a live lane's slot is its iteration count
+        t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps, culled)
+        if replay is not None:
             slot = torch.cat([st[0:9], torch.where(hit, t, torch.full_like(t, math.inf))[None],
                               torch.where(hit, idx, torch.zeros_like(idx)).to(torch.float32)[None],
                               s_cur.to(torch.float32)[None], d_cur.to(torch.float32)[None]])
-            rres[it] = torch.where(active[None, :], slot, rres[it])
+            replay.rres[slot_j[active], :, col[active]] = slot[:, active].T
         u, v, p = kr.event_uniforms_premixed(((hlane + sdt) & _M32)[None, :], seeds_col)
         au = u if no_glossy else kr.acos01(u)
         _shade_plain(pk, st, acc, t, idx, hit, u, au, v, p, no_glossy)
@@ -619,7 +677,7 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         # a stopped block's lanes are alive or exhausted: refill skips them
         refill(first=False)
         it += 1
-    resid = rres
+    resid = None
     if thresh:
         resid = torch.cat([st, s_cur.to(torch.float32)[None], d_cur.to(torch.float32)[None]])
     return acc, cnt, resid
@@ -907,30 +965,34 @@ def _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count):
 
 
 def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
-                     nb, s_count, thresh, no_glossy, block, replay=False, stream=False):
+                     nb, s_count, thresh, no_glossy, block, replay=None, stream=False):
     n = state0.shape[1]
     dev = state0.device
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     resid_out = (torch.empty((12, n), dtype=torch.float32, device=dev)
                  if thresh else None)
-    # only the slots j < cnt of a lane are written
-    rres = (torch.empty((s_count * nb, 13, n), dtype=torch.float32, device=dev)
-            if replay else None)
-    win = (pk.tri_win.data_ptr(), pk.wbox.data_ptr(), pk.n_windows, pk.window) if stream \
-        else (0, 0, 0, 0)
+    rep = (replay.rres, replay.col, replay.acc_in, replay.cnt_in) if replay is not None \
+        else (None,) * 4
+    rres_n = replay.rres.shape[2] if replay is not None else 0
+    boxed = stream or replay is not None
+    if boxed and not isinstance(pk, PackedSceneStream):
+        raise ValueError("K4 replay on the card culls by the window boxes of a "
+                         "PackedSceneStream")
+    win = (_cuda.ptr(pk.tri_win if stream else None), pk.wbox.data_ptr(), pk.wbox1.data_ptr(),
+           pk.n_windows, pk.n_groups, pk.window, pk.fan) if boxed else (0,) * 7
     err = _cuda.lib().pt3_regen_krng(
         *_scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0),
         lane_ids.data_ptr(), amask.data_ptr(), state0.data_ptr(),
         _cuda.ptr(resid_in), acc.data_ptr(), cnt.data_ptr(), _cuda.ptr(resid_out),
-        _cuda.ptr(rres), *win, n, s_count, nb, float(eps), int(thresh), int(no_glossy),
-        int(block), _cuda.stream_ptr(dev),
+        *(_cuda.ptr(r) for r in rep), rres_n, *win, n, s_count, nb, float(eps), int(thresh),
+        int(no_glossy), int(block), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_krng")
     fused_passes_krng.launches += 1
     if stream:
         fused_passes_krng.stream_launches += 1
-    return acc, cnt, (rres if replay else resid_out)
+    return acc, cnt, resid_out
 
 
 def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residuals):
@@ -1070,11 +1132,9 @@ def alive_mask_words(state0: torch.Tensor, s_count: int) -> torch.Tensor:
 
 def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,
                  s_count, thresh, no_glossy, block, replay, stream):
-    if lane_ids.device.type == "cuda":
-        return _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
-                                eps, nb, s_count, thresh, no_glossy, block, replay, stream)
-    return regen_krng_plain(pk, lane_ids, amask, state0, resid_in, seeds, sample0,
-                            eps, nb, s_count, thresh, no_glossy, block, replay, stream)
+    launch = _regen_krng_cuda if lane_ids.device.type == "cuda" else regen_krng_plain
+    return launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb, s_count,
+                  thresh, no_glossy, block, replay, stream)
 
 
 def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
@@ -1089,11 +1149,16 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     grouping at level boundaries differs). Returns (acc [3, N], cnt [N]);
     with ``replay``, (acc, cnt, resid): the replay residuals [S*nb, 13, N],
     of which a lane's slots j < cnt are written (``acc`` and ``cnt`` are
-    bit-equal to a launch without ``replay``). ``stream`` (``pk`` a
-    PackedSceneStream) searches the triangles with K6, window by window;
-    ``acc`` and ``cnt`` are bit-equal to the resident launch."""
-    if replay and (tail_frac > 0.0 or stream):
-        raise ValueError("replay residuals are incompatible with tail/stream")
+    bit-equal to a launch without ``replay`` and without tail compaction:
+    a continuation launch resumes each lane's radiance sum and slots where
+    it stopped, in the lane's own column). The replay search is culled by
+    the window boxes of ``pk``, a PackedSceneStream (the same winners; on
+    the CPU a PackedSceneFused scans every triangle).
+    ``stream`` (``pk`` a PackedSceneStream) searches the triangles with
+    K6, window by window; ``acc`` and ``cnt`` are bit-equal to the
+    resident launch."""
+    if replay and stream:
+        raise ValueError("replay residuals are incompatible with the stream mode")
     if stream and not isinstance(pk, PackedSceneStream):
         raise ValueError("stream=True needs a PackedSceneStream")
     if s_count > S_COUNT_MAX:
@@ -1105,8 +1170,9 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
         raise ValueError("fused_passes_krng: state0/lane_ids shapes do not match S")
     _device_kind(state0, lane_ids, pk.tri_tab)
     dev = state0.device
-    # tail compaction needs whole blocks; the replay residuals stay unpadded
-    pad = 0 if replay else (-n) % block
+    # tail compaction needs whole blocks; padding lanes are dead from the
+    # start, so they write no replay slot (the residuals keep N columns)
+    pad = (-n) % block
     state0 = state0.to(torch.float32)
     lane_ids = lane_ids.to(torch.int32)
     if pad:
@@ -1119,9 +1185,14 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     no_glossy = pk.no_glossy
     npad = state0.shape[1]
     thresh = int(tail_frac * block) if npad > block else 0
-    run = lambda lid, am, s0, res, th: _krng_launch(
+    rres = None
+    if replay:
+        # only the slots j < cnt of a lane are written (zeros on the CPU)
+        alloc = torch.zeros if dev.type == "cpu" else torch.empty
+        rres = alloc((s_count * nb, 13, n), dtype=torch.float32, device=dev)
+    run = lambda lid, am, s0, res, th, rep: _krng_launch(
         pk, lid, am, s0, res, seeds, sample0, eps, nb, s_count, th, no_glossy, block,
-        replay, stream)
+        rep, stream)
     if thresh:
         # tail compaction: every level but the last stops its blocks at
         # live < thresh; survivors (sorted by remaining samples) are packed
@@ -1130,14 +1201,18 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
         acc = cnt = None
         gidx = None  # survivor columns in original lane coordinates
         cur = (lane_ids, amask, state0, None)
+        rep = ReplaySlots(rres) if replay else None
         level_n = npad
         for level in range(levels + 1):
             n2 = (level_n // block) * thresh
             n2 = min(-(-n2 // block) * block, level_n)
             last = level == levels or level_n <= block or n2 >= level_n
-            acc_l, cnt_l, resid = run(*cur, 0 if last else thresh)
+            acc_l, cnt_l, resid = run(*cur, 0 if last else thresh, rep)
             if gidx is None:
                 acc, cnt = acc_l, cnt_l
+            elif replay:  # the continuation carried the lanes' sums and counts on
+                acc = acc.index_copy(1, gidx, acc_l)
+                cnt = cnt.index_copy(0, gidx, cnt_l)
             else:
                 acc = acc.index_add(1, gidx, acc_l)
                 cnt = cnt.index_add(0, gidx, cnt_l)
@@ -1151,15 +1226,18 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
             gidx = idx2 if gidx is None else gidx[idx2]
             take = lambda a: a[..., idx2].contiguous()
             cur = (take(cur[0]), take(cur[1]), take(cur[2]), take(resid))
+            if replay:
+                # padding lanes never live: their columns are never written
+                rep = ReplaySlots(rres, gidx.to(torch.int32).contiguous(), take(acc_l),
+                                  take(cnt_l))
             level_n = n2
     else:
-        acc, cnt, rres = run(lane_ids, amask, state0, None, 0)
-        if replay:
-            return acc, cnt, rres
+        acc, cnt, _ = run(lane_ids, amask, state0, None, 0,
+                          ReplaySlots(rres) if replay else None)
     if pad:
         acc = acc[:, :n]
         cnt = cnt[:n]
-    return acc, cnt
+    return (acc, cnt, rres) if replay else (acc, cnt)
 
 
 fused_passes_krng.launches = 0

@@ -197,15 +197,17 @@ def test_train_step_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("name", ["cornell", "suzanne"])
 def test_regen_replay_kernels_match_plain_versions(dev, name):
     scene, state0, _, lanes = _state(name, dev)
-    pk = mk.PackedSceneFused(scene)
+    pk = mk.PackedSceneStream(scene, window=64)  # the replay's culling boxes
     nb, s_count = 3, 3
     a = (pk, state0, lanes, (5, 6), 0, 1e-4, nb, s_count)
     acc, cnt, res = mk.fused_passes_krng(*a, replay=True)
     assert all(torch.equal(x, y) for x, y in zip((acc, cnt), mk.fused_passes_krng(*a)))
     seeds = kernel_rng.channel_seeds(5, 6)
     amask = mk.alive_mask_words(state0, s_count)
-    pacc, pcnt, pres = mk.regen_krng_plain(pk, lanes, amask, state0, None, seeds, 0, 1e-4,
-                                           nb, s_count, 0, pk.no_glossy, replay=True)
+    pres = torch.zeros_like(res)
+    pacc, pcnt, _ = mk.regen_krng_plain(pk, lanes, amask, state0, None, seeds, 0, 1e-4,
+                                        nb, s_count, 0, pk.no_glossy,
+                                        replay=mk.ReplaySlots(pres))
     real = (torch.arange(s_count * nb, device=dev)[:, None] < cnt[None, :])[:, None, :]
     same = torch.isclose(res, pres, rtol=1e-4, atol=1e-5) | ~real
     lanes_ok = (torch.all(torch.isclose(acc, pacc, rtol=1e-4, atol=1e-5), dim=0)
@@ -226,6 +228,33 @@ def test_regen_replay_kernels_match_plain_versions(dev, name):
 
 
 @pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_regen_replay_culled_tail_matches_uncompacted(dev, name):
+    """K4 replay (culled by the window boxes) with tail compaction, levels
+    1 and 2: acc, counts and the slots j < cnt bit-equal to the launch
+    without compaction, K9 on the compacted slots bit-equal to K9 on the
+    uncompacted ones; acc and counts bit-equal to the resident K4 without
+    replay."""
+    scene, state0, _, lanes = _state(name, dev, w=64)
+    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 3)
+    ps = mk.PackedSceneStream(scene, window=64, fan=4)
+    full = mk.fused_passes_krng(ps, *a, replay=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    acc_bar = torch.randn((3, state0.shape[1]), generator=gen, device=dev)
+    b_full = mk.regen_replay_bwd(ps, lanes, (5, 6), 0, full[2], full[1], acc_bar, 3)
+    real = (torch.arange(9, device=dev)[:, None] < full[1][None, :])[:, None, :]
+    for levels in (1, 2):
+        got = mk.fused_passes_krng(ps, *a, replay=True, tail_frac=0.125, tail_levels=levels)
+        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+        assert torch.equal(torch.where(real, got[2], 0.0), torch.where(real, full[2], 0.0))
+        b_got = mk.regen_replay_bwd(ps, lanes, (5, 6), 0, got[2], got[1], acc_bar, 3)
+        assert all(torch.equal(x, y) for x, y in zip(b_got, b_full))
+    plain = mk.fused_passes_krng(mk.PackedSceneFused(scene), *a)
+    assert torch.equal(plain[0], full[0]) and torch.equal(plain[1], full[1])
+    with pytest.raises(ValueError):  # the card's replay needs the boxes
+        mk.fused_passes_krng(mk.PackedSceneFused(scene), *a, replay=True)
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
 def test_stream_matches_resident_bitwise(dev, name):
     scene, state0, _, lanes = _state(name, dev)
     pk = mk.PackedSceneFused(scene)
@@ -242,6 +271,23 @@ def test_stream_matches_resident_bitwise(dev, name):
     p4 = mk.regen_krng_plain(ps, lanes, amask, state0, None, seeds, 0, 1e-4, 3, 3, 0,
                              ps.no_glossy, stream=True)[:2]
     assert _lanes_agree(stm, p4) >= 0.99
+
+
+@pytest.mark.parametrize("window", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("fan", [1, 8])
+def test_stream_designs_match_resident_bitwise(dev, fan, window):
+    """K6 at every window size (1 to 16 chunks a window; 1024 rows take
+    more than 48 KB of shared memory) and without (fan 1) or with level-1
+    boxes gives the resident K4's acc and counts bit for bit, with and
+    without tail compaction, on suzanne-sub1."""
+    scene, state0, _, lanes = _state("suzanne-sub1", dev, w=48, s_count=2)
+    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 2)
+    pk = mk.PackedSceneFused(scene)
+    ps = mk.PackedSceneStream(scene, window=window, fan=fan)
+    for tail in (0.0, 0.125):
+        res = mk.fused_passes_krng(pk, *a, tail_frac=tail)
+        stm = mk.fused_passes_krng(ps, *a, tail_frac=tail, stream=True)
+        assert torch.equal(stm[0], res[0]) and torch.equal(stm[1], res[1])
 
 
 @pytest.mark.parametrize("name", ["suzanne-sub1", "suzanne-sub2"])

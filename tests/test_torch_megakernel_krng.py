@@ -8,7 +8,8 @@ rtol 1e-4 / atol 1e-5 and equal ``cnt`` on >= 99 % of lanes (the packed
 winner folds the row into t's low bits, so a near-tie may flip either way),
 tile-mean ``acc`` rtol 1e-3. Tail compaction changes only the float32
 grouping of each lane's sum at level boundaries: counts equal, ``acc``
-within a few ulp (rtol 1e-6).
+within a few ulp (rtol 1e-6); in replay mode the continuation carries each
+lane's sum on, so ``acc``, counts and residual slots are bit-equal.
 """
 
 import jax.numpy as jnp
@@ -72,7 +73,12 @@ def test_k4_tail_compaction_matches_exhaustion():
                                               tail_frac=0.125, tail_levels=levels, block=128)
         np.testing.assert_array_equal(cnt_tail.numpy(), cnt_full.numpy())
         np.testing.assert_allclose(tail.numpy(), full.numpy(), rtol=1e-6, atol=1e-7)
-    with pytest.raises(ValueError):
-        mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True, tail_frac=0.125)
+    # replay composes with tail compaction: the continuation resumes each
+    # lane's sum, count and slots, so all three equal the run to exhaustion
+    rep = mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True)
+    rep_tail = mk.fused_passes_krng(pk, s0, lanes, kw_t, 0, 1e-4, NB, 4, replay=True,
+                                    tail_frac=0.125)
+    for got, want in zip(rep_tail, rep):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     with pytest.raises(ValueError):
         mk.fused_passes_krng(pk, torch.zeros(650, 4), torch.zeros(4), kw_t, 0, 1e-4, NB, 65)

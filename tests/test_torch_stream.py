@@ -4,7 +4,11 @@ stream_search_plain, fused_passes_krng(stream=True)) on the CPU.
   * The window tables: ``wbox`` is the min/max of each window's
     Morton-ordered vertices (the last window padded with the last vertex)
     widened by the margin, the window count is ceil(T / window), and the
-    padding Woop rows are zero.
+    padding Woop rows are zero; ``wbox1`` holds one box per ``fan``
+    windows, the min/max of their widened boxes.
+  * The two-level walk (``stream_search_plain``) finds the resident
+    packed winners bit for bit on rays aimed at shared window edges, on
+    suzanne, -sub1 and -sub2, at fans 8 and 16.
   * Rays aimed at the edges that two windows share: the streamed winners
     equal the resident ones bit for bit, and each triangle winner's window
     box is entered against it (the widened boxes' invariant).
@@ -83,6 +87,54 @@ def test_stream_tables_layout(name):
     np.testing.assert_array_equal(ps.wbox.numpy(), want)
     with pytest.raises(ValueError):
         mk.PackedSceneStream(scene, window=96)
+
+
+@pytest.mark.parametrize("fan", [1, 8, 16])
+def test_stream_group_boxes_layout(fan):
+    """``wbox1``: one box per ``fan`` consecutive windows, the min/max of
+    their widened boxes, which is the min/max of the group's vertices
+    widened by the same margin (the last group may hold fewer windows)."""
+    scene, _ = _scene("suzanne")
+    ps = mk.PackedSceneStream(scene, window=WINDOW, fan=fan)
+    n_win = ps.n_windows
+    n_g = -(-n_win // fan)
+    assert (ps.fan, ps.n_groups) == (fan, n_g)
+    assert ps.wbox1.shape == (n_g, 8) and not ps.wbox1[:, 6:].any()
+    n = scene.num_triangles
+    verts = scene.triangles.verts.numpy().astype(np.float32)
+    verts = np.concatenate([verts, np.broadcast_to(verts[-1:, -1:], (n_win * WINDOW - n, 3, 3))])
+    margin = np.float32(ps.wbox_margin)
+    wb = ps.wbox.numpy()
+    for g in range(n_g):
+        v = verts[g * fan * WINDOW:(g + 1) * fan * WINDOW].reshape(-1, 3)
+        np.testing.assert_array_equal(ps.wbox1[g, 0:3].numpy(), v.min(axis=0) - margin)
+        np.testing.assert_array_equal(ps.wbox1[g, 3:6].numpy(), v.max(axis=0) + margin)
+        blk = wb[g * fan:(g + 1) * fan]
+        assert (ps.wbox1[g, 0:3].numpy() <= blk[:, 0:3]).all()
+        assert (ps.wbox1[g, 3:6].numpy() >= blk[:, 3:6]).all()
+    for bad in (0, 33):
+        with pytest.raises(ValueError):
+            mk.PackedSceneStream(scene, window=WINDOW, fan=bad)
+
+
+@pytest.mark.parametrize("fan", [8, 16])
+@pytest.mark.parametrize("name", ["suzanne", "suzanne-sub1", "suzanne-sub2"])
+def test_hierarchical_stream_search_matches_resident_bitwise(name, fan):
+    """The two-level walk (level-1 boxes, then their windows) finds the
+    resident scan's packed winners bit for bit on rays aimed at the edges
+    two windows share (every edge's rays on suzanne; on -sub1 and -sub2 an
+    even subsample of about 2048 of them)."""
+    scene, _ = _scene(name)
+    ps = mk.PackedSceneStream(scene, window=WINDOW, fan=fan)
+    org, dirn, _ = edge_rays(scene, WINDOW)
+    step = max(org.shape[1] // 2048, 1)
+    org, dirn = org[:, ::step].contiguous(), dirn[:, ::step].contiguous()
+    live = torch.ones(org.shape[1], dtype=torch.bool)
+    t_r, i_r = mk.winner_search_plain(ps, org, dirn, live, 1e-4, packed_winner=True)
+    t_s, i_s = mk.stream_search_plain(ps, org, dirn, live, 1e-4)
+    assert bool(torch.isfinite(t_r).any())
+    np.testing.assert_array_equal(t_s.numpy(), t_r.numpy())
+    np.testing.assert_array_equal(i_s.numpy(), i_r.numpy())
 
 
 @pytest.mark.parametrize("tail_frac", [0.0, 0.125])

@@ -6,11 +6,15 @@ printing no result, when there is no CUDA device or the package is missing.
 
 Phases (one line each, any failure stops the run):
   1. card, versions, and the build of every CUDA kernel from csrc/ (nvcc,
-     sm_90a, one process per source, all started together);
+     sm_90a, one process per source, all started together, with the older
+     K4 and K7 of PREV_COMMIT and the culled build of megakernel.cu, where
+     a one-chunk scene takes the culled warp search), with each kernel
+     instance's registers and spills;
   2. each kernel's wrapper against the same wrapper with its plain PyTorch
      version in place of the launch, at 256^2 camera tiles: K2 (cornell,
      suzanne), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
-     compaction against the same run to exhaustion);
+     compaction against the same run to exhaustion; with the cone angles
+     zeroed, bit for bit against its plain version and its stream mode);
   3. a small-image reference: cornell 32^2 on the card in table-RNG mode
      (K2 + K5) against the CPU scan wavefront, pixel for pixel;
   4. the main path through render(): cornell at the CLI defaults (1920x1080,
@@ -22,10 +26,13 @@ Phases (one line each, any failure stops the run):
      render and read just after it;
   5. on the inputs each render gave them (the first call of its main pass
      group, after the probe): every kernel's wrapper against its plain
-     version, timed, with the bound computed from those inputs; and the
-     card's camera stage against the CPU's (whose rounding follows the JAX
-     package's compiled CPU code) on every tile of the CLI-default render's
-     first pass;
+     version, timed, with the bound computed from those inputs; K4 also
+     bit for bit against the older K4 and, on cornell, the culled build
+     (every launch of the call) and timed in turns with them, with its lane
+     utilisation and the share of shading
+     events on glossy materials; and the card's camera stage against the
+     CPU's (whose rounding follows the JAX package's compiled CPU code) on
+     every tile of the CLI-default render's first pass;
   6. the training path through make_sharded_train_step: three replay steps
      on suzanne 512^2 (K=16, depth 5: the camera stage with K2, K7 with its
      residuals forward, four K8 launches backward), each split into forward
@@ -35,7 +42,9 @@ Phases (one line each, any failure stops the run):
      VJP; K7 (with and
      without residuals) and K8 (each bounce, and twice for bitwise
      repeatability) against their plain versions on the first step's
-     inputs, timed; and the card's step against the CPU's on a 32^2 crop of
+     inputs, timed, K7 also bit for bit against the older K7 and timed in
+     turns with it; the geometry pack's rebuild against its material
+     refresh; and the card's step against the CPU's on a 32^2 crop of
      cornell 512^2;
   7. the regenerating training path: three make_sharded_train_step steps
      with passes_per_step=8 on suzanne 512^2 (K=16, depth 5: eight camera
@@ -47,30 +56,39 @@ Phases (one line each, any failure stops the run):
      against its plain version, against K4 without replay (acc and counts
      bit-equal) and against the chain's launch (no compaction: slots,
      counts, acc and K9's gradients bit-equal), the chain's launch against
-     the older K4's unculled replay (bit for bit, timed in turns; see
-     PREV_COMMIT), its tail-fraction sweep, and K9 against its plain
+     the older K4's replay (bit for bit, timed in turns; see PREV_COMMIT),
+     its tail-fraction sweep, and K9 against its plain
      version and twice for bitwise repeatability, on the first step's
      inputs, timed; trace_passes_replay forward + backward with the feedback sort key chained across calls,
      in ms per pass; the card's regen step against the CPU's on a 32^2
      crop of cornell 512^2; and ten steps of the train_demo (cornell 256^2,
      Adam, 16 passes per step);
-  8. the stream tier and the compacting wavefront: the Woop table size and
-     route of cornell (framed 16:9 and square) and suzanne(-sub1..3), and
-     K4 resident against K4 stream (K6) on each at 256 wide (K=16, depth 5,
-     S=8), bit for bit, each timed over two launches after a warm-up; on suzanne-sub2 the same with tail
-     compaction; suzanne-sub3 through render() at 512^2, 16 spp (counters
-     set to 0 just before, read just after: K4 only in stream mode); on
-     each of that render's stream launches K4 stream against the resident
-     K4 bit for bit, and on its main launch against its plain version
-     (K6's occupancy counted from it), against the older K4's stream mode
-     (bit for bit, timed in turns), timed, with its bound, and the window x
-     fan sweep; trace_passes_compact on suzanne 512^2 (S=4; counters set
+  8. the stream tier and the compacting wavefront: the crossover, the Woop
+     table size and route of cornell (framed 16:9 and square) and
+     suzanne(-sub1..3), and K4 resident against K4 stream (K6) and the older
+     K4's resident scan on each at 256 wide (K=16, depth 5, S=8), on cornell
+     also against the culled warp search (the culled build), bit for bit,
+     timed in turns, and the gate the table implies; on suzanne-sub2 the
+     same with tail compaction; suzanne-sub3 through render() at 512^2, 16
+     spp twice, on the gate's route (resident) and with the gate lowered
+     (stream: K6), the counters set to 0 just before each render and read
+     just after (K4 in the one mode only; K6's launches are the stream
+     render's), the two images bit-equal; each of the stream render's
+     launches against the resident mode bit for bit, and its main launch
+     against its plain version (K6's occupancy counted from it), against
+     the older K4's stream mode (bit for bit, timed in turns), timed, with
+     its bound, and the window x fan sweep;
+     trace_passes_compact on suzanne 512^2 (S=4; counters set
      to 0 just before, read just after), K10 against its plain version on
      each bounce of its first pass (with and without the winner record),
      timed, with its bound, and the whole against
      trace_passes_fused in table mode (K5) on the same keys, with the ms per
      pass of compaction, K5 and K4.
 The last two lines are the kernels JSON and the device JSON.
+
+``--crossover NAMES`` builds, then prints only phase 8's crossover table for
+the named scenes (e.g. suzanne-sub4,suzanne-sub5,suzanne-sub6: the measured
+range behind ``ops/megakernel.RESIDENT_MAX_TRIANGLES``) and the device line.
 """
 
 from __future__ import annotations
@@ -84,11 +102,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-# The commit whose K4 (the stream mode's flat window loop, K6, and the
-# unculled replay) the kernels line's prev_ms times on the same inputs, in
-# turns: its csrc comes from --prev, from build/prev_csrc, or from `git
-# archive` when the checkout has that commit; without it prev_ms is null.
-PREV_COMMIT = "795ae19"
+# The commit whose K4 (the unculled resident scan of 12 scalar loads a
+# Woop row, K6, the culled replay) and K7 (the unculled scan) the kernels
+# line's prev_ms times on the same inputs, in turns: its csrc comes from
+# --prev, from build/prev_csrc, or from `git archive` when the checkout has
+# that commit; without it prev_ms is null.
+PREV_COMMIT = "c238e3c"
 PREV_CSRC = os.path.join(ROOT, "build", "prev_csrc")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP32
@@ -108,6 +127,12 @@ OPS_SHADE = 200
 REPLAY_SLOT_BYTES = 13 * 4
 # passes per step of the regenerating training path (phase 7)
 S_REGEN = 8
+# the older K4's unculled resident scan is run on crossover scenes up to this
+# size (it takes ~4 s a launch at suzanne-sub3's 62,080 triangles)
+PREV_SCAN_MAX_TRIANGLES = 65_536
+# phase 8's crossover scenes (name@16:9: framed 16:9, as the CLI default)
+CROSSOVER_SCENES = ("cornell@16:9", "cornell", "suzanne", "suzanne-sub1", "suzanne-sub2",
+                    "suzanne-sub3")
 # per lane of the shading adjoint (csrc/replay.cuh bounce_bwd_lane): a hit
 # lane recomputes its bounce (~110) and walks it back (~390, the diffuse
 # branch); a live miss adds beta * environment
@@ -157,39 +182,84 @@ def prev_csrc(arg):
     return PREV_CSRC
 
 
-def start_prev_build(csrc, nvcc, flags):
-    """nvcc the older megakernel.cu into build/prev_kernels/libprev.so, in
-    the background; returns (process, library path)."""
+def start_builds(jobs, nvcc, flags):
+    """nvcc each (csrc directory, source name, library path, extra flags)
+    into its own shared library, in the background (all started together);
+    returns [(process, library path)]."""
+    builds = []
+    for csrc, src, lib, extra in jobs:
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        cmd = [nvcc, *flags, *extra, "-shared", "-I", csrc, os.path.join(csrc, f"{src}.cu"),
+               "-o", lib]
+        builds.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib))
+    return builds
+
+
+def prev_jobs(csrc):
+    """The older megakernel.cu and fused_bounces.cu, each into its own
+    library under build/prev_kernels/."""
     out = os.path.join(ROOT, "build", "prev_kernels")
-    os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "libprev.so")
-    cmd = [nvcc, *flags, "-shared", "-I", csrc, os.path.join(csrc, "megakernel.cu"), "-o", lib]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), lib
+    return [(csrc, src, os.path.join(out, f"libprev_{src}.so"), [])
+            for src in ("megakernel", "fused_bounces")]
 
 
-def load_prev(proc, lib):
-    """The older K4's entry point (its own argument list: no level-1 boxes,
-    no replay continuation)."""
+def culled_job(csrc):
+    """This tree's megakernel.cu with -DPT3_K4_ONE_CHUNK_CULLED: a scene of
+    one chunk takes the culled warp search instead of the one-chunk scan
+    (csrc/megakernel.cu flat_fits), under build/alt_kernels/."""
+    return (csrc, "megakernel", os.path.join(ROOT, "build", "alt_kernels",
+                                             "libculled_megakernel.so"),
+            ["-DPT3_K4_ONE_CHUNK_CULLED"])
+
+
+def load_culled(build):
+    """The library of culled_job, with this tree's K4 signature."""
     import ctypes
 
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    proc, lib = build
     report, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"the build of the older megakernel.cu failed:\n{report}")
+        fail(f"the build of {os.path.basename(lib)} failed:\n{report}")
     handle = ctypes.CDLL(lib)
-    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    handle.pt3_regen_krng.argtypes = [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
-                                      P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, I, P]
+    handle.pt3_regen_krng.argtypes = _cuda._SIGNATURES["pt3_regen_krng"]
     handle.pt3_regen_krng.restype = ctypes.c_int
     return handle
 
 
-def prev_krng(lib, mk, args):
+def load_prev(builds):
+    """The older K4's and K7's entry points: K4's argument list has no lane
+    queue, K7's no window boxes."""
+    import ctypes
+
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    handles = []
+    for proc, lib in builds:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the build of the older {os.path.basename(lib)} failed:\n{report}")
+        handles.append(ctypes.CDLL(lib))
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    mk_lib, k7_lib = handles
+    mk_lib.pt3_regen_krng.argtypes = [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
+                                      P, P, P, P, P, P, P, P, P, P, P, I,
+                                      P, P, P, I, I, I, I, I, I, I, F, I, I, I, P]
+    k7_lib.pt3_fused_bounces.argtypes = [P, P, P, P, I, I, I, F, F, F,
+                                         P, P, P, P, P, P, P, P, P, P, I, I, F, I, P]
+    for fn in (mk_lib.pt3_regen_krng, k7_lib.pt3_fused_bounces):
+        fn.restype = ctypes.c_int
+    return {"K4": mk_lib, "K7": k7_lib}
+
+
+def prev_krng(prev, mk, args):
     """One launch of the older K4 on the arguments of one
-    ``mk._regen_krng_cuda`` call: a stream launch runs its flat loop over
-    the same 64-row windows and boxes, a replay launch (one column per
-    lane) its unculled search. Returns (acc, cnt, resid_out or the replay
-    slots)."""
+    ``mk._regen_krng_cuda`` call: a resident launch runs its unculled scan
+    (no boxes), a stream launch K6 over the same windows, a replay launch
+    (one column per lane) its culled replay. Returns (acc, cnt, resid_out or
+    the replay slots)."""
     import torch
 
     from pt_three_ways_tpu_torch.ops import _cuda
@@ -203,15 +273,70 @@ def prev_krng(lib, mk, args):
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     res = torch.empty((12, n), **f32) if thresh else None
     rres = torch.empty((s_count * nb, 13, n), **f32) if replay is not None else None
-    err = lib.pt3_regen_krng(
+    boxed = stream or replay is not None
+    win = (_cuda.ptr(pk.tri_win if stream else None), pk.wbox.data_ptr(), pk.wbox1.data_ptr(),
+           pk.n_windows, pk.n_groups, pk.window, pk.fan) if boxed else (0,) * 7
+    err = prev["K4"].pt3_regen_krng(
         *mk._scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(),
         amask.data_ptr(), state0.data_ptr(), _cuda.ptr(resid_in), acc.data_ptr(),
-        cnt.data_ptr(), _cuda.ptr(res), _cuda.ptr(rres), _cuda.ptr(pk.tri_win if stream else None),
-        _cuda.ptr(pk.wbox if stream else None), pk.n_windows if stream else 0,
-        pk.window if stream else 0, n, s_count, nb, float(eps), int(thresh), int(no_glossy),
-        int(block), _cuda.stream_ptr(dev))
+        cnt.data_ptr(), _cuda.ptr(res), _cuda.ptr(rres), 0, 0, 0, n if replay is not None else 0,
+        *win, n, s_count, nb, float(eps), int(thresh), int(no_glossy), int(block),
+        _cuda.stream_ptr(dev))
     _cuda.check(err, "older pt3_regen_krng")
     return acc, cnt, (res if replay is None else rres[:, :, :replay.rres.shape[2]])
+
+
+def prev_k7(prev, mk, args):
+    """One launch of the older K7 (its unculled scan) on the arguments of
+    one ``mk._fused_bounces_cuda`` call; returns what that call returns."""
+    import torch
+
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    pk, org, dirn, beta, alive, unif, eps, nb, with_residuals = args
+    n = org.shape[1]
+    dev = org.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc = torch.empty((3, n), **f32)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    res = ((torch.empty((13 * nb, n), **f32), torch.empty((nb, n), **f32),
+            torch.empty((nb, n), dtype=torch.int32, device=dev))
+           if with_residuals else (None, None, None))
+    err = prev["K7"].pt3_fused_bounces(
+        *mk._scene_ptrs(pk), org.data_ptr(), dirn.data_ptr(), beta.data_ptr(), alive.data_ptr(),
+        unif.data_ptr(), acc.data_ptr(), cnt.data_ptr(), *(_cuda.ptr(r) for r in res), n, nb,
+        float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev))
+    _cuda.check(err, "older pt3_fused_bounces")
+    return (acc, cnt, *res) if with_residuals else (acc, cnt)
+
+
+def ptxas_table(report):
+    """One entry per kernel instance of a build report (nvcc -Xptxas -v):
+    'file kernel<template args>: registers, spill bytes stored/loaded'."""
+    import re
+
+    rows, src, name, spill = [], "", "", ""
+    for ln in report.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        m = re.search(r"Compiling entry function '_ZN(\w+)'", ln)
+        if m:  # the last length-prefixed name before the template arguments
+            rest, parts = m.group(1), []
+            while rest[:1].isdigit():
+                k = re.match(r"\d+", rest).group(0)
+                parts.append(rest[len(k):len(k) + int(k)])
+                rest = rest[len(k) + int(k):]
+            t = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+            targs = re.findall(r"L[bi](\d+)E", t.group(1)) if t else []
+            name = f"{parts[-1] if parts else m.group(1)}<{','.join(targs)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B spills"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{src} {name}: {m.group(1)} registers, {spill or '0/0 B spills'}")
+            name = spill = ""
+    return rows
 
 
 def fmt_ms(ms) -> str:
@@ -242,14 +367,14 @@ def k6_occupancy(mk, args, dev):
     search_orig, enter_orig = mk.stream_search_plain, mk.window_enter_plain
     groups_at = ps.wbox1.untyped_storage().data_ptr()
 
-    def count_search(pk, org, dirn, active, eps):
+    def count_search(pk, org, dirn, active, eps, packed_winner=True):
         cur["ids"] = active.nonzero()[:, 0]
         c["block_bounces"] += torch.unique(cur["ids"] // block).numel()
         c["box_tests"] += cur["ids"].numel() * pk.n_groups
-        return search_orig(pk, org, dirn, active, eps)
+        return search_orig(pk, org, dirn, active, eps, packed_winner)
 
-    def count_enter(box, org, inv_d, best_t, eps):
-        e = enter_orig(box, org, inv_d, best_t, eps)
+    def count_enter(box, org, inv_d, best_t, eps, packed_winner=True):
+        e = enter_orig(box, org, inv_d, best_t, eps, packed_winner)
         i = box.storage_offset() // 8
         if box.untyped_storage().data_ptr() == groups_at:  # level-1 box i
             cur["gids"] = cur["ids"][e]
@@ -289,6 +414,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--until", type=int, default=8,
                     help="stop after this phase (default: all eight)")
+    ap.add_argument("--crossover", help="after the build, only phase 8's crossover table on "
+                                        "these scenes (comma-separated catalog names, "
+                                        "name@16:9 for a 16:9 frame), e.g. "
+                                        "suzanne-sub4,suzanne-sub5,suzanne-sub6")
     ap.add_argument("--prev", help="the csrc directory of the older K4 that prev_ms times "
                                    f"(default: build/prev_csrc, or commit {PREV_COMMIT})")
     args = ap.parse_args(argv)
@@ -321,12 +450,16 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} nvcc '{nvcc}'")
     t0 = time.time()
     prev = prev_csrc(args.prev)
-    prev_build = start_prev_build(prev, _cuda.nvcc_path(), _cuda.NVCC_FLAGS) if prev else None
+    side = start_builds((prev_jobs(prev) if prev else []) + [culled_job(_cuda.CSRC)],
+                        _cuda.nvcc_path(), _cuda.NVCC_FLAGS)
     report = _cuda.build()
-    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    prev_lib = load_prev(*prev_build) if prev_build else None
-    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K4 from {prev}), ptxas: "
-          + " | ".join(regs))
+    prev_lib = load_prev(side[:-1]) if prev else None
+    culled_lib = load_culled(side[-1])
+    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K4 and K7 from {prev}; K4 with "
+          f"one-chunk scenes culled, -DPT3_K4_ONE_CHUNK_CULLED); ptxas "
+          f"(registers, spill bytes stored/loaded; megakernel.cu regen_krng_kernel<NO_GLOSSY, "
+          f"THRESH, RESUME, MODE>, MODE 0 culled, 1 replay, 2 stream, 3 one chunk): "
+          + " | ".join(ptxas_table(report)))
     _cuda.lib()
 
     # ---- helpers ---------------------------------------------------------
@@ -448,6 +581,53 @@ def main(argv=None) -> int:
             fail(f"K2 disagrees with its plain version: idx agree {frac}, t rel {rel}")
         return frac, err, t_p
 
+    @contextlib.contextmanager
+    def swapped(mod, name, fn):
+        """mod.name replaced by fn (an older kernel's launch in a wrapper, or
+        the culled build's library)."""
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, orig)
+
+    def pack_times(scene, mats):
+        """The per-step pack of a training chain: a new PackedSceneStream
+        (each step before) against ``with_materials`` on the geometry's
+        pack (each step now); mean of three, ms on the host's clock."""
+        mats = type(mats)(*(m.to(dev) for m in mats))
+        env = scene.environment
+        geo = mk.PackedSceneStream(scene)
+        t = {}
+        for name, fn in (("new PackedSceneStream", lambda: mk.PackedSceneStream(
+                scene._replace(materials=mats))), ("with_materials", lambda: geo.with_materials(
+                mats, env))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t[name] = (time.time() - t0) / 3 * 1e3
+        return ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
+
+    def run_culled(fn):
+        """fn() with K4's launches on the culled build (culled_job): a
+        one-chunk scene takes the culled warp search."""
+        with swapped(_cuda, "_LIB", culled_lib):
+            return fn()
+
+    def k4_design(pk):
+        """K4's resident design on this scene: the one-chunk scan for at most
+        64 triangles (and tables within 48 KB: csrc/megakernel.cu flat_fits,
+        so for every catalog scene), else the culled warp search."""
+        return "one-chunk scan" if pk.n_tri <= ik.TC else "culled warp search"
+
+    def same_out(x, y):
+        """Every output of two launches bit-equal (None where absent)."""
+        return all((p is None and q is None) or torch.equal(p, q) for p, q in zip(x, y))
+
     def cmp_acc(name, out_k, out_p):
         (acc_k, cnt_k), (acc_p, cnt_p) = out_k, out_p
         lane_ok = torch.all(torch.isclose(acc_k, acc_p, rtol=1e-4, atol=1e-5), dim=0) & (cnt_k == cnt_p)
@@ -460,6 +640,110 @@ def main(argv=None) -> int:
             fail(f"{name} disagrees with its plain version: lanes {frac}, "
                  f"means {mean_k.tolist()} vs {mean_p.tolist()}")
         return frac, err
+
+    def pixel_grid(w, h):
+        px = torch.arange(w * h, device=dev, dtype=torch.int32) % w
+        py = torch.arange(w * h, device=dev, dtype=torch.int32) // w
+        return px, py
+
+    def krng_inputs(scene, camera, params, n_passes):
+        """(state0 [S*10, N], lane ids) of the camera stage for n passes."""
+        px, py = pixel_grid(params.width, params.height)
+        base = rng.base_key(params.seed)
+        states = [integ._first_bounce_state(
+            scene, camera, params, rng.fold_in(rng.fold_in(base, s), 0), px, py, 1024,
+            "kernel", want_unif=False)[0] for s in range(n_passes)]
+        lanes = integ.lane_ids_for(px, py, params.width, params.first_bounce_samples)
+        return torch.cat(states), lanes
+
+    S8, nb8 = 8, 4
+
+    def crossover(names):
+        """K4's resident mode (the one-chunk scan or the culled warp search)
+        against its stream mode (K6), against the older K4's resident scan
+        (PREV_COMMIT) and, on a one-chunk scene, against the culled warp
+        search (the culled build) on the same inputs: each scene at 256 wide
+        (16:9 as ``name@16:9``), K=16, depth 5, S=8; acc and counts
+        bit-equal; timed in turns (resident, stream, older, culled; culled,
+        older, stream, resident), all but the older over two launches after
+        a warm-up, the older over one. Prints one line a scene and the gate
+        the table implies; returns {tag: dict(a=launch arguments, ps=pack)}."""
+        from pt_three_ways_tpu_torch.models.integrator import uses_stream
+
+        rows, out = [], {}
+        for tag in names:
+            name, _, aspect = tag.partition("@")
+            w, h = (256, 144) if aspect == "16:9" else (256, 256)
+            scene, camera, params = build_scene(name, w, h)
+            route = "stream" if uses_stream(params, scene, dev) else "resident"
+            state0, lanes = krng_inputs(scene, camera, params, S8)
+            a = (state0, lanes, (12345, 67890), 0, params.epsilon, nb8, S8)
+            ps = mk.PackedSceneStream(scene)
+            kept = []
+            launch = mk._regen_krng_cuda
+            mk._regen_krng_cuda = lambda *x: kept.append(x) or launch(*x)
+            try:
+                out_r = mk.fused_passes_krng(ps, *a)
+            finally:
+                mk._regen_krng_cuda = launch
+            out_s = mk.fused_passes_krng(ps, *a, stream=True)
+            if not same_out(out_r, out_s):
+                fail(f"K4 stream differs from K4 resident on {tag}")
+            run_r = lambda: mk.fused_passes_krng(ps, *a)
+            run_s = lambda: mk.fused_passes_krng(ps, *a, stream=True)
+            run_c = lambda: run_culled(run_r)
+            one_chunk = ps.n_tri <= ik.TC
+            if one_chunk and not same_out(out_r, run_c()):
+                fail(f"K4's culled warp search differs from the one-chunk scan on {tag}")
+            ms = {"resident": [], "stream": [], "older": [], "culled": []}
+            same_prev = None
+            older = prev_lib is not None and scene.num_triangles <= PREV_SCAN_MAX_TRIANGLES
+            if older:
+                run_p = lambda: prev_krng(prev_lib, mk, kept[0])
+                same_prev = same_out(out_r, run_p())
+                if not same_prev:
+                    fail(f"K4 resident differs from the older K4 on {tag}")
+            for turn in (("resident", "stream", "older", "culled"),
+                         ("culled", "older", "stream", "resident")):
+                for k in turn:
+                    if (k == "older" and not older) or (k == "culled" and not one_chunk):
+                        continue
+                    ms[k].append(events_ms({"resident": run_r, "stream": run_s,
+                                            "culled": run_c}[k], 2)
+                                 if k != "older" else events_ms(run_p, 1))
+            ms = {k: (sum(v) / len(v) if v else None) for k, v in ms.items()}
+            rows.append((scene.num_triangles, ms["stream"] / ms["resident"]))
+            print(f"phase 8 route {tag} {w}x{h}: {scene.num_triangles} triangles, Woop table "
+                  f"{scene.num_triangles * mk.WOOP_ROW_BYTES / 1024:.1f} KB, {route}; "
+                  f"{state0.shape[1]} lanes, K4 resident "
+                  f"({k4_design(ps)}) "
+                  f"{ms['resident']:.3f} ms, K4 stream {ms['stream']:.3f} ms ({ps.n_windows} "
+                  f"windows of {ps.window}), stream / resident "
+                  f"{ms['stream'] / ms['resident']:.3f}, the older K4's resident scan "
+                  f"{fmt_ms(ms['older']) + ' ms' if older else 'not run'}"
+                  + (f", the culled warp search {ms['culled']:.3f} ms (culled / one-chunk scan "
+                     f"{ms['culled'] / ms['resident']:.3f})" if one_chunk else "")
+                  + f"; acc and counts bit-equal (stream True, older K4 {same_prev}"
+                  + (", culled True" if one_chunk else "") + ")", flush=True)
+            out[tag] = dict(a=a, ps=ps)
+            del state0, out_r, out_s, kept
+        wins = [n for n, r in rows if r < 1.0]
+        top = max(n for n, _ in rows)
+        gate = (f"the stream mode from {min(wins)} triangles" if wins else
+                f"no crossover: the resident mode at every size measured, up to {top} "
+                f"triangles")
+        print(f"phase 8 crossover: {gate}; the gate routes a scene of more than "
+              f"RESIDENT_MAX_TRIANGLES = {mk.RESIDENT_MAX_TRIANGLES} triangles to the stream "
+              f"mode (a placeholder, the largest mesh measured: no crossover sets it)",
+              flush=True)
+        return out
+
+    if args.crossover:
+        crossover(args.crossover.split(","))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- phase 2: kernels vs plain versions at 256^2 ---------------------
     for name in ("cornell", "suzanne"):
@@ -476,7 +760,7 @@ def main(argv=None) -> int:
     S, nb = 4, 4
     for name in ("cornell", "suzanne"):
         scene, camera, params = build_scene(name, 256, 256)
-        pk = mk.PackedSceneFused(scene)
+        pk = mk.PackedSceneStream(scene)  # K4's culled search reads its window boxes
         px, py, state0, unif = first_bounce(scene, camera, params, S)
         if name == "cornell":
             a = (pk, state0, unif, params.epsilon, nb, S)
@@ -491,8 +775,28 @@ def main(argv=None) -> int:
         with plain("K4"):
             out_p = mk.fused_passes_krng(*a)
         frac, err = cmp_acc("K4", full, out_p)
-        print(f"phase 2 K4 {name} 256^2 S={S} no_glossy={pk.no_glossy}: lanes agree "
-              f"{frac:.6f} max|dacc| {err:.3e}")
+        # bit for bit against the plain version with the cone angles zeroed
+        # (the cone sample's sinf/cosf round unlike torch's), with and
+        # without tail compaction, and against the stream mode (K6)
+        m = scene.materials
+        pn = pk.with_materials(m._replace(cone_angle=torch.zeros_like(m.cone_angle)),
+                               scene.environment)
+        an = (pn,) + a[1:]
+        bit = {}
+        for tail in (0.0, 0.125):
+            kern = mk.fused_passes_krng(*an, tail_frac=tail)
+            with plain("K4"):
+                ref = mk.fused_passes_krng(*an, tail_frac=tail)
+            stm = mk.fused_passes_krng(*an, tail_frac=tail, stream=True)
+            torch.cuda.synchronize()
+            bit[tail] = same_out(kern, ref) and same_out(kern, stm)
+        if not all(bit.values()):
+            fail(f"K4 {name} (cone angles zeroed) differs from its plain version or the "
+                 f"stream mode: {bit}")
+        print(f"phase 2 K4 {name} 256^2 S={S} no_glossy={pk.no_glossy} "
+              f"({k4_design(pk)}): lanes "
+              f"agree {frac:.6f} max|dacc| {err:.3e}; with the cone angles zeroed bit-equal "
+              f"to its plain version and to the stream mode, tail_frac 0 and 0.125: True")
         if name == "suzanne":
             at, ct = mk.fused_passes_krng(*a, tail_frac=0.125)
             torch.cuda.synchronize()
@@ -704,6 +1008,68 @@ def main(argv=None) -> int:
         calls = captured[tag].get(what, {})
         return list(calls.values())[-1] if calls else None
 
+    def vs_prev_k4(a, kw):
+        """The K4 wrapper call (a, kw) on this tree's kernel, on the older one
+        (PREV_COMMIT) in its place and, on a one-chunk scene, on the culled
+        build (the culled warp search): every kernel launch of the call (the
+        continuations of tail compaction included) bit for bit, acc, counts
+        and continuation state; then the call timed in turns (this, older,
+        culled, culled, older, this). Returns (bit-equal to the older or
+        None, ms, older ms or None, culled ms or None)."""
+        kept = []
+        launch = mk._regen_krng_cuda
+        mk._regen_krng_cuda = lambda *x: kept.append(x) or launch(*x)
+        try:
+            wrappers["K4"](*a, **kw)
+        finally:
+            mk._regen_krng_cuda = launch
+        run = lambda: wrappers["K4"](*a, **kw)
+        eq = None
+        if prev_lib is not None:
+            eq = all(same_out(launch(*k), prev_krng(prev_lib, mk, k)) for k in kept)
+        one_chunk = a[0].n_tri <= ik.TC
+        if one_chunk and not all(same_out(launch(*k), run_culled(lambda: launch(*k)))
+                                 for k in kept):
+            fail("K4's culled warp search differs from the one-chunk scan on a render's "
+                 "launch")
+        del kept
+
+        def run_prev():
+            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, mk, x)):
+                return wrappers["K4"](*a, **kw)
+
+        others = {"older": run_prev if prev_lib is not None else None,
+                  "culled": (lambda: run_culled(run)) if one_chunk else None}
+        ms = {"this": [events_ms(run, 3)], "older": [], "culled": []}
+        for k in ("older", "culled", "culled", "older"):
+            if others[k] is not None:
+                ms[k].append(events_ms(others[k], 3))
+        ms["this"].append(events_ms(run, 3))
+        ms = {k: (sum(v) / len(v) if v else None) for k, v in ms.items()}
+        return eq, ms["this"], ms["older"], ms["culled"]
+
+    @contextlib.contextmanager
+    def shading_events(total):
+        """Counts the plain version's shading events into total: hits, hits
+        on a material with a cone angle (>= 1e-9: the glossy branch), and
+        those whose event takes the cone sample (specular)."""
+        orig = mk._shade_plain
+
+        def hook(pk, st, acc, t, idx, hit, *rest):
+            cone = torch.cat([pk.tri_attr[:, 29][:pk.n_tri], pk.sph_attr[:, 11][:pk.n_sph]])
+            glossy = hit & (cone[idx.clamp(0, cone.numel() - 1).long()] >= mk.EPSILON)
+            spec = orig(pk, st, acc, t, idx, hit, *rest)
+            total[0] += hit.sum()
+            total[1] += glossy.sum()
+            total[2] += (glossy & spec).sum()
+            return spec
+
+        mk._shade_plain = hook
+        try:
+            yield
+        finally:
+            mk._shade_plain = orig
+
     checks = {"K2": {}, "K5": {}, "K4": {}}
     for tag, _, _, _ in renders:
         # K2: the render's first camera-stage launch
@@ -731,10 +1097,40 @@ def main(argv=None) -> int:
             a, kw = call
             pk, state0 = a[0], a[1]
             out_k = wrappers[kernel](*a, **kw)
-            with plain(kernel):
+            events = torch.zeros((3,), dtype=torch.int64, device=dev)
+            with plain(kernel), shading_events(events):
                 pms, out_p = once_ms(lambda: wrappers[kernel](*a, **kw))
             frac, err = cmp_acc(kernel, out_k, out_p)
-            ms = events_ms(lambda: wrappers[kernel](*a, **kw), 3)
+            extra = ""
+            if kernel == "K5":
+                ms, prev_ms = events_ms(lambda: wrappers[kernel](*a, **kw), 3), None
+            else:
+                same_prev, ms, prev_ms, culled_ms = vs_prev_k4(a, kw)
+                if same_prev is False:
+                    fail(f"K4 on the {tag} render's main launch differs from the older K4")
+                # lane utilisation of the regenerating loop run one lane a
+                # thread (the older K4, and this one with tail compaction):
+                # per warp (32 consecutive lanes of the launch) the lanes'
+                # bounces over 32 times the warp's largest count; the lane
+                # queue takes back what a warp would idle
+                cw = out_k[1][:out_k[1].shape[0] // 32 * 32].reshape(-1, 32).to(torch.int64)
+                util = cw.sum().item() / max(32 * cw.max(dim=1).values.sum().item(), 1)
+                hits, glossy, cone = (int(x) for x in events.tolist())
+                no_bits = pk.no_glossy and same_out(out_k, out_p)
+                extra = (f"; {k4_design(pk)}, "
+                         f"bit-equal to the older K4 (acc, counts, continuation state of each "
+                         f"launch) {same_prev}, to its plain version "
+                         f"{no_bits if pk.no_glossy else 'n/a (glossy: sinf/cosf)'}; older K4 "
+                         f"{fmt_ms(prev_ms)} ms in turns"
+                         + (f", the culled warp search (bit-equal) {culled_ms:.3f} ms in turns "
+                            f"(culled / one-chunk scan {culled_ms / ms:.3f})"
+                            if culled_ms is not None else "")
+                         + f"; lane utilisation one lane a thread "
+                         f"{util:.4f}; "
+                         f"shading events {hits}: on glossy materials {glossy / max(hits, 1):.4f}, "
+                         f"taking the cone sample {cone / max(hits, 1):.4f}")
+                if pk.no_glossy and not no_bits:
+                    fail(f"K4 on the {tag} render's main launch differs from its plain version")
             live_bounces = int(out_p[1].sum().item())
             # a bounce searches like K2 (leaves entered before its winner)
             search = [live_bounces * full_scan_ops(pk)]
@@ -751,10 +1147,12 @@ def main(argv=None) -> int:
             tail = kw.get("tail_frac", 0.0)
             checks[kernel][tag] = dict(launches=launches[tag][kernel], max_abs_err=err,
                                        ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+            if kernel == "K4":
+                checks[kernel][tag]["prev_ms"] = prev_ms
             print(f"phase 5 {kernel} {tag} N={n} S={s_count} tail_frac={tail} "
                   f"no_glossy={pk.no_glossy}: lanes agree {frac:.6f} max|dacc| {err:.3e} "
                   f"kernel {ms:.3f} ms plain {pms:.1f} ms bound {b:.3f} ms ({by}) "
-                  f"live bounces {live_bounces}")
+                  f"live bounces {live_bounces}{extra}")
 
     # the card's camera stage against the CPU's (which follows the JAX
     # package's compiled CPU rounding), on every tile of the default
@@ -931,12 +1329,27 @@ def main(argv=None) -> int:
           f"{ik.intersect_packed.launches}, camera moved {cam_moved:.4e}, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # K7 against its plain version on the first step's call
+    # K7 against its plain version and the older K7 (PREV_COMMIT) on the
+    # first step's call; its kernel arguments kept for the older K7
     (a, kw), = tcapt["K7"]
-    out_k = mk.fused_bounces(*a, **kw)
+    kept7 = []
+    launch7 = mk._fused_bounces_cuda
+    mk._fused_bounces_cuda = lambda *x: kept7.append(x) or launch7(*x)
+    try:
+        out_k = mk.fused_bounces(*a, **kw)
+    finally:
+        mk._fused_bounces_cuda = launch7
     with plain("K7"):
         pms, out_p = once_ms(lambda: mk.fused_bounces(*a, **kw))
     frac, err = cmp_acc("K7", out_k[:2], out_p[:2])
+    same_plain7 = same_out(out_k, out_p)
+    if a[0].no_glossy and not same_plain7:
+        fail("K7 differs from its plain version (acc, counts, states, t, idx)")
+    same_prev7 = ms7_prev = None
+    if prev_lib is not None:
+        same_prev7 = same_out(out_k, prev_k7(prev_lib, mk, kept7[0]))
+        if not same_prev7:
+            fail("K7 differs from the older K7 (acc, counts, states, t, idx)")
     idx_ok = (out_k[4] == out_p[4]).all(dim=0) & (out_k[1] == out_p[1])
     lanes = idx_ok & torch.all(torch.isclose(out_k[0], out_p[0], rtol=1e-4, atol=1e-5), dim=0)
     t_k, t_p = out_k[3][:, lanes], out_p[3][:, lanes]
@@ -950,7 +1363,15 @@ def main(argv=None) -> int:
     kern_nr = mk.fused_bounces(*a)
     with plain("K7"):
         frac_nr, err_nr = cmp_acc("K7", kern_nr, mk.fused_bounces(*a))
-    ms = events_ms(lambda: mk.fused_bounces(*a, **kw), 3)
+    run7 = lambda: mk.fused_bounces(*a, **kw)
+    ms = events_ms(run7, 3)
+    if prev_lib is not None:
+        def run7_prev():
+            with swapped(mk, "_fused_bounces_cuda", lambda *x: prev_k7(prev_lib, mk, x)):
+                return mk.fused_bounces(*a, **kw)
+
+        ms7_prev = (events_ms(run7_prev, 3) + events_ms(run7_prev, 3)) / 2
+        ms = (ms + events_ms(run7, 3)) / 2
     ms_nr = events_ms(lambda: mk.fused_bounces(*a), 3)
     pk7 = a[0]
     live7 = int(out_p[1].sum().item())
@@ -962,12 +1383,21 @@ def main(argv=None) -> int:
     b7, by7 = bound(nbytes(*a[1:6], pk7.tri_tab, pk7.sph_tab, pk7.tri_attr, pk7.sph_attr)
                     + nbytes(*out_k), search[0] + live7 * OPS_SHADE)
     checks["K7"] = {"train": dict(launches=tlaunch["K7"], max_abs_err=max(err, res_err),
-                                  ms=ms, plain_ms=pms, bound_ms=b7, bound_by=by7)}
-    print(f"phase 6 K7 N={a[1].shape[1]} nb={a[7]}: lanes agree {frac:.6f} max|dacc| "
-          f"{err:.3e}, residuals on agreeing lanes max|d| {res_err:.3e} (without residuals: "
-          f"lanes {frac_nr:.6f} max|dacc| {err_nr:.3e}); kernel {ms:.3f} ms ({ms_nr:.3f} "
-          f"without residuals) plain {pms:.1f} ms bound {b7:.3f} ms ({by7}); live "
+                                  ms=ms, plain_ms=pms, bound_ms=b7, bound_by=by7,
+                                  prev_ms=ms7_prev)}
+    print(f"phase 6 K7 N={a[1].shape[1]} nb={a[7]} (culled warp search): lanes agree "
+          f"{frac:.6f} max|dacc| {err:.3e}, residuals on agreeing lanes max|d| {res_err:.3e} "
+          f"(without residuals: lanes {frac_nr:.6f} max|dacc| {err_nr:.3e}); acc, counts, "
+          f"states, t and idx bit-equal to its plain version {same_plain7} and to the older "
+          f"K7 {same_prev7}; kernel {ms:.3f} ms in turns with the older K7 "
+          f"{fmt_ms(ms7_prev)} ms ({ms_nr:.3f} without residuals) plain {pms:.1f} ms bound "
+          f"{b7:.3f} ms ({by7}; residual bytes {nbytes(*out_k[2:]) / 1e9:.3f} GB); live "
           f"bounces {live7}")
+    # the geometry's pack: built once per train step builder, its material
+    # rows refreshed each step (before: a new PackedScene each step)
+    packs = pack_times(tscene.to(dev), mats0)
+    print(f"phase 6 geometry pack, suzanne ({tscene.num_triangles} triangles): {packs}")
+    del kept7
 
     # K8 against its plain version on each of the first step's calls
     k8 = []
@@ -1130,6 +1560,7 @@ def main(argv=None) -> int:
             fail(f"kernel {k} was not launched by the regen training steps")
     print(f"phase 7 regen training: losses {[f'{x:.6e}' for x in losses]} (falling), "
           f"materials moved {moved:.4e} (sum |delta|), launches {rlaunch}")
+    print(f"phase 7 geometry pack of the regen chain: {pack_times(tscene_d, mats0)}")
     del state, loss
     torch.cuda.empty_cache()
 
@@ -1138,8 +1569,8 @@ def main(argv=None) -> int:
     # compacted against its plain version, against K4 without replay (acc
     # and counts bit-equal) and against the chain's launch (slots, counts,
     # acc and K9's gradients bit-equal); the chain's launch against the
-    # older K4's unculled replay (slots, counts and acc bit-equal; timed in
-    # turns), on the first step's call
+    # older K4's replay (slots, counts and acc bit-equal; timed in turns), on
+    # the first step's call
     a4, kw4 = rcapt["K4"]
     a4 = [x.to(dev) if torch.is_tensor(x) else x for x in a4]
     pk4, s0_4, lanes4 = a4[0], a4[1], a4[2]
@@ -1183,7 +1614,7 @@ def main(argv=None) -> int:
     if not (same_nr and same_chain and same_k9 and same_prev4 is not False):
         fail(f"K4 replay culled + tail_frac={tail4}: acc and counts bit-equal to K4 without "
              f"replay {same_nr}; slots, counts and acc bit-equal to the chain's launch "
-             f"{same_chain} and to the older K4's unculled replay {same_prev4}; K9 on the "
+             f"{same_chain} and to the older K4's replay {same_prev4}; K9 on the "
              f"compacted and the chain's slots bit-equal {same_k9}")
     with plain("K4"):
         pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4_tail))
@@ -1217,8 +1648,11 @@ def main(argv=None) -> int:
     ms4a = events_ms(run4, 3)
     ms4_prev = None
     if prev_lib is not None:
-        ms4_prev = sum(events_ms(lambda: prev_krng(prev_lib, mk, args4), 3)
-                       for _ in range(2)) / 2
+        def run4_prev():
+            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, mk, x)):
+                return mk.fused_passes_krng(*a4, **kw4)
+
+        ms4_prev = sum(events_ms(run4_prev, 3) for _ in range(2)) / 2
     ms4b = events_ms(run4, 3)
     ms4 = (ms4a + ms4b) / 2
     ms4_nr = events_ms(lambda: mk.fused_passes_krng(*a4), 3)
@@ -1236,9 +1670,9 @@ def main(argv=None) -> int:
           f"equal {cnt_eq}, realized slots {slots} ({n_hit} hits) max|d| {res_err:.3e}; acc "
           f"and counts bit-equal to K4 without replay {same_nr}; slots, counts and acc "
           f"bit-equal to the chain's launch (no compaction) {same_chain} and to the older "
-          f"K4's unculled replay {same_prev4}, K9 on the compacted and the chain's slots "
+          f"K4's replay {same_prev4}, K9 on the compacted and the chain's slots "
           f"bit-equal {same_k9}; the chain's launch {ms4:.3f} ms ({ms4a:.3f} / {ms4b:.3f}; "
-          f"the older K4 {fmt_ms(ms4_prev)} in turns; {ms4_nr:.3f} without replay, unculled) "
+          f"the older K4 {fmt_ms(ms4_prev)} in turns; {ms4_nr:.3f} without replay) "
           f"plain {pms4:.1f} ms bound {b4:.3f} ms ({by4}); residual buffer "
           f"{nbytes(res_k) / 1e9:.2f} GB", flush=True)
 
@@ -1361,55 +1795,18 @@ def main(argv=None) -> int:
         uses_stream,
     )
 
-    def pixel_grid(w, h):
-        px = torch.arange(w * h, device=dev, dtype=torch.int32) % w
-        py = torch.arange(w * h, device=dev, dtype=torch.int32) // w
-        return px, py
-
-    def krng_inputs(scene, camera, params, n_passes):
-        """(state0 [S*10, N], lane ids) of the camera stage for n passes."""
-        px, py = pixel_grid(params.width, params.height)
-        base = rng.base_key(params.seed)
-        states = [integ._first_bounce_state(
-            scene, camera, params, rng.fold_in(rng.fold_in(base, s), 0), px, py, 1024,
-            "kernel", want_unif=False)[0] for s in range(n_passes)]
-        lanes = integ.lane_ids_for(px, py, params.width, params.first_bounce_samples)
-        return torch.cat(states), lanes
-
-    # (1) routing, and K4 resident against K4 stream on the same inputs (256
-    # wide, S=8): cornell framed 16:9 (as the CLI default) and square, and
-    # each suzanne scene
-    S8, nb8 = 8, 4
-    keep = {}
-    sweep = [("cornell", "cornell", 256, 144), ("cornell-square", "cornell", 256, 256)] + [
-        (name, name, 256, 256)
-        for name in ("suzanne", "suzanne-sub1", "suzanne-sub2", "suzanne-sub3")]
-    for tag, name, w, h in sweep:
-        scene, camera, params = build_scene(name, w, h)
-        woop_kb = scene.num_triangles * mk.WOOP_ROW_BYTES / 1024
-        route = "stream" if uses_stream(params, scene, dev) else "resident"
-        state0, lanes = krng_inputs(scene, camera, params, S8)
-        a = (state0, lanes, (12345, 67890), 0, params.epsilon, nb8, S8)
-        pk, ps = mk.PackedSceneFused(scene), mk.PackedSceneStream(scene)
-        out_r = mk.fused_passes_krng(pk, *a)
-        out_s = mk.fused_passes_krng(ps, *a, stream=True)
-        if not (torch.equal(out_r[0], out_s[0]) and torch.equal(out_r[1], out_s[1])):
-            fail(f"K4 stream differs from K4 resident on {tag}")
-        ms_r = events_ms(lambda: mk.fused_passes_krng(pk, *a), 2)
-        ms_s = events_ms(lambda: mk.fused_passes_krng(ps, *a, stream=True), 2)
-        print(f"phase 8 route {tag} {w}x{h}: {scene.num_triangles} triangles, Woop table "
-              f"{woop_kb:.1f} KB, {route}; {state0.shape[1]} lanes, K4 resident {ms_r:.3f} ms, "
-              f"K4 stream {ms_s:.3f} ms ({ps.n_windows} windows of {ps.window}), acc and "
-              f"counts bit-equal", flush=True)
-        if name == "suzanne-sub2":
-            keep = dict(a=a, pk=pk, ps=ps)
-        del state0, out_r, out_s, a
+    # (1) routing, and K4 resident (its culled warp search; the one-chunk
+    # scan on cornell) against K4 stream (K6) and the older K4 on the same
+    # inputs (256 wide, S=8): cornell framed 16:9 (as the CLI default) and
+    # square, and each suzanne scene
+    cross = crossover(CROSSOVER_SCENES)
+    keep = cross["suzanne-sub2"]
     torch.cuda.empty_cache()
 
     # (2) suzanne-sub2 256^2, S=8 (1,048,576 lanes): stream against resident
     # with tail compaction
-    a, pk, ps = keep["a"], keep["pk"], keep["ps"]
-    tail_r = mk.fused_passes_krng(pk, *a, tail_frac=0.125)
+    a, ps = keep["a"], keep["ps"]
+    tail_r = mk.fused_passes_krng(ps, *a, tail_frac=0.125)
     tail_s = mk.fused_passes_krng(ps, *a, tail_frac=0.125, stream=True)
     torch.cuda.synchronize()
     d_tail = (tail_r[0] - tail_s[0]).abs().max().item()
@@ -1418,104 +1815,126 @@ def main(argv=None) -> int:
     print(f"phase 8 K4 stream vs resident suzanne-sub2 256^2 S={S8} "
           f"({a[0].shape[1]} lanes): max|dacc| 0 and counts equal without tail "
           f"compaction, max|dacc| {d_tail:.3e} and counts equal with tail_frac=0.125")
-    del keep, a, pk, ps, tail_r, tail_s
+    del keep, cross, a, ps, tail_r, tail_s
     torch.cuda.empty_cache()
 
-    # (3) suzanne-sub3 through render() at 512^2, 16 spp; the arguments of
-    # every stream launch (K6) are kept for (4)
+    # (3) suzanne-sub3 through render() at 512^2, 16 spp: on the route the
+    # gate gives it (resident), then again with the gate lowered below its
+    # triangle count, so that the render takes the stream mode (K6): its
+    # pass groups, autotune probe and tail-compaction continuations. The
+    # launch counters are set to 0 just before each render and read just
+    # after (K4 in the one mode only; K6's launches are the stream render's).
+    # The two images are bit-equal. The arguments of every K4 launch of the
+    # stream render are kept for (4)
     sparams = RenderParams(width=512, height=512, samples_per_pixel=16, seed=1)
     sb = SceneBuilder()
     scam = create_scene(sb, "suzanne-sub3", sparams)
     sscene = sb.build()
     sparams = sparams.replace(epsilon=auto_epsilon(sscene, scam))
-    sspans, k6_calls = [], []
 
-    def span8(kernel, f):
-        def hook(*a):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = f(*a)
-            e1.record()
-            sspans.append((kernel, e0, e1))
-            if kernel == "K4" and a[-1]:  # a launch in stream mode
-                k6_calls.append(a)
-            return out
-        return hook
+    def render_sub3(route):
+        """render() of suzanne-sub3 on the route; returns (output, wall s,
+        launches, CUDA-event spans, K4 launch arguments)."""
+        spans8, calls = [], []
 
-    saved = [(ik, "_intersect_cuda", ik._intersect_cuda),
-             (mk, "_regen_krng_cuda", mk._regen_krng_cuda),
-             (mk, "_regen_table_cuda", mk._regen_table_cuda)]
-    ik._intersect_cuda = span8("K2", ik._intersect_cuda)
-    mk._regen_krng_cuda = span8("K4", mk._regen_krng_cuda)
-    mk._regen_table_cuda = span8("K5", mk._regen_table_cuda)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.time()
-        out = render(sscene, scam, sparams, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches["sub3"] = read_counts()
-    finally:
-        for mod, name, orig in saved:
-            setattr(mod, name, orig)
-    img = out.mean()
+        def span8(kernel, f):
+            def hook(*a):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = f(*a)
+                e1.record()
+                spans8.append((kernel, e0, e1))
+                if kernel == "K4":
+                    calls.append(a)
+                return out
+            return hook
+
+        gate = mk.RESIDENT_MAX_TRIANGLES if route == "resident" else sscene.num_triangles - 1
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(swapped(mk, "RESIDENT_MAX_TRIANGLES", gate))
+            for mod, name, kernel in ((ik, "_intersect_cuda", "K2"),
+                                      (mk, "_regen_krng_cuda", "K4"),
+                                      (mk, "_regen_table_cuda", "K5")):
+                stack.enter_context(swapped(mod, name, span8(kernel, getattr(mod, name))))
+            if ("stream" if uses_stream(sparams, sscene, dev) else "resident") != route:
+                fail(f"suzanne-sub3 does not route to the {route} mode")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.time()
+            out = render(sscene, scam, sparams, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = read_counts()
+        img = out.mean()
+        mean = float(img.mean())
+        if not (img.shape == (512, 512, 3) and bool(np.isfinite(img).all())
+                and 0.005 < mean < 10.0):
+            fail(f"suzanne-sub3 render ({route}): shape {img.shape}, mean {mean}")
+        on, off = ("K6", "K4") if route == "stream" else ("K4", "K6")
+        if counts[on] <= 0 or counts[off] != 0:
+            fail(f"suzanne-sub3 render launches {counts}: K4 must run in its {route} mode only")
+        kms = {}
+        for k, e0, e1 in spans8:
+            kms[k] = kms.get(k, 0.0) + e0.elapsed_time(e1)
+        k4_ms = [round(e0.elapsed_time(e1), 3) for k, e0, e1 in spans8 if k == "K4"]
+        print(f"phase 8 render suzanne-sub3 512x512 spp 16 ({sscene.num_triangles} triangles, "
+              f"{route}{'' if route == 'resident' else ', the gate lowered to ' + str(gate)}): "
+              f"{wall:.3f} s, samples/ms {out.total_samples() / (wall * 1000.0):.2f}, mean "
+              f"{mean:.5f}, launches {counts}, kernel ms "
+              f"{ {k: round(v, 3) for k, v in kms.items()} } ({sum(kms.values()) / (wall * 1e3):.1%} "
+              f"of wall; K4 {route} by launch {k4_ms}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        return out, counts, calls
+
+    out, launches["sub3"], _ = render_sub3("resident")
     out.save(os.path.join(raw_dir, "suzanne-sub3.raw"))
     write_png(os.path.join(OUT_DIR, "chip_smoke_suzanne-sub3.png"), out.to_srgb8())
-    mean = float(img.mean())
-    kms = {}
-    for k, e0, e1 in sspans:
-        kms[k] = kms.get(k, 0.0) + e0.elapsed_time(e1)
-    if not (img.shape == (512, 512, 3) and bool(np.isfinite(img).all()) and 0.005 < mean < 10.0):
-        fail(f"suzanne-sub3 render: shape {img.shape}, mean {mean}")
-    if launches["sub3"]["K6"] <= 0 or launches["sub3"]["K4"] != 0:
-        fail(f"suzanne-sub3 render launches {launches['sub3']}: K4 must run in stream mode only")
-    k6_ms = [round(e0.elapsed_time(e1), 3) for k, e0, e1 in sspans if k == "K4"]
-    print(f"phase 8 render suzanne-sub3 512x512 spp 16 ({sscene.num_triangles} triangles): "
-          f"{wall:.3f} s, samples/ms {out.total_samples() / (wall * 1000.0):.2f}, mean "
-          f"{mean:.5f}, launches {launches['sub3']}, kernel ms "
-          f"{ {k: round(v, 3) for k, v in kms.items()} } ({sum(kms.values()) / (wall * 1e3):.1%} "
-          f"of wall; K4 stream by launch {k6_ms}), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del out
+    out_s, launches["sub3-K6"], k4_calls = render_sub3("stream")
+    if not (np.array_equal(out.sum, out_s.sum) and np.array_equal(out.count, out_s.count)):
+        fail(f"suzanne-sub3's stream render differs from its resident render: max|d| "
+             f"{np.abs(out.sum - out_s.sum).max()}")
+    print("phase 8 render suzanne-sub3: the stream render's image equals the resident "
+          "render's bit for bit (radiance sums and sample counts)", flush=True)
+    del out, out_s
     torch.cuda.empty_cache()
 
-    # (4) K6 on the render's own launches. Each stream launch again, and the
-    # resident K4 on the same inputs: acc, counts and the continuation state
-    # bit-equal. Then the main pass group's first launch (the one that stops
-    # its blocks for tail compaction) against its plain version, timed, with
-    # its bound
-    for i, a in enumerate(k6_calls):
-        o_s = mk._regen_krng_cuda(*a)
-        o_r = mk._regen_krng_cuda(*a[:-1], False)
+    # (4) K6 on the stream render's own launch inputs. Each launch again in
+    # the stream mode and in the resident mode: acc, counts and the
+    # continuation state bit-equal. Then the main pass group's first launch
+    # (the one that stops its blocks for tail compaction) in the stream mode
+    # against its plain version, timed, with its bound
+    as_mode = lambda a, stream: a[:-1] + (stream,)
+    for i, a in enumerate(k4_calls):
+        o_s = mk._regen_krng_cuda(*as_mode(a, True))
+        o_r = mk._regen_krng_cuda(*as_mode(a, False))
         torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(o_s, o_r) if x is not None):
-            fail(f"the sub3 render's K4 stream launch {i} differs from the resident K4 on "
-                 f"its inputs: max|dacc| {(o_s[0] - o_r[0]).abs().max().item()}")
-        print(f"phase 8 K4 stream vs resident, the sub3 render's launch {i} (N={a[3].shape[1]}, "
-              f"S={a[9]}, thresh={a[10]}, resumed={a[4] is not None}): acc, counts"
-              f"{' and continuation state' if o_s[2] is not None else ''} bit-equal", flush=True)
+        if not same_out(o_s, o_r):
+            fail(f"the sub3 render's K4 launch {i} in the stream mode differs from the resident "
+                 f"mode on its inputs: max|dacc| {(o_s[0] - o_r[0]).abs().max().item()}")
+        print(f"phase 8 K4 stream vs resident, the sub3 stream render's launch {i} "
+              f"(N={a[3].shape[1]}, S={a[9]}, thresh={a[10]}, resumed={a[4] is not None}): acc, "
+              f"counts{' and continuation state' if o_s[2] is not None else ''} bit-equal",
+              flush=True)
         del o_s, o_r
-    main6 = next((a for a in k6_calls if a[10]), k6_calls[-1])
+    main6 = as_mode(next((a for a in k4_calls if a[10]), k4_calls[-1]), True)
     ps = main6[0]
     o_k = mk._regen_krng_cuda(*main6)
     pms6, o_p, occ = k6_occupancy(mk, main6, dev)
     err6 = (o_k[0] - o_p[0]).abs().max().item()
-    if not all(torch.equal(x, y) for x, y in zip(o_k, o_p) if x is not None):
+    if not same_out(o_k, o_p):
         fail(f"K4 stream disagrees with its plain version on the sub3 render's launch: "
              f"max|d| {err6}, counts equal {torch.equal(o_k[1], o_p[1])}")
-    # the older K4 on the same launch (its flat loop: a block vote and a
-    # synchronous copy per 64-row window, each voting thread scanning the
-    # window itself): bit-equal, and timed in turns with this one
+    # the older K4's stream mode on the same launch: bit-equal, and timed in
+    # turns with this one
     run6 = lambda: mk._regen_krng_cuda(*main6)
     ms6_prev = same_prev6 = None
     if prev_lib is not None:
         run6_prev = lambda: prev_krng(prev_lib, mk, main6)
         o_f = run6_prev()
         torch.cuda.synchronize()
-        same_prev6 = all(torch.equal(x, y) for x, y in zip(o_k, o_f) if x is not None)
+        same_prev6 = same_out(o_k, o_f)
         del o_f
         if not same_prev6:
             fail("K6 differs from the older K4's stream mode on the sub3 render's main launch")
@@ -1525,10 +1944,11 @@ def main(argv=None) -> int:
     if prev_lib is not None:
         ms6_prev = (ms6_prev + events_ms(run6_prev, 3)) / 2
     ms6 = (ms6a + ms6b) / 2
+    ms6_res = events_ms(lambda: mk._regen_krng_cuda(*as_mode(main6, False)), 3)
     live6 = int(o_p[1].sum().item())
     rows6, win6 = occ["rows"], occ["windows_entered"]
     tests_sph = live6 * ps.n_sph * OPS_SPHERE
-    # two bounds: the box tests the older flat loop makes (every window for
+    # two bounds: the box tests PR 4's flat loop made (every window for
     # every active ray) and those of the hierarchy (the level-1 boxes, then the
     # windows of each entered group); the triangle tests are the same
     ops_flat = tests_sph + live6 * ps.n_windows * OPS_SLAB + rows6 * OPS_TRIANGLE \
@@ -1540,22 +1960,22 @@ def main(argv=None) -> int:
               + win6 * ps.window * mk.WOOP_ROW_BYTES + nbytes(*o_k))
     b6, by6 = bound(bytes6, ops6)
     b6_flat, _ = bound(bytes6, ops_flat)
-    checks["K6"] = {"sub3": dict(launches=launches["sub3"]["K6"], max_abs_err=err6, ms=ms6,
+    checks["K6"] = {"sub3": dict(launches=launches["sub3-K6"]["K6"], max_abs_err=err6, ms=ms6,
                                  plain_ms=pms6, bound_ms=b6, bound_by=by6, prev_ms=ms6_prev)}
     print(f"phase 8 K6 occupancy on the sub3 render's main launch (N={main6[3].shape[1]}, "
           f"S={main6[9]}, thresh={main6[10]}; 64-row windows, fan {ps.fan}): lane-window scans "
           f"{occ['lane_scans']}, warp-window scans {occ['warp_scans']}, lane utilisation "
           f"{occ['lane_scans'] / max(32 * occ['warp_scans'], 1):.4f}; block-window loads "
-          f"{occ['block_loads']}; block votes: {occ['votes_flat']} in the older K4's flat loop "
+          f"{occ['block_loads']}; block votes: {occ['votes_flat']} in PR 4's flat loop "
           f"(every window each block-bounce), {occ['votes']} group votes here; block-bounces "
           f"{occ['block_bounces']}", flush=True)
     print(f"phase 8 K4 stream vs plain, the sub3 render's main launch: max|dacc| {err6:.3e}, "
           f"counts and continuation equal, bit-equal to the older K4 {same_prev6}; kernel "
-          f"{ms6:.3f} ms ({ms6a:.3f} / {ms6b:.3f}; the older K4 {fmt_ms(ms6_prev)} in turns) "
-          f"plain {pms6:.1f} ms bound {b6:.4f} ms ({by6}; {b6_flat:.4f} with the flat loop's "
-          f"box tests); live bounces {live6}, triangle tests in entered windows {rows6}, "
-          f"windows entered {win6} of {ps.n_windows}, box tests {occ['box_tests']} "
-          f"({live6 * ps.n_windows} in the flat loop)", flush=True)
+          f"{ms6:.3f} ms ({ms6a:.3f} / {ms6b:.3f}; the older K4 {fmt_ms(ms6_prev)} in turns; "
+          f"the resident mode {ms6_res:.3f}) plain {pms6:.1f} ms bound {b6:.4f} ms ({by6}; "
+          f"{b6_flat:.4f} with PR 4's box tests); live bounces {live6}, triangle tests in "
+          f"entered windows {rows6}, windows entered {win6} of {ps.n_windows}, box tests "
+          f"{occ['box_tests']} ({live6 * ps.n_windows} in the flat loop)", flush=True)
     del o_k, o_p
 
     # the window/fan sweep on the same launch (each bit-equal to the default)
@@ -1567,13 +1987,13 @@ def main(argv=None) -> int:
             aw = (pw,) + tuple(main6[1:])
             ow = mk._regen_krng_cuda(*aw)
             torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(ref, ow) if x is not None):
+            if not same_out(ref, ow):
                 fail(f"K6 at window {window}, fan {fan} differs from the default")
             sweep6[f"{window}x{fan}"] = round(events_ms(lambda: mk._regen_krng_cuda(*aw), 3), 3)
             del pw, aw, ow
     print(f"phase 8 K6 window x fan sweep on that launch (ms, each bit-equal): {sweep6}; "
           f"default {mk.STREAM_WINDOW}x{mk.STREAM_FAN}", flush=True)
-    del k6_calls, main6, ps, ref, sscene
+    del k4_calls, main6, ps, ref, sscene
     torch.cuda.empty_cache()
 
     # (5) compaction (S=4) on suzanne 512^2, the launch counters set to 0

@@ -9,14 +9,31 @@
 // until its samples are exhausted. The winner search and shading are
 // pt3_device.cuh's.
 //
-// Bound: FP32 operations of the per-bounce winner search (the render's
-// resident K4 and K5: every live lane tests every primitive, no culling,
-// as in the TPU kernels; REPLAY and STREAM cull, below). The bytes (state
-// tables in, radiance and counts out) are small next to it. Without tail compaction each thread loops on
-// its own lane; a warp costs its longest lane. With it (THRESH), the loop is
-// block-synchronous: it stops once fewer than `thresh` lanes of the block
-// are alive and writes the in-flight state [12, N] (state rows 0..9,
-// sample, depth) for a compacted continuation launch (RESUME).
+// K4's resident mode has one design per kind of scene, chosen by the
+// launch from the scene (flat_fits): FLAT, for a scene of at most one 64-row
+// chunk (cornell: 38 triangles and a sphere), stages the Woop, sphere and
+// attribute rows in shared memory once per block and scans them per thread
+// as warp-uniform broadcasts (three float4 a Woop row): every ray tests every
+// primitive and nothing is culled. CULLED, for every other scene, is
+// REPLAY's search without the slots (below): the window boxes of a
+// PackedSceneStream cull it and the warp spreads each entered (ray, window)
+// pair's tests over its lanes. Both find the unculled
+// scan's packed winners bit for bit, so acc and cnt equal it. Without tail
+// compaction FLAT, CULLED and REPLAY take their lanes from a queue
+// (krng_lane_queue): persistent blocks, and a thread whose lane is exhausted
+// takes the next one, so a warp does not wait for its longest lane with its
+// other threads idle.
+//
+// Bound: FP32 operations of the per-bounce winner search (FLAT: every
+// primitive for every live lane; CULLED: the triangles of the windows each
+// ray enters before its winner). The bytes (state tables in, radiance and
+// counts out) are small next to it. With -fmad=false every product and sum
+// is its own instruction and the reciprocal is the IEEE sequence, so the
+// card's FP32 issue rate, not its 67 TFLOP/s of fused multiply-adds, bounds
+// FLAT. With tail compaction (THRESH) the loop is block-synchronous: it
+// stops once fewer than `thresh` lanes of the block are alive and writes
+// the in-flight state [12, N] (state rows 0..9, sample, depth) for a
+// compacted continuation launch (RESUME).
 //
 // REPLAY (the regenerating training path's forward) also writes one
 // residual slot per live iteration of a lane, [S*nb, 13, rres_n]: slot j of
@@ -28,11 +45,12 @@
 // index; a sample takes at most nb iterations, so S*nb slots suffice. The
 // TPU kernel's 16-row padding and per-tile iteration count are not needed:
 // cnt says which slots are real. Residual bytes: 52 per live bounce.
-// REPLAY's search is culled by the launch's window boxes
+// REPLAY's search (CULLED's, one bounce function with a SLOTS flag) is
+// culled by the launch's window boxes
 // (stream_tri.cuh culled_search_warp: level-1 boxes then 64-row window
 // boxes with K6's exact test, per lane, no block barrier), and each entered
-// (ray, window) pair is tested by the whole warp; the warp loops while any
-// of its lanes is alive. The winners are the resident scan's bit for bit.
+// (ray, window) pair is tested by the whole warp. The winners are the
+// resident scan's bit for bit.
 // Bound: the triangle tests of the windows each ray enters, charged per
 // lane; the residual writes are small next to them. It composes with tail
 // compaction: slots are per lane, so a continuation launch resumes a
@@ -41,9 +59,10 @@
 // the residuals, and acc, cnt and every slot equal the uncompacted launch
 // bit for bit (the lane's sum continues in the same order).
 //
-// STREAM (scenes whose Woop table is larger than one SM's shared memory):
-// the triangle search is K6 (stream_tri.cuh), which stages windows of the
-// table in shared memory block by block. Its votes and loads need every
+// STREAM (scenes above the resident mode's measured range,
+// ops/megakernel.RESIDENT_MAX_TRIANGLES): the triangle search is K6
+// (stream_tri.cuh), which stages windows of the table in shared memory
+// block by block. Its votes and loads need every
 // thread of the block, so the loop is block-synchronous
 // (__syncthreads_or / __syncthreads_count over the live lanes): a dead,
 // exhausted or out-of-range thread stays in the loop, takes part in the
@@ -51,9 +70,9 @@
 // acc and cnt equal the resident launch bit for bit. STREAM composes with
 // THRESH and RESUME (tail compaction), not with REPLAY. Its dynamic shared
 // memory (stream_layout: two windows, the rays, slots and lists; 120 KB at
-// 1024-row windows, fan 16) is opted into above 48 KB, and its registers
-// are capped so that 8 blocks of 128 fit an SM (64 registers: occupancy,
-// not arithmetic, set its time on the H100).
+// 1024-row windows, fan 16) is opted into above 48 KB. Its registers, and
+// CULLED's and REPLAY's, are capped so that 8 blocks of 128 fit an SM (64
+// registers: occupancy, not arithmetic, set K6's time on the H100).
 #include "kernel_rng.cuh"
 #include "pt3_device.cuh"
 #include "stream_tri.cuh"
@@ -167,6 +186,7 @@ struct KrngArgs {
   const int* __restrict__ rcol;      // [N] a lane's column of rresid (REPLAY; null: lane)
   const float* __restrict__ acc_in;  // [3, N] resumed radiance (REPLAY + RESUME)
   const int* __restrict__ cnt_in;    // [N] resumed count, the next slot (REPLAY + RESUME)
+  int* next_lane;                    // [1] the lane queue's head, 0 at launch (LANE_QUEUE)
   int rres_n;
   int n, S, nb, thresh;
   float eps;
@@ -217,7 +237,7 @@ __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
 
 // Shading with the lane's K1 draws on a hit, then the refill of a lane
 // whose path ended.
-template <bool NO_GLOSSY>
+template <bool NO_GLOSSY, bool SMEM = false>
 __device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngLane& K,
                                                   const KrngArgs& a, int lane, bool hit,
                                                   float t, int idx) {
@@ -227,7 +247,7 @@ __device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngL
     const float v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
     const float p = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[2]));
     const float au = NO_GLOSSY ? u : pt3::acos01(u);
-    pt3::shade<NO_GLOSSY>(s, K.L.st, K.L.acc, t, idx, u, au, v, p);
+    pt3::shade<NO_GLOSSY, SMEM>(s, K.L.st, K.L.acc, t, idx, u, au, v, p);
     K.L.d_cur += 1;
     K.sdt += pt3::kInP2;
     if (K.L.d_cur > a.nb) K.L.st[9] = 0.0f;
@@ -235,15 +255,59 @@ __device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngL
   if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
 }
 
-// K4's search modes (template MODE): the resident scan; REPLAY, culled and
-// warp-compacted; STREAM, K6.
-constexpr int kResident = 0;
+// K4's search modes (template MODE): CULLED, the culled warp search;
+// REPLAY, the same with a residual slot per bounce; STREAM, K6; FLAT, a
+// scene of at most one 64-row chunk staged in shared memory and scanned per
+// thread (every ray tests every primitive: nothing to cull).
+constexpr int kCulled = 0;
 constexpr int kReplay = 1;
 constexpr int kStream = 2;
+constexpr int kFlat = 3;
 
-// K6's blocks per SM that the stream kernel's registers must allow
-// (__launch_bounds__; the stream mode launches blocks of at most 128)
-constexpr int kStreamMinBlocks = 8;
+// K4 launches blocks of at most kMaxBlock lanes. The culled and stream
+// instances' registers are capped so that 8 blocks fit an SM (64
+// registers; __launch_bounds__): measured on the H100, 2-7 % faster than
+// uncapped for the culled search, and what set K6's time. The one-chunk scan
+// holds 62 registers uncapped, and caps of 2 to 8 blocks moved it < 1 %.
+constexpr int kMaxBlock = 128;
+constexpr int kCappedMinBlocks = 8;
+
+// FLAT's shared memory: Woop rows, sphere rows, sphere attributes, then
+// triangle attributes (each table's offset 16-byte aligned but the last).
+struct FlatLayout {
+  int tri, sph, sph_attr, tri_attr, total;  // floats
+};
+
+__host__ __device__ inline FlatLayout flat_layout(int n_tri, int n_sph) {
+  FlatLayout L;
+  L.tri = 0;
+  L.sph = 12 * n_tri;
+  L.sph_attr = L.sph + 8 * n_sph;
+  L.tri_attr = L.sph_attr + pt3::kSphAttr * n_sph;
+  L.total = L.tri_attr + pt3::kTriAttr * n_tri;
+  return L;
+}
+
+// The block copies the scene tables into shared memory (FLAT) and returns
+// the view that reads them there.
+__device__ __forceinline__ pt3::SceneView flat_stage(const pt3::SceneView& s, float* sm) {
+  const FlatLayout L = flat_layout(s.n_tri, s.n_sph);
+  for (int i = threadIdx.x; i < L.total; i += blockDim.x) {
+    float v;
+    if (i < L.sph) v = __ldg(s.tri + i);
+    else if (i < L.sph_attr) v = __ldg(s.sph + (i - L.sph));
+    else if (i < L.tri_attr) v = __ldg(s.sph_attr + (i - L.sph_attr));
+    else v = __ldg(s.tri_attr + (i - L.tri_attr));
+    sm[i] = v;
+  }
+  __syncthreads();
+  pt3::SceneView v = s;
+  v.tri = sm + L.tri;
+  v.sph = sm + L.sph;
+  v.sph_attr = sm + L.sph_attr;
+  v.tri_attr = sm + L.tri_attr;
+  return v;
+}
 
 // REPLAY: the lane's slot for this iteration (slot cnt), rows (j * 13 + r)
 // * rres_n + col; writes the input state rows.
@@ -263,34 +327,35 @@ __device__ __forceinline__ void replay_slot_close(float* slot, const KrngLane& K
   slot[(size_t)12 * a.rres_n] = (float)K.L.d_cur;
 }
 
-// One bounce of one lane (kResident).
+// One bounce of one lane with the per-thread scan of the scene in shared
+// memory (FLAT: s reads the staged tables).
 template <bool NO_GLOSSY>
-__device__ __forceinline__ void krng_bounce(const pt3::SceneView& s, KrngLane& K,
-                                            const KrngArgs& a, int lane) {
+__device__ __forceinline__ void krng_bounce_flat(const pt3::SceneView& s, KrngLane& K,
+                                                 const KrngArgs& a, int lane) {
   float t;
   int idx;
   K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
-  pt3::winner_search<true, false>(s, r, a.eps, nullptr, nullptr, t, idx);
+  pt3::winner_search<true, false, true>(s, r, a.eps, nullptr, nullptr, t, idx);
   const bool hit = finish_search(s, K.L, t);
-  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
+  krng_shade_refill<NO_GLOSSY, true>(s, K, a, lane, hit, t, idx);
 }
 
-// One bounce with the culled warp search and a residual slot (kReplay).
-// Every lane of the warp calls it; only `active` ones write slots, shade
-// and refill.
-template <bool NO_GLOSSY>
-__device__ __forceinline__ void krng_bounce_replay(const pt3::SceneView& s, KrngLane& K,
+// One bounce with the culled warp search (CULLED; SLOTS: REPLAY's residual
+// slot). Every lane of the warp calls it; only `active` ones write slots,
+// shade and refill.
+template <bool NO_GLOSSY, bool SLOTS>
+__device__ __forceinline__ void krng_bounce_culled(const pt3::SceneView& s, KrngLane& K,
                                                    const KrngArgs& a, int lane, bool active) {
-  float* slot = active ? replay_slot_open(K, a) : nullptr;
+  float* slot = (SLOTS && active) ? replay_slot_open(K, a) : nullptr;
   if (active) K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
   float t;
   int idx;
-  pt3::culled_search_warp(s, a.w, r, active, a.eps, t, idx);
+  pt3::culled_search_warp<true>(s, a.w, r, active, a.eps, t, idx);
   if (!active) return;
   const bool hit = finish_search(s, K.L, t);
-  replay_slot_close(slot, K, a, hit, t, idx);
+  if (SLOTS) replay_slot_close(slot, K, a, hit, t, idx);
   krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
 }
 
@@ -314,22 +379,114 @@ __device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, Krng
 }
 
 // One bounce of every thread's lane in a loop that every thread of the
-// block (STREAM, THRESH) or warp (REPLAY) runs; `active` lanes trace.
+// block (STREAM, THRESH) or warp (CULLED, REPLAY) runs; `active` lanes
+// trace.
 template <bool NO_GLOSSY, int MODE>
 __device__ __forceinline__ void krng_bounce_all(const pt3::SceneView& s, KrngLane& K,
                                                 const KrngArgs& a, int lane, bool active,
                                                 unsigned char* smem, uint32_t& phase) {
   if constexpr (MODE == kStream)
     krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, active, smem, phase);
-  else if constexpr (MODE == kReplay)
-    krng_bounce_replay<NO_GLOSSY>(s, K, a, lane, active);
-  else if (active)
-    krng_bounce<NO_GLOSSY>(s, K, a, lane);
+  else if constexpr (MODE == kFlat) {
+    if (active) krng_bounce_flat<NO_GLOSSY>(s, K, a, lane);
+  } else
+    krng_bounce_culled<NO_GLOSSY, MODE == kReplay>(s, K, a, lane, active);
 }
 
+// A lane's state at the start of the launch: its first alive sample, or
+// (RESUME) the in-flight state of a compacted continuation, with (REPLAY)
+// its running sum and next slot.
+template <bool RESUME, int MODE>
+__device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, int lane) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) K.L.st[r] = 0.0f;
+  K.L.acc[0] = K.L.acc[1] = K.L.acc[2] = 0.0f;
+  K.L.cnt = 0;
+  K.L.s_cur = 0;
+  K.L.d_cur = 0;
+  K.sdt = 0u;
+  K.hlane = (uint32_t)a.lane_ids[lane] * pt3::kInP1;
+  K.am_lo = (uint32_t)a.amask[lane];
+  K.am_hi = (uint32_t)a.amask[a.n + lane];
+  K.col = (MODE == kReplay && a.rcol != nullptr) ? a.rcol[lane] : lane;
+  if (RESUME) {
+#pragma unroll
+    for (int r = 0; r < 10; ++r) K.L.st[r] = a.resid_in[(size_t)r * a.n + lane];
+    K.L.s_cur = (int)a.resid_in[(size_t)10 * a.n + lane];
+    K.L.d_cur = (int)a.resid_in[(size_t)11 * a.n + lane];
+    K.sdt = pt3::sd_term(a.sample0, K.L.s_cur, K.L.d_cur);
+    if (MODE == kReplay && a.acc_in != nullptr) {  // continue the lane's sum and slots
+      K.L.acc[0] = a.acc_in[lane];
+      K.L.acc[1] = a.acc_in[a.n + lane];
+      K.L.acc[2] = a.acc_in[2 * a.n + lane];
+      K.L.cnt = a.cnt_in[lane];
+    }
+  } else {
+    krng_refill(K, a, lane, true);
+  }
+}
+
+__device__ __forceinline__ void krng_lane_store(const KrngLane& K, const KrngArgs& a, int lane) {
+  a.acc_out[lane] = K.L.acc[0];
+  a.acc_out[a.n + lane] = K.L.acc[1];
+  a.acc_out[2 * a.n + lane] = K.L.acc[2];
+  a.cnt_out[lane] = K.L.cnt;
+}
+
+// FLAT, CULLED and REPLAY without tail compaction: the lane queue. The
+// blocks are persistent, and a thread whose lane is exhausted writes it out
+// and takes the next lane of the launch from a queue (a.next_lane; one
+// atomicAdd for the threads of a warp that need one), so a warp no longer
+// idles its finished threads until its longest lane ends. A lane's
+// sequence of bounces and its arithmetic are unchanged (its iteration count
+// is its own), so acc, cnt and the slots equal the one-lane-a-thread launch
+// bit for bit. Every thread of the warp runs the loop (CULLED's search and
+// the ballots take the full warp).
+template <bool NO_GLOSSY, bool RESUME, int MODE>
+__device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const KrngArgs& a) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int wl = threadIdx.x & 31;
+  const int max_iter = MODE == kReplay ? a.S * a.nb : a.S * (a.nb + 1);
+  KrngLane K;
+  int lane = -1;  // the thread's lane (-1: none)
+  int it = 0;     // the lane's iterations
+  bool more = true;  // the queue may hold lanes (the same in every thread of the warp)
+  while (true) {
+    if (lane >= 0 && !(K.L.st[9] != 0.0f && it < max_iter)) {
+      krng_lane_store(K, a, lane);
+      lane = -1;
+    }
+    const unsigned need = __ballot_sync(kFull, lane < 0 && more);
+    if (need) {
+      const int leader = __ffs(need) - 1;
+      int base = 0;
+      if (wl == leader) base = atomicAdd(a.next_lane, __popc(need));
+      base = __shfl_sync(kFull, base, leader);
+      const int got = base + __popc(need & ((1u << wl) - 1u));
+      if (((need >> wl) & 1u) && got < a.n) {
+        lane = got;
+        it = 0;
+        krng_lane_init<RESUME, MODE>(K, a, lane);
+      }
+      more = base + __popc(need) < a.n;
+    }
+    if (!__any_sync(kFull, lane >= 0)) break;
+    const bool active = lane >= 0 && K.L.st[9] != 0.0f && it < max_iter;
+    if constexpr (MODE == kFlat) {
+      if (active) krng_bounce_flat<NO_GLOSSY>(s, K, a, lane);
+    } else {
+      krng_bounce_culled<NO_GLOSSY, MODE == kReplay>(s, K, a, lane, active);
+    }
+    if (active) ++it;
+  }
+}
+
+// STREAM, and every mode with tail compaction (THRESH): one lane a thread,
+// in a loop that every thread of the block runs (K6's votes and loads, and
+// THRESH's live count, take the whole block).
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
-__device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s, const KrngArgs& a) {
-  extern __shared__ __align__(16) unsigned char smem[];  // STREAM: stream_layout
+__device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const KrngArgs& a,
+                                                unsigned char* smem) {
   constexpr bool REPLAY = MODE == kReplay;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < a.n;
@@ -345,44 +502,10 @@ __device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s, const K
     __syncthreads();
   }
   KrngLane K;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) K.L.st[r] = 0.0f;
-  K.L.acc[0] = K.L.acc[1] = K.L.acc[2] = 0.0f;
-  K.L.cnt = 0;
-  K.L.s_cur = 0;
-  K.L.d_cur = 0;
-  K.sdt = 0u;
-  K.hlane = (uint32_t)a.lane_ids[li] * pt3::kInP1;
-  K.am_lo = (uint32_t)a.amask[li];
-  K.am_hi = (uint32_t)a.amask[a.n + li];
-  K.col = (REPLAY && a.rcol != nullptr) ? a.rcol[li] : lane;
-  if (valid) {
-    if (RESUME) {
-#pragma unroll
-      for (int r = 0; r < 10; ++r) K.L.st[r] = a.resid_in[(size_t)r * a.n + lane];
-      K.L.s_cur = (int)a.resid_in[(size_t)10 * a.n + lane];
-      K.L.d_cur = (int)a.resid_in[(size_t)11 * a.n + lane];
-      K.sdt = pt3::sd_term(a.sample0, K.L.s_cur, K.L.d_cur);
-      if (REPLAY && a.acc_in != nullptr) {  // continue the lane's sum and slots
-        K.L.acc[0] = a.acc_in[lane];
-        K.L.acc[1] = a.acc_in[a.n + lane];
-        K.L.acc[2] = a.acc_in[2 * a.n + lane];
-        K.L.cnt = a.cnt_in[lane];
-      }
-    } else {
-      krng_refill(K, a, lane, true);
-    }
-  }
+  krng_lane_init<RESUME, MODE>(K, a, li);
+  if (!valid) K.L.st[9] = 0.0f;  // a thread past n stays in the loop, never live
   const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
-  if constexpr (!THRESH && MODE == kResident) {
-    for (int it = 0; valid && K.L.st[9] != 0.0f && it < max_iter; ++it)
-      krng_bounce<NO_GLOSSY>(s, K, a, lane);
-  } else if constexpr (!THRESH && MODE == kReplay) {
-    // the warp runs while any of its lanes is alive
-    for (int it = 0; it < max_iter && __any_sync(0xFFFFFFFFu, valid && K.L.st[9] != 0.0f);
-         ++it)
-      krng_bounce_replay<NO_GLOSSY>(s, K, a, lane, valid && K.L.st[9] != 0.0f);
-  } else if constexpr (!THRESH) {
+  if constexpr (!THRESH) {
     // a dead lane stays dead (the refill runs in the bounce that ends a
     // path), so the block runs while any of its lanes is alive
     for (int it = 0; it < max_iter && __syncthreads_or(valid && K.L.st[9] != 0.0f); ++it)
@@ -403,22 +526,24 @@ __device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s, const K
       a.resid_out[(size_t)11 * a.n + lane] = (float)K.L.d_cur;
     }
   }
-  if (!valid) return;
-  a.acc_out[lane] = K.L.acc[0];
-  a.acc_out[a.n + lane] = K.L.acc[1];
-  a.acc_out[2 * a.n + lane] = K.L.acc[2];
-  a.cnt_out[lane] = K.L.cnt;
+  if (valid) krng_lane_store(K, a, lane);
 }
 
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
-__global__ void regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
-  regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE>(s, a);
+__device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s_in, const KrngArgs& a) {
+  // STREAM: stream_layout; FLAT: flat_layout
+  extern __shared__ __align__(16) unsigned char smem[];
+  const pt3::SceneView s =
+      MODE == kFlat ? flat_stage(s_in, reinterpret_cast<float*>(smem)) : s_in;
+  if constexpr (!THRESH && MODE != kStream)
+    krng_lane_queue<NO_GLOSSY, RESUME, MODE>(s, a);
+  else
+    krng_lane_block<NO_GLOSSY, THRESH, RESUME, MODE>(s, a, smem);
 }
 
-// K6's registers are capped so that kStreamMinBlocks blocks fit an SM
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
-__global__ void __launch_bounds__(128, kStreamMinBlocks)
-    regen_krng_stream_kernel(pt3::SceneView s, KrngArgs a) {
+__global__ void __launch_bounds__(kMaxBlock, MODE == kFlat ? 1 : kCappedMinBlocks)
+    regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
   regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE>(s, a);
 }
 
@@ -427,15 +552,21 @@ __global__ void __launch_bounds__(128, kStreamMinBlocks)
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
 cudaError_t launch_one(pt3::SceneView s, const KrngArgs& a, int grid, int block,
                        size_t smem, cudaStream_t st) {
-  void (*kern)(pt3::SceneView, KrngArgs);
-  if constexpr (MODE == kStream)
-    kern = regen_krng_stream_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
-  else
-    kern = regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
+  void (*kern)(pt3::SceneView, KrngArgs) = regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+  }
+  if (!THRESH && MODE != kStream) {
+    // the lane queue's persistent blocks: as many as fit the card at once
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, smem);
+    if (e != cudaSuccess) return e;
+    grid = min(grid, max(sms * per_sm, 1));
   }
   kern<<<grid, block, smem, st>>>(s, a);
   return cudaSuccess;
@@ -454,15 +585,36 @@ cudaError_t launch_krng_mode(pt3::SceneView s, const KrngArgs& a, bool thresh, b
 }
 
 template <bool NO_GLOSSY>
-cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, bool thresh, bool resume,
-                        bool replay, bool stream, int grid, int block, cudaStream_t st) {
-  if (replay)
-    return launch_krng_mode<NO_GLOSSY, kReplay>(s, a, thresh, resume, grid, block, 0, st);
-  if (stream)
-    return launch_krng_mode<NO_GLOSSY, kStream>(
-        s, a, thresh, resume, grid, block, pt3::stream_layout(a.w.window, a.w.fan, block).total,
-        st);
-  return launch_krng_mode<NO_GLOSSY, kResident>(s, a, thresh, resume, grid, block, 0, st);
+cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, int mode, bool thresh,
+                        bool resume, int grid, int block, cudaStream_t st) {
+  switch (mode) {
+    case kReplay:
+      return launch_krng_mode<NO_GLOSSY, kReplay>(s, a, thresh, resume, grid, block, 0, st);
+    case kStream:
+      return launch_krng_mode<NO_GLOSSY, kStream>(
+          s, a, thresh, resume, grid, block,
+          pt3::stream_layout(a.w.window, a.w.fan, block).total, st);
+    case kFlat:
+      return launch_krng_mode<NO_GLOSSY, kFlat>(
+          s, a, thresh, resume, grid, block,
+          flat_layout(s.n_tri, s.n_sph).total * sizeof(float), st);
+    default:
+      return launch_krng_mode<NO_GLOSSY, kCulled>(s, a, thresh, resume, grid, block, 0, st);
+  }
+}
+
+// FLAT takes a scene of at most one chunk whose tables fit the default 48 KB
+// of shared memory. Built with -DPT3_K4_ONE_CHUNK_CULLED (chip_smoke.py's
+// second build of this file), such a scene takes the culled warp search
+// instead, so that the two designs are timed on the same launches.
+bool flat_fits(int n_tri, int n_sph) {
+#ifdef PT3_K4_ONE_CHUNK_CULLED
+  (void)n_tri;
+  (void)n_sph;
+  return false;
+#else
+  return n_tri <= pt3::kTc && flat_layout(n_tri, n_sph).total * sizeof(float) <= 48 * 1024;
+#endif
 }
 
 }  // namespace
@@ -497,7 +649,8 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const float* state0, const float* resid_in,
                               float* acc, int* cnt, float* resid_out,
                               float* rresid, const int* rcol, const float* acc_in,
-                              const int* cnt_in, int rres_n, const float* tri_win,
+                              const int* cnt_in, int* next_lane, int rres_n,
+                              const float* tri_win,
                               const float* wbox, const float* wbox1, int n_windows,
                               int n_groups, int window, int fan, int n,
                               int S, int nb, float eps, int thresh, int no_glossy, int block,
@@ -509,27 +662,32 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
   const bool resume = resid_in != nullptr;
   const bool replay = rresid != nullptr;
   const bool stream_mode = tri_win != nullptr;
-  const bool boxed = wbox != nullptr;  // STREAM, or REPLAY's culled search
+  const bool boxed = wbox != nullptr;  // STREAM, or the culled search's boxes
+  const int mode = replay ? kReplay
+                   : stream_mode ? kStream
+                   : flat_fits(n_tri, n_sph) ? kFlat
+                   : kCulled;
   // a window and its second buffer live in dynamic shared memory (opted in
   // above 48 KB; 1024 rows double-buffered take 96 KB)
-  if (block <= 0 || block > 1024 || block % 32 != 0 || (th && resid_out == nullptr) ||
-      (stream_mode && block > 128) ||
-      (replay && (stream_mode || !boxed || rres_n <= 0 || (acc_in != nullptr && !resume))) ||
+  if (block <= 0 || block > kMaxBlock || block % 32 != 0 || (th && resid_out == nullptr) ||
+      next_lane == nullptr ||
+      (mode != kFlat && !boxed) ||
+      (replay && (stream_mode || rres_n <= 0 || (acc_in != nullptr && !resume))) ||
       (boxed && (wbox1 == nullptr || n_windows <= 0 || window <= 0 ||
                  window % pt3::kTc != 0 || window > 1024 || fan < 1 || fan > 32 ||
                  n_groups != (n_windows + fan - 1) / fan ||
-                 (size_t)n_windows * window < (size_t)n_tri)) ||
-      (stream_mode && !boxed))
+                 (size_t)n_windows * window < (size_t)n_tri)))
     return (int)cudaErrorInvalidValue;
   KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
-             acc, cnt, resid_out, rresid, rcol, acc_in, cnt_in, rres_n, n, S, nb, thresh, eps,
+             acc, cnt, resid_out, rresid, rcol, acc_in, cnt_in, next_lane, rres_n, n, S, nb,
+             thresh, eps,
              {reinterpret_cast<const float4*>(tri_win), wbox, wbox1, n_windows, n_groups,
               window, fan}};
   const int grid = (n + block - 1) / block;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e =
-      no_glossy ? launch_krng<true>(s, a, th, resume, replay, stream_mode, grid, block, st)
-                : launch_krng<false>(s, a, th, resume, replay, stream_mode, grid, block, st);
+      no_glossy ? launch_krng<true>(s, a, mode, th, resume, grid, block, st)
+                : launch_krng<false>(s, a, mode, th, resume, grid, block, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,10 @@
 // megakernels (K4, K5): the nearest-hit winner search and one shading event.
 //
 // One thread owns one ray / path lane. Scene tables stay in global memory
-// and are read with __ldg (read-only cache); at catalog scene sizes they sit
-// in L1/L2. Arithmetic mirrors the plain PyTorch versions operation for
+// and are read with __ldg (read-only cache; a Woop row as three float4); at
+// catalog scene sizes they sit in L1/L2. With SMEM the same functions read a
+// copy of the tables that the kernel staged in shared memory (K4's one-chunk
+// mode). Arithmetic mirrors the plain PyTorch versions operation for
 // operation (ops/intersect_kernel.py: winner_search_plain,
 // ops/megakernel.py: _shade_plain); with -fmad=false every product and sum is
 // rounded on its own, division and sqrtf are IEEE, so kernel and plain
@@ -44,8 +46,22 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// A scene table read: through the read-only cache, or from shared memory.
+template <bool SMEM>
+__device__ __forceinline__ float ldf(const float* p) {
+  if constexpr (SMEM) return *p;
+  else return __ldg(p);
+}
+
+template <bool SMEM>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (SMEM) return *p;
+  else return __ldg(p);
+}
+
 // Spheres: smallpt quadratic in the expanded form of the TPU kernel; the
 // lowest sphere index wins a tie. Seeds (best_t, best_i).
+template <bool SMEM = false>
 __device__ __forceinline__ void sphere_search(const SceneView& s, const Ray& r,
                                               float eps, float& best_t,
                                               int& best_i) {
@@ -56,11 +72,11 @@ __device__ __forceinline__ void sphere_search(const SceneView& s, const Ray& r,
   int ci = 0;
   for (int i = 0; i < s.n_sph; ++i) {
     const float* sp = s.sph + 8 * i;
-    const float cx = __ldg(sp), cy = __ldg(sp + 1), cz = __ldg(sp + 2);
+    const float4 c = ld4<SMEM>(reinterpret_cast<const float4*>(sp));
+    const float cx = c.x, cy = c.y, cz = c.z;
     const float b = cx * r.dx + cy * r.dy + cz * r.dz - od;
-    const float det = b * b - __ldg(sp + 4) +
-                      2.0f * (cx * r.ox + cy * r.oy + cz * r.oz) - oo +
-                      __ldg(sp + 3);
+    const float det = b * b - ldf<SMEM>(sp + 4) +
+                      2.0f * (cx * r.ox + cy * r.oy + cz * r.oz) - oo + c.w;
     const bool ok = det >= 0.0f;
     const float sq = sqrtf(ok ? det : 0.0f);
     const float minus_t = b - sq;
@@ -106,8 +122,9 @@ __device__ __forceinline__ float woop_hit_t(float w0, float w1, float w2, float 
 // One chunk of triangles [c0, c0 + tc) (clipped to n_tri). Within the chunk
 // the lowest row wins a tie; the chunk must be strictly nearer than best_t.
 // PACKED folds the row into the low 6 bits of t's bit pattern (one minimum;
-// t rounds down by up to 63 ulp), as the TPU krng kernel does.
-template <bool PACKED>
+// t rounds down by up to 63 ulp), as the TPU krng kernel does. A row is
+// three float4 loads (the table is 16-byte aligned: 48 B a row).
+template <bool PACKED, bool SMEM = false>
 __device__ __forceinline__ void triangle_chunk(const SceneView& s, const Ray& r,
                                                float eps, int c0, int tc,
                                                float& best_t, int& best_i) {
@@ -116,11 +133,10 @@ __device__ __forceinline__ void triangle_chunk(const SceneView& s, const Ray& r,
   int ci = 0;
   int cp = 0x7FFFFFFF;
   for (int j = c0; j < end; ++j) {
-    const float* w = s.tri + 12 * j;
-    const float t = woop_hit_t(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3),
-                               __ldg(w + 4), __ldg(w + 5), __ldg(w + 6), __ldg(w + 7),
-                               __ldg(w + 8), __ldg(w + 9), __ldg(w + 10), __ldg(w + 11),
-                               r, eps);
+    const float4* w = reinterpret_cast<const float4*>(s.tri) + 3 * j;
+    const float4 a = ld4<SMEM>(w), b = ld4<SMEM>(w + 1), c = ld4<SMEM>(w + 2);
+    const float t =
+        woop_hit_t(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, r, eps);
     if (PACKED) {
       const int pk = (__float_as_int(t) & ~63) | (j - c0);
       cp = min(cp, pk);
@@ -169,19 +185,19 @@ __device__ __forceinline__ float safe_dir(float d) {
 // Nearest hit of one live ray. Returns best_t (+inf: miss) and the packed
 // index (triangles [0, T), spheres [T, T+S)). CULL walks the two-level box
 // hierarchy (box: [C, 8] leaves, box1: [ceil(C/8), 8] nodes).
-template <bool PACKED, bool CULL>
+template <bool PACKED, bool CULL, bool SMEM = false>
 __device__ __forceinline__ void winner_search(const SceneView& s, const Ray& r,
                                               float eps, const float* box,
                                               const float* box1, float& best_t,
                                               int& best_i) {
   best_t = kInf;
   best_i = 0;
-  sphere_search(s, r, eps, best_t, best_i);
+  sphere_search<SMEM>(s, r, eps, best_t, best_i);
   if (s.n_tri <= 0) return;
   const int tc = min(s.t_pad, kTc);
   if (!CULL) {
     for (int c0 = 0; c0 < s.n_tri; c0 += tc)
-      triangle_chunk<PACKED>(s, r, eps, c0, tc, best_t, best_i);
+      triangle_chunk<PACKED, SMEM>(s, r, eps, c0, tc, best_t, best_i);
     return;
   }
   const float idx_ = 1.0f / safe_dir(r.dx);
@@ -228,7 +244,7 @@ __device__ __forceinline__ void onb_from_z(float zx, float zy, float zz,
 // st: org3 dir3 beta3 alive1 (updated in place); acc += beta * emission.
 // NO_GLOSSY: every material's cone angle is below 1e-9, so the cone sample
 // is the mirror direction (exactly what the glossy branch would select).
-template <bool NO_GLOSSY>
+template <bool NO_GLOSSY, bool SMEM = false>
 __device__ __forceinline__ void shade(const SceneView& s, float* st, float* acc,
                                       float t, int idx, float u, float acos_u,
                                       float v, float p) {
@@ -244,7 +260,7 @@ __device__ __forceinline__ void shade(const SceneView& s, float* st, float* acc,
     const float* a = s.tri_attr + (size_t)kTriAttr * idx;
     float av[kTriAttr];
 #pragma unroll
-    for (int k = 0; k < kTriAttr; ++k) av[k] = __ldg(a + k);
+    for (int k = 0; k < kTriAttr; ++k) av[k] = ldf<SMEM>(a + k);
     const float o_u = av[0] * ox + av[1] * oy + av[2] * oz + av[3];
     const float o_v = av[4] * ox + av[5] * oy + av[6] * oz + av[7];
     const float d_u = av[0] * dx + av[1] * dy + av[2] * dz;
@@ -266,16 +282,16 @@ __device__ __forceinline__ void shade(const SceneView& s, float* st, float* acc,
     ior = av[27]; refl0 = av[28]; cone = av[29];
   } else {
     const float* a = s.sph_attr + (size_t)kSphAttr * (idx - s.n_tri);
-    float snx = px_ - __ldg(a), sny = py_ - __ldg(a + 1), snz = pz_ - __ldg(a + 2);
+    float snx = px_ - ldf<SMEM>(a), sny = py_ - ldf<SMEM>(a + 1), snz = pz_ - ldf<SMEM>(a + 2);
     normalise3(snx, sny, snz);
     inside = snx * dx + sny * dy + snz * dz > 0.0f;
     const float flip = inside ? -1.0f : 1.0f;
     nx = snx * flip;
     ny = sny * flip;
     nz = snz * flip;
-    emr = __ldg(a + 3); emg = __ldg(a + 4); emb = __ldg(a + 5);
-    dir_ = __ldg(a + 6); dig = __ldg(a + 7); dib = __ldg(a + 8);
-    ior = __ldg(a + 9); refl0 = __ldg(a + 10); cone = __ldg(a + 11);
+    emr = ldf<SMEM>(a + 3); emg = ldf<SMEM>(a + 4); emb = ldf<SMEM>(a + 5);
+    dir_ = ldf<SMEM>(a + 6); dig = ldf<SMEM>(a + 7); dib = ldf<SMEM>(a + 8);
+    ior = ldf<SMEM>(a + 9); refl0 = ldf<SMEM>(a + 10); cone = ldf<SMEM>(a + 11);
   }
 
   // emission per shading event (Material.cpp:18-21)
@@ -300,8 +316,10 @@ __device__ __forceinline__ void shade(const SceneView& s, float* st, float* acc,
   // mirror direction and cone sample around it (Samples.cpp:6-20)
   const float rdot = 2.0f * (dx * nx + dy * ny + dz * nz);
   const float rx = dx - nx * rdot, ry = dy - ny * rdot, rz = dz - nz * rdot;
+  // the cone sample only where it is taken: a specular event on a glossy
+  // material (the other lanes of the warp skip it)
   float conex = rx, coney = ry, conez = rz;
-  if (!NO_GLOSSY) {
+  if (!NO_GLOSSY && spec && !(cone < kMirrorEps)) {
     const float theta = cone * (1.0f - 2.0f * acos_u / kPi);
     const float cradius = sinf(theta);
     const float cz_scale = cosf(theta);
@@ -314,11 +332,9 @@ __device__ __forceinline__ void shade(const SceneView& s, float* st, float* acc,
     float sy = cxy * lx + cyy * ly + ry * cz_scale;
     float sz = cxz * lx + cyz * ly + rz * cz_scale;
     normalise3(sx, sy, sz);
-    if (!(cone < kMirrorEps)) {
-      conex = sx;
-      coney = sy;
-      conez = sz;
-    }
+    conex = sx;
+    coney = sy;
+    conez = sz;
   }
 
   // cosine hemisphere around the normal (Samples.cpp:22-31)

@@ -2,11 +2,12 @@
 //
 //   K7 fused_bounces_lane: nb bounces of one sample pass from uniform
 //      tables, optionally writing the path-replay residuals (each bounce's
-//      input state and winner record);
+//      input state and winner record), the winner from the culled warp
+//      search (stream_tri.cuh culled_search_warp<false>);
 //   K8 bounce_bwd_lane: the adjoint of one shading bounce, written by hand
 //      in reverse mode, at a saved input state and winner.
 //
-// The forward arithmetic is pt3_device.cuh's (winner_search, shade) so a
+// The forward arithmetic is pt3_device.cuh's (woop_hit_t, shade) so a
 // replayed bounce makes the same discrete choices (winner, event, liveness)
 // as the forward that saved it. The adjoint differentiates the function
 // that the JAX package's _bounce_bwd_body hands to jax.vjp
@@ -17,6 +18,7 @@
 #pragma once
 
 #include "pt3_device.cuh"
+#include "stream_tri.cuh"
 
 namespace pt3 {
 
@@ -27,27 +29,31 @@ namespace pt3 {
 // [(4 d + k) * n + lane]. EMIT writes the input state of every bounce
 // (13 rows: st then acc) and its winner (t, +inf on a miss; idx, 0 on a
 // miss), the layout of the JAX package's fused_bounces(with_residuals=True).
+// The winner is the unpacked one (the exact minimum t, the lowest row on
+// ties, spheres first), found by the culled warp search over the window
+// boxes w: every lane of the warp runs all nb bounces; a lane past n
+// (!valid) is never live and writes nothing.
 template <bool NO_GLOSSY, bool EMIT>
 __device__ __forceinline__ void fused_bounces_lane(
-    const SceneView& s, float* st, float* acc, int& cnt,
+    const SceneView& s, const StreamView& w, float* st, float* acc, int& cnt,
     const float* __restrict__ unif, float* __restrict__ states,
     float* __restrict__ ts, int* __restrict__ idxs, int lane, int n, int nb,
-    float eps) {
+    float eps, bool valid) {
   for (int d = 0; d < nb; ++d) {
-    if (EMIT) {
+    if (EMIT && valid) {
 #pragma unroll
       for (int r = 0; r < 10; ++r) states[(size_t)(13 * d + r) * n + lane] = st[r];
 #pragma unroll
       for (int c = 0; c < 3; ++c) states[(size_t)(13 * d + 10 + c) * n + lane] = acc[c];
     }
-    const bool live = st[9] != 0.0f;
-    float t = kInf;
-    int idx = 0;
+    const bool live = valid && st[9] != 0.0f;
+    const Ray r{st[0], st[1], st[2], st[3], st[4], st[5]};
+    float t;
+    int idx;
+    culled_search_warp<false>(s, w, r, live, eps, t, idx);
     bool hit = false;
     if (live) {
       cnt += 1;
-      const Ray r{st[0], st[1], st[2], st[3], st[4], st[5]};
-      winner_search<false, false>(s, r, eps, nullptr, nullptr, t, idx);
       hit = isfinite(t) && t > 0.0f;
       if (!hit) {
         acc[0] = acc[0] + st[6] * s.env[0];
@@ -55,7 +61,7 @@ __device__ __forceinline__ void fused_bounces_lane(
         acc[2] = acc[2] + st[8] * s.env[2];
       }
     }
-    if (EMIT) {
+    if (EMIT && valid) {
       ts[(size_t)d * n + lane] = hit ? t : kInf;
       idxs[(size_t)d * n + lane] = hit ? idx : 0;
     }

@@ -59,10 +59,11 @@
 // attribute row is one indexed load after the search, as in the resident
 // kernel (the TPU kernel's in-loop attribute capture is not carried over).
 //
-// culled_search_warp (K4 replay): each lane walks the same hierarchy for
-// its own ray, box by box with __ldg and no block barrier, and the warp
-// spreads each entered (ray, window) pair's tests over its 32 lanes, as
-// the stream search does over the block.
+// culled_search_warp (K4's resident and replay modes, packed; K7,
+// unpacked): each lane walks the same hierarchy for its own ray, box by box
+// with __ldg and no block barrier, and the warp spreads each entered (ray,
+// window) pair's tests over its 32 lanes, as the stream search does over
+// the block.
 #pragma once
 
 #include "pt3_device.cuh"
@@ -112,13 +113,17 @@ __device__ __forceinline__ float bucket_top(float t) {
   return (t > 0.0f && isfinite(t)) ? __int_as_float(__float_as_int(t) | 63) : t;
 }
 
-// Can this ray's winner still come from inside the box?
+// Can this ray's winner still come from inside the box? PACKED: a packed
+// chunk minimum lowers t by up to 63 ulp, so the entry is compared with the
+// top of best_t's bucket; unpacked, a triangle must be strictly nearer than
+// best_t, so an entry at or beyond it is skipped.
+template <bool PACKED>
 __device__ __forceinline__ bool window_enter(const float* box, const Ray& r, float idx_,
                                              float idy, float idz, float best_t,
                                              float eps) {
   float tmin, tmax;
   slab_range(box, r, idx_, idy, idz, tmin, tmax);
-  return tmax >= fmaxf(tmin, eps) && tmin <= bucket_top(best_t);
+  return tmax >= fmaxf(tmin, eps) && (PACKED ? tmin <= bucket_top(best_t) : tmin < best_t);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -247,9 +252,9 @@ __device__ __forceinline__ void stream_search(const SceneView& s, const StreamVi
     const int nw = min(w.fan, w.n_windows - w0);
     unsigned wm = 0;  // this ray's windows in the group
     if (active && (w.fan == 1 ||
-                   window_enter(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps))) {
+                   window_enter<true>(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps))) {
       for (int j = 0; j < nw; ++j)
-        if (window_enter(w.wbox + 8 * (w0 + j), r, idx_, idy, idz, best_t, eps))
+        if (window_enter<true>(w.wbox + 8 * (w0 + j), r, idx_, idy, idz, best_t, eps))
           wm |= 1u << j;
     }
     for (int j = 0; j < nw; ++j) {
@@ -304,18 +309,23 @@ __device__ __forceinline__ void stream_search(const SceneView& s, const StreamVi
   }
 }
 
-// K4 replay's culled search, its triangle tests compacted over the warp.
-// Every lane of the warp must call it. Each `active` lane runs the sphere
-// search, then walks the level-1 boxes and, inside each one it enters, the
-// window boxes in order (window_enter against its own best_t, boxes read
-// with __ldg); per window the warp ballots the lanes that entered it and,
-// for each of them in turn, tests the window's chunks against that lane's
-// ray (shuffled to the warp), two rows a lane read with __ldg, one warp
-// minimum of the packed winners a chunk; the lane applies its chunk minima
-// in order with the resident rule. Returns (best_t, best_i) as
-// winner_search<true, false> does, bit for bit. A warp pays for the (ray,
-// window) pairs its rays need, not 64 rows a lane for every window any of
-// its rays enters.
+// The culled search of K4's resident and replay modes (PACKED) and of K7
+// (unpacked), its triangle tests compacted over the warp. Every lane of the
+// warp must call it. Each `active` lane runs the sphere search, then walks
+// the level-1 boxes and, inside each one it enters, the window boxes in
+// order (window_enter<PACKED> against its own best_t, boxes read with
+// __ldg); per window the warp ballots the lanes that entered it and, for
+// each of them in turn, tests the window's chunks against that lane's ray
+// (shuffled to the warp), two rows a lane as three float4 __ldg each. A
+// chunk's winner is one warp minimum of the packed (t_bits & ~63) | row
+// (PACKED), or two: the minimum of t's bits (a valid t is > eps > 0 or
+// +inf, so its bits order as integers), then the lowest row among the lanes
+// that hold it (unpacked: the exact minimum, the lowest row on ties). The
+// lane applies its chunk minima in chunk order with the resident rule
+// (strict ct < best_t). Returns (best_t, best_i) as winner_search<PACKED,
+// false> does, bit for bit. A warp pays for the (ray, window) pairs its
+// rays need, not 64 rows a lane for every window any of its rays enters.
+template <bool PACKED>
 __device__ __forceinline__ void culled_search_warp(const SceneView& s, const StreamView& w,
                                                    const Ray& r, bool active, float eps,
                                                    float& best_t, int& best_i) {
@@ -329,13 +339,15 @@ __device__ __forceinline__ void culled_search_warp(const SceneView& s, const Str
   const float idy = 1.0f / safe_dir(r.dy);
   const float idz = 1.0f / safe_dir(r.dz);
   const int tc = min(s.t_pad, kTc);
+  const float4* rows = reinterpret_cast<const float4*>(s.tri);
   for (int g = 0; g < w.n_groups; ++g) {
-    const bool eg = active && window_enter(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps);
+    const bool eg =
+        active && window_enter<PACKED>(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps);
     if (!__any_sync(full, eg)) continue;
     const int w1 = min((g + 1) * w.fan, w.n_windows);
     for (int wi = g * w.fan; wi < w1; ++wi) {
       unsigned voters = __ballot_sync(
-          full, eg && window_enter(w.wbox + 8 * wi, r, idx_, idy, idz, best_t, eps));
+          full, eg && window_enter<PACKED>(w.wbox + 8 * wi, r, idx_, idy, idz, best_t, eps));
       const int base = wi * w.window;
       const int end = min(base + w.window, s.n_tri);
       for (; voters; voters &= voters - 1) {
@@ -345,23 +357,30 @@ __device__ __forceinline__ void culled_search_warp(const SceneView& s, const Str
                     __shfl_sync(full, r.dy, src), __shfl_sync(full, r.dz, src)};
         for (int c0 = base; c0 < end; c0 += tc) {
           const int n = min(tc, end - c0);
-          int cp = 0x7FFFFFFF;
+          unsigned cp = 0x7FFFFFFFu;  // PACKED: (t_bits & ~63) | row; else t's bits
+          int row = kTc;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = lane + 32 * h;
             if (j < n) {
-              const float4* row = reinterpret_cast<const float4*>(s.tri + 12 * (c0 + j));
-              const float4 a = __ldg(row), b = __ldg(row + 1), d = __ldg(row + 2);
-              const float t = woop_hit_t(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y,
-                                         d.z, d.w, q, eps);
-              cp = min(cp, (__float_as_int(t) & ~63) | j);
+              const float4* p = rows + 3 * (c0 + j);
+              const float4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
+              const unsigned tb = __float_as_uint(woop_hit_t(
+                  a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y, d.z, d.w, q, eps));
+              if (PACKED) {
+                cp = min(cp, (tb & ~63u) | (unsigned)j);
+              } else if (tb < cp) {  // the lower row (h = 0) keeps a tie
+                cp = tb;
+                row = j;
+              }
             }
           }
-          cp = __reduce_min_sync(full, cp);
-          const float ct = __int_as_float(cp & ~63);
+          const unsigned m = __reduce_min_sync(full, cp);
+          if (!PACKED) row = (int)__reduce_min_sync(full, cp == m ? (unsigned)row : kTc);
+          const float ct = __uint_as_float(PACKED ? m & ~63u : m);
           if (lane == src && ct < best_t) {
             best_t = ct;
-            best_i = c0 + (cp & 63);
+            best_i = c0 + (PACKED ? (int)(m & 63u) : row);
           }
         }
       }

@@ -17,7 +17,7 @@ Three paths: ``trace_pass`` (one sample pass, one bounce per loop step —
 the path the CPU render and the golden images use), ``trace_passes_fused``
 (the camera stage for S passes, then ONE regenerating megakernel launch:
 kernel K5 with table uniforms or K4 with in-kernel RNG, in stream mode for
-scenes over the resident size, ``uses_stream``) and
+scenes above the resident range, ``uses_stream``) and
 ``trace_passes_compact`` (the compacting wavefront: per bounce, the live
 lanes packed first, then kernel K10; no CLI path uses it). All draws come
 from the same threefry streams as the JAX package (ops/rng.py).
@@ -68,8 +68,8 @@ def resolve_rng_mode(params: RenderParams) -> str:
 def uses_stream(params: RenderParams, scene, device) -> bool:
     """True when the regenerating megakernel runs in stream mode (K4 with
     K6, ops/megakernel.PackedSceneStream): the kernel intersector with the
-    in-kernel RNG, no preview, ``fused`` not "off", dead paths killed, and a
-    Woop table larger than one SM's shared memory
+    in-kernel RNG, no preview, ``fused`` not "off", dead paths killed, and
+    more triangles than the resident K4's measured range
     (ops/megakernel.scene_fits_resident). The JAX package's gate is its
     VMEM budget; the conditions are its ``uses_stream``'s."""
     if (scene is None or params.preview or params.fused == "off"
@@ -79,7 +79,7 @@ def uses_stream(params: RenderParams, scene, device) -> bool:
         return False
     from ..ops import megakernel
 
-    return not megakernel.scene_fits_resident(scene, device)
+    return not megakernel.scene_fits_resident(scene)
 
 
 class GatheredMat(NamedTuple):
@@ -357,8 +357,9 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     permuted back, which is bit-exact because per-lane results do not
     depend on a lane's position. ``with_lane_counts`` also returns this
     launch's per-lane live-bounce counts (in unsorted lane order).
-    ``packed``: a prebuilt ``PackedSceneFused`` (``PackedSceneStream`` where
-    the scene streams) for this scene.
+    ``packed``: a prebuilt ``PackedSceneFused`` for this scene (a
+    ``PackedSceneStream`` for the in-kernel-RNG K4: its window boxes cull
+    the card's search, or feed K6 where the scene streams).
     """
     from ..ops import kernel_rng
     from ..ops.megakernel import (
@@ -378,7 +379,7 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     stream = use_krng and uses_stream(params, scene, dev)
 
     if packed is None:
-        packed = PackedSceneStream(scene) if stream else PackedSceneFused(scene)
+        packed = PackedSceneStream(scene) if use_krng else PackedSceneFused(scene)
 
     base_sum = torch.zeros((3, r0), device=dev)
     states, unifs = [], []

@@ -9,9 +9,10 @@ per-sample tables) fits the device; small frames are a single tile.
 
 On a CUDA device the main path is the regenerating megakernel
 (``make_pass_fn`` -> integrator.trace_passes_fused), with the first pass
-group doubling as the autotune probe (``autotune_decisions``); a scene whose
-Woop table is larger than one SM's shared memory takes K4's stream mode
-(integrator.uses_stream, the tables of ops/megakernel.PackedSceneStream). On the CPU
+group doubling as the autotune probe (``autotune_decisions``); the scene is
+packed with its window boxes (ops/megakernel.PackedSceneStream), which cull
+K4's search on the card, and a scene above the resident range takes K4's
+stream mode (integrator.uses_stream). On the CPU
 the default is the scan wavefront (integrator.trace_pass), one pass per
 group, tiled exactly like the JAX package's CPU branch so the same keys
 fold in.
@@ -209,8 +210,8 @@ def render(
     ``--save-every`` writes). On resume the autotune probe group is traced
     again (radiance discarded) so the same decisions are reached.
     """
-    from .integrator import resolve_rng_mode, uses_stream
-    from ..ops.megakernel import S_COUNT_MAX, PackedSceneFused, PackedSceneStream
+    from .integrator import resolve_rng_mode
+    from ..ops.megakernel import S_COUNT_MAX, PackedSceneStream
 
     dev = resolve_device(device)
     if params.dtype != "float32":
@@ -259,8 +260,8 @@ def render(
     cur_params = params
     packed = None
     if regen:
-        packed = (PackedSceneStream(scene) if uses_stream(params, scene, dev)
-                  else PackedSceneFused(scene))
+        # K4's culled search (and K6) read the window boxes; K5 ignores them
+        packed = PackedSceneStream(scene)
 
     def get_fn(n):
         if n not in pass_fns:

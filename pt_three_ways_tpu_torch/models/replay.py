@@ -6,6 +6,9 @@ The port of the JAX package's ``models/replay.py`` (``trace_pass_replay``):
     PyTorch, differentiable), then all ``nb`` later bounces of the sample
     pass in ONE launch of K7 (``ops/megakernel.fused_bounces``), which also
     writes each bounce's input state [13, N] and winner (t, packed idx).
+    K7 culls its winner search by the window boxes of a
+    ``PackedSceneStream`` (the winners are the unculled scan's bit for
+    bit); the CPU's plain version scans every triangle.
   * BACKWARD: no re-intersection. Per bounce, in reverse, the VJP of the
     shading bounce at the SAVED state and winner: kernel K8
     (``bounce_bwd_step``, the adjoint written by hand in CUDA; on the CPU its
@@ -26,12 +29,11 @@ REGENERATING replay chain for ``n_passes`` samples at once:
     its next sample's first-bounce state, and every live iteration writes
     one residual slot (input state, winner, sample, depth). The launch culls
     its winner search by the window boxes of a ``PackedSceneStream`` at
-    window 64 (built each step with the packed scene from the detached
-    materials: a few small tensor operations over the triangles); the
-    radiance, counts and slots are bit-equal to an unculled launch. It runs
-    without tail compaction: a warp of the culled search already stops at
-    its longest lane, and compaction's block-synchronous loop cost more than
-    the tail it cut (PERF.md).
+    window 64; the radiance, counts and slots are bit-equal to an unculled
+    launch. It runs without tail compaction: its threads take their lanes
+    from a queue, so no warp idles behind its longest lane, and
+    compaction's block-synchronous loop cost more than the tail it cut
+    (PERF.md).
   * BACKWARD: kernel K9 (``regen_replay_bwd``) walks each lane's realized
     slots in reverse and returns the first-bounce states' cotangent, which
     autograd carries through the S camera stages (K2's VJP). The feedback
@@ -39,6 +41,11 @@ REGENERATING replay chain for ``n_passes`` samples at once:
     lane space, and every transpose is a gather. ``kernel_bwd=False``
     replays ``bounce_from_hits`` under autograd over the same slots: the
     test oracle.
+
+Both chains take the geometry's pack (``packed``, a ``PackedSceneStream``:
+Woop rows, window boxes, normals) built once per geometry, by the caller or
+else per call, and refresh only its material rows each step
+(``PackedSceneStream.with_materials``).
 
 Estimator: the likelihood-ratio branch weight (``integrator.branch_weight``,
 primal exactly 1) is applied in the replay; the discrete decisions (event
@@ -60,7 +67,6 @@ from ..ops.camera import generate_rays
 from ..ops.intersect import Hits, hits_from_winner, intersect_scene
 from ..ops.intersect_kernel import winner_t_vjp
 from ..ops.megakernel import (
-    PackedSceneFused,
     PackedSceneStream,
     bounce_bwd_step,
     fused_bounces,
@@ -140,13 +146,14 @@ class _Chain(torch.autograd.Function):
     """The nb-bounce chain of one sample pass: K7 with residuals forward,
     the per-bounce replay VJP backward. Inputs: the five material fields,
     the environment, the first-bounce state [13, N] and the uniforms
-    [nb, 4, N]; ``geo_scene`` carries the (constant) geometry."""
+    [nb, 4, N]; ``geo_scene`` carries the (constant) geometry and
+    ``geo_pack`` its ``PackedSceneStream``."""
 
     @staticmethod
     def forward(ctx, emission, diffuse, ior, reflectivity, cone_angle, environment,
-                state0_rows, unifs, geo_scene, nb, eps, kernel_bwd):
+                state0_rows, unifs, geo_scene, geo_pack, nb, eps, kernel_bwd):
         mats = MaterialTable(emission, diffuse, ior, reflectivity, cone_angle)
-        pk = PackedSceneFused(geo_scene._replace(materials=mats, environment=environment))
+        pk = geo_pack.with_materials(mats, environment)
         n = state0_rows.shape[1]
         r = state0_rows
         acc, _, states, ts, idxs = fused_bounces(
@@ -180,7 +187,7 @@ class _Chain(torch.autograd.Function):
                 d_env = d_env + de
             grads = (d_mat[:, 0:3], d_mat[:, 3:6], d_mat[:, 6], d_mat[:, 7], d_mat[:, 8])
             grads = tuple(g.to(m.dtype) for g, m in zip(grads, mats))
-            return (*grads, d_env.to(env.dtype), cot, None, None, None, None, None)
+            return (*grads, d_env.to(env.dtype), cot, None, None, None, None, None, None)
         with torch.enable_grad():
             leaves = [m.detach().requires_grad_() for m in (*mats, env)]
             total = [torch.zeros_like(x) for x in leaves]
@@ -198,17 +205,19 @@ class _Chain(torch.autograd.Function):
                     if g is not None:
                         total[i] = total[i] + g
                 cot = gs[6] if gs[6] is not None else torch.zeros_like(cot)
-        return (*total, cot, None, None, None, None, None)
+        return (*total, cot, None, None, None, None, None, None)
 
 
 def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
                       tri_chunk: int = 1024, with_ray_count: bool = False,
-                      kernel_bwd: bool = True):
+                      kernel_bwd: bool = True, packed=None):
     """Differentiable 1-spp pass with the K7 forward: a drop-in for
     ``integrator.trace_pass`` on the training path (same RNG streams, same
     estimator, zero-throughput kill always on). Differentiable w.r.t.
     scene.materials, scene.environment and the camera. Needs the kernel
-    backend (CUDA kernels on the card, their plain versions on the CPU)."""
+    backend (CUDA kernels on the card, their plain versions on the CPU).
+    ``packed``: the geometry's ``PackedSceneStream`` (built here when
+    None)."""
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
@@ -249,8 +258,9 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     else:
         unifs = bounce_rows(key, nb, r0 * k, dev).reshape(nb, 4, r0 * k)
         m = scene.materials
+        geo = packed if packed is not None else PackedSceneStream(scene)
         acc = _Chain.apply(m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
-                           scene.environment, state0_rows, unifs, scene, nb, float(eps),
+                           scene.environment, state0_rows, unifs, scene, geo, nb, float(eps),
                            kernel_bwd)
         # live-lane count: alive1 enters bounce 1 (the later bounces are
         # counted inside the chain and not returned, as in the JAX package)
@@ -342,16 +352,16 @@ class _RegenChain(torch.autograd.Function):
     reverse walk backward (K9, or ``_regen_oracle`` when ``kernel_bwd`` is
     False). Inputs: the five material fields, the environment and the
     first-bounce states [S*10, N]; the lane ids, key words, sample0, the
-    feedback sort's (order, inv) and the (constant) geometry ride along.
-    Outputs: acc [3, N] and the per-lane counts [N] (not differentiable)."""
+    feedback sort's (order, inv) and the (constant) geometry and its
+    ``PackedSceneStream`` ride along. Outputs: acc [3, N] and the per-lane
+    counts [N] (not differentiable)."""
 
     @staticmethod
     def forward(ctx, emission, diffuse, ior, reflectivity, cone_angle, environment,
-                state0, lane_ids, key_words, sample0, order, inv, geo_scene, nb, s_count,
-                eps, kernel_bwd):
+                state0, lane_ids, key_words, sample0, order, inv, geo_scene, geo_pack, nb,
+                s_count, eps, kernel_bwd):
         mats = MaterialTable(emission, diffuse, ior, reflectivity, cone_angle)
-        pk = PackedSceneStream(geo_scene._replace(materials=mats, environment=environment),
-                               window=64)
+        pk = geo_pack.with_materials(mats, environment)
         acc, cnt, resid, cnt_sorted, lanes_sorted = _regen_launch(
             pk, state0, lane_ids, key_words, sample0, order, inv, eps, nb, s_count, True)
         ctx.save_for_backward(*mats, environment, lanes_sorted, resid, cnt_sorted)
@@ -384,13 +394,13 @@ class _RegenChain(torch.autograd.Function):
                 acc_bar, ctx.s_count)
         if ctx.order is not None:
             d_state0 = d_state0[:, ctx.inv]
-        return (*grads, d_env, d_state0) + (None,) * 10
+        return (*grads, d_env, d_state0) + (None,) * 11
 
 
 def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: int,
                         tile_idx: int, px, py, n_passes: int, tri_chunk: int = 1024,
                         with_ray_count: bool = False, kernel_bwd: bool = True,
-                        sort_key=None, with_lane_counts: bool = False):
+                        sort_key=None, with_lane_counts: bool = False, packed=None):
     """Differentiable ``n_passes`` sample passes through the REGENERATING
     replay chain: the training-path drop-in for
     ``integrator.trace_passes_fused`` (kernel RNG, no tail compaction),
@@ -402,7 +412,9 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
     exact for gradients: the permutation is applied inside the chain).
     ``with_ray_count`` adds camera rays + live bounces; ``with_lane_counts``
     this call's per-lane bounce counts, to chain into the next sort key. A
-    forward that needs no gradient launches K4 without residuals."""
+    forward that needs no gradient launches K4 without residuals.
+    ``packed``: the geometry's ``PackedSceneStream`` (built here when
+    None)."""
     dev = px.device
     if resolve_intersector(params, dev) != "kernel" or params.preview:
         raise ValueError("trace_passes_replay needs the kernel intersector, no preview")
@@ -436,12 +448,14 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
         diff = (m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
                 scene.environment, state0)
         eps = float(params.epsilon)
+        geo = packed if packed is not None else PackedSceneStream(scene)
         if torch.is_grad_enabled() and any(x.requires_grad for x in diff):
-            acc, cnt = _RegenChain.apply(*diff, lane_ids, kw, sample0, order, inv, scene, nb,
-                                         n_passes, eps, kernel_bwd)
+            acc, cnt = _RegenChain.apply(*diff, lane_ids, kw, sample0, order, inv, scene, geo,
+                                         nb, n_passes, eps, kernel_bwd)
         else:
-            acc, cnt = _regen_launch(PackedSceneFused(scene), state0, lane_ids, kw, sample0,
-                                     order, inv, eps, nb, n_passes, False)
+            acc, cnt = _regen_launch(geo.with_materials(m, scene.environment), state0,
+                                     lane_ids, kw, sample0, order, inv, eps, nb, n_passes,
+                                     False)
         path_mean = acc.reshape(3, r0, k).mean(dim=2)
         radiance = (base_sum + path_mean).T
         nrays = nrays + cnt.sum()

@@ -49,21 +49,21 @@ _SIGNATURES = {
                         P, P, P, P, P, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # seed0 seed1 seed2, sample0, lane, amask, state0, resid_in, acc, cnt,
-    # resid_out, replay_resid, replay_col, acc_in, cnt_in, replay_n,
-    # tri_win, wbox, wbox1, n_windows, n_groups, window, fan, n, s_count,
-    # nb, eps, thresh, no_glossy, block, stream
+    # resid_out, replay_resid, replay_col, acc_in, cnt_in, next_lane,
+    # replay_n, tri_win, wbox, wbox1, n_windows, n_groups, window, fan, n,
+    # s_count, nb, eps, thresh, no_glossy, block, stream
     "pt3_regen_krng": [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
-                       P, P, P, P, P, P, P, P, P, P, P, I,
+                       P, P, P, P, P, P, P, P, P, P, P, P, I,
                        P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # state_in, unif, state_out, cnt, t_out, idx_out, n, eps, no_glossy, stream
     "pt3_bounce_step": [P, P, P, P, I, I, I, F, F, F,
                         P, P, P, P, P, P, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
-    # org, dir, beta, alive, unif, acc, cnt, states, ts, idxs, n, nb, eps,
-    # no_glossy, stream
+    # org, dir, beta, alive, unif, acc, cnt, states, ts, idxs, wbox, wbox1,
+    # n_windows, n_groups, window, fan, n, nb, eps, no_glossy, stream
     "pt3_fused_bounces": [P, P, P, P, I, I, I, F, F, F,
-                          P, P, P, P, P, P, P, P, P, P, I, I, F, I, P],
+                          P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # tri_mat, sph_mat, n_mat, state, ts, idxs, unif, cot_out, cot_in,
     # partial, d_out, n, stream

@@ -36,8 +36,15 @@ slot ``cnt`` of its own column, with its running sum: ``ReplaySlots``) and
 culls its search by a ``PackedSceneStream``'s window boxes (the kernel
 needs them; the plain version also takes a ``PackedSceneFused`` and scans
 every triangle); both keep every output bit-equal.
-Its ``stream`` mode, for scenes whose Woop table is larger than one SM's
-shared memory (``scene_fits_resident``), takes the triangle search K6
+Its resident mode (no ``replay``, no ``stream``) searches with a scan of
+the whole scene per lane when the scene is one 64-row chunk whose tables
+fit 48 KB of shared memory (``csrc/megakernel.cu: flat_fits``: they are
+staged there) and otherwise with the culled warp search over a
+``PackedSceneStream``'s window boxes, as replay does. On the card K4 takes
+a ``PackedSceneStream`` in every mode; the plain version also takes a
+``PackedSceneFused`` and scans every triangle. Its
+``stream`` mode, for scenes above the measured resident range
+(``scene_fits_resident``), takes the triangle search K6
 (``_stream_tri`` in the JAX package; ``csrc/stream_tri.cuh``): the table is
 cut into windows of ``window`` triangles with one box each and one level-1
 box per ``fan`` windows (``PackedSceneStream``), and a block stages in
@@ -55,13 +62,16 @@ K10 ``bounce_step`` replaces ``_bounce_kernel`` / ``_run_bounce`` /
 Design on the H100 (``csrc/megakernel.cu``): one thread per lane, the path
 state in registers, the scene and attribute tables in global memory behind
 the read-only cache (``[T, 30]`` and ``[S, 12]`` float32 rows: a winner's
-attributes are one indexed row load). A refill is one strided load of the
-sample's ten state rows ``state0[(s*10 + r)*N + lane]``. The kernels are
-bound by FP32 operations in the per-bounce winner search; the bytes they
-must move (state tables in, radiance and counts out) are small next to
-that. Without tail compaction each thread loops until its own lane is
-exhausted, so a warp's cost is its longest lane; with it, the loop is
-block-synchronous (``__syncthreads_count`` of the live lanes).
+attributes are one indexed row load), or, for K4 on a one-chunk scene, in
+shared memory. A refill is one strided load of the sample's ten state rows
+``state0[(s*10 + r)*N + lane]``. The kernels are bound by FP32 operations
+in the per-bounce winner search; the bytes they must move (state tables
+in, radiance and counts out) are small next to that. Without tail
+compaction K4's threads take their lanes from a queue (persistent blocks;
+a thread whose lane is exhausted takes the next lane of the launch), so a
+warp does not idle behind its longest lane; with tail compaction, and in
+the stream mode, the loop is block-synchronous (``__syncthreads_count`` of
+the live lanes).
 
 K7 ``fused_bounces`` replaces ``_megakernel`` / ``_run_fused`` /
 ``fused_bounces``: the ``nb`` bounces of ONE sample pass per lane with table
@@ -92,6 +102,7 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple
 
@@ -120,10 +131,15 @@ _M32 = 0xFFFFFFFF
 STREAM_WINDOW = 64
 STREAM_FAN = 16
 
-# shared memory of one H100 SM (sm_90: 228 KB); the gate's size for CPU
-# tensors, so CPU runs route as the card does
-SMEM_PER_SM_BYTES = 228 * 1024
 WOOP_ROW_BYTES = 48
+# A placeholder, not a crossover: the largest mesh on which K4's resident
+# mode (the culled warp search) and its stream mode (K6) were timed against
+# each other on the H100 (suzanne-sub6, chip_smoke.py --crossover). The
+# resident mode took 0.20-0.64x the stream mode's time at every size from
+# 38 triangles up to this one, the gap growing with size (PERF.md), so no
+# measured scene is faster streamed. Larger scenes take the stream mode
+# unmeasured (ROADMAP: find where K6 wins, or drop the render's stream route).
+RESIDENT_MAX_TRIANGLES = 3_973_120
 # K6's window boxes are widened by this fraction of the scene's scale (1 +
 # the largest coordinate of a vertex or a sphere's extent): 2^9 float32
 # ulps of that scale, far above the rounding of the slab and triangle
@@ -141,12 +157,37 @@ class PackedSceneFused(PackedScene):
 
     The tables are kernel inputs and never differentiated through: they are
     built from detached materials, so a training step's material gradient
-    comes only from the kernels' backward (K8) and never twice."""
+    comes only from the kernels' backward (K8) and never twice.
+
+    ``with_materials`` gives a copy for other materials that shares every
+    geometry table (a training step's materials change, its geometry does
+    not)."""
 
     def __init__(self, scene):
         super().__init__(scene)
-        mats = type(scene.materials)(*(m.detach() for m in scene.materials))
         dev = scene.device
+        f32 = torch.float32
+
+        def ids(mid):
+            if mid.numel() == 0:
+                return torch.zeros((1,), dtype=torch.int32, device=dev)
+            return mid.to(torch.int32).contiguous()
+
+        self.tri_mat = ids(scene.triangles.mat_id)
+        self.sph_mat = ids(scene.spheres.mat_id)
+        # the geometry columns of the attribute rows (Woop rows and vertex
+        # normals; sphere centres); _set_materials appends the material rows
+        if self.n_tri:
+            tri = scene.triangles
+            self._tri_geo = torch.cat([tri.woop.to(f32).reshape(self.n_tri, 12),
+                                       tri.normals.to(f32).reshape(self.n_tri, 9)], dim=1)
+        if self.n_sph:
+            self._sph_geo = scene.spheres.centre.to(f32)
+        self._set_materials(scene.materials, scene.environment)
+
+    def _set_materials(self, materials, environment):
+        mats = type(materials)(*(m.detach() for m in materials))
+        dev = self.tri_mat.device
         f32 = torch.float32
         cone = mats.cone_angle
         self.no_glossy = bool(cone.numel() == 0 or float(cone.max()) < EPSILON)
@@ -156,52 +197,37 @@ class PackedSceneFused(PackedScene):
             dim=1,
         ).contiguous()
         self.n_mat = int(self.mat9.shape[0])
-
-        def mat_rows(mid):
-            return self.mat9[mid.long()]
-
-        def ids(mid):
-            if mid.numel() == 0:
-                return torch.zeros((1,), dtype=torch.int32, device=dev)
-            return mid.to(torch.int32).contiguous()
-
-        self.tri_mat = ids(scene.triangles.mat_id)
-        self.sph_mat = ids(scene.spheres.mat_id)
-
         if self.n_tri:
-            tri = scene.triangles
-            self.tri_attr = torch.cat(
-                [
-                    tri.woop.to(f32).reshape(self.n_tri, 12),
-                    tri.normals.to(f32).reshape(self.n_tri, 9),
-                    mat_rows(tri.mat_id),
-                ],
-                dim=1,
-            ).contiguous()
+            self.tri_attr = torch.cat([self._tri_geo, self.mat9[self.tri_mat.long()]],
+                                      dim=1).contiguous()
         else:
             self.tri_attr = torch.zeros((1, TRI_ATTR), dtype=f32, device=dev)
         if self.n_sph:
-            sph = scene.spheres
-            self.sph_attr = torch.cat(
-                [sph.centre.to(f32), mat_rows(sph.mat_id)], dim=1
-            ).contiguous()
+            self.sph_attr = torch.cat([self._sph_geo, self.mat9[self.sph_mat.long()]],
+                                      dim=1).contiguous()
         else:
             self.sph_attr = torch.zeros((1, SPH_ATTR), dtype=f32, device=dev)
-        self.environment = scene.environment.detach().to(f32)
+        self.environment = environment.detach().to(f32)
+
+    def with_materials(self, materials, environment):
+        """This pack for ``materials`` and ``environment``: the geometry
+        tables (Woop rows, boxes, windows, normals, sphere rows) are shared,
+        the material rows, ``mat9``, ``no_glossy`` and the environment built
+        anew, exactly as a new pack of the same scene with these materials
+        would build them."""
+        new = copy.copy(self)
+        new._set_materials(materials, environment)
+        return new
 
 
-def scene_fits_resident(scene, device) -> bool:
-    """True when the scene's Woop table (48 B per triangle) fits one SM's
-    shared memory (``shared_memory_per_multiprocessor`` of a CUDA device,
-    ``SMEM_PER_SM_BYTES`` for the CPU). Larger scenes take K4's stream mode:
-    the resident K4 reads the whole table through L1 on every bounce of
-    every lane."""
-    cap = SMEM_PER_SM_BYTES
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        props = torch.cuda.get_device_properties(dev)
-        cap = getattr(props, "shared_memory_per_multiprocessor", cap)
-    return scene.num_triangles * WOOP_ROW_BYTES <= cap
+def scene_fits_resident(scene) -> bool:
+    """True when K4 runs in its resident mode on this scene: at most
+    ``RESIDENT_MAX_TRIANGLES`` triangles, the measured range in which its
+    culled warp search beat the stream mode (K6) at every size. Larger
+    scenes take the stream mode; that bound is a placeholder (the largest
+    mesh measured), not a crossover. The same rule on the CPU, so CPU runs route
+    as the card does."""
+    return scene.num_triangles <= RESIDENT_MAX_TRIANGLES
 
 
 class PackedSceneStream(PackedSceneFused):
@@ -305,7 +331,8 @@ def _shade_plain(pk: PackedSceneFused, st, acc, t, idx, hit, u, acos_u, v, p,
                  no_glossy: bool):
     """One shading event for the ``hit`` lanes (``shade`` in
     csrc/pt3_device.cuh); other lanes keep their state. Updates ``st``
-    rows 0..9 and ``acc`` in place."""
+    rows 0..9 and ``acc`` in place; returns the lanes whose event is
+    specular (the mirror or cone direction)."""
     ox, oy, oz, dx, dy, dz, bx, by, bz = (st[r] for r in range(9))
     n_tri, n_sph = pk.n_tri, pk.n_sph
     tri_win = hit & (idx < n_tri)
@@ -411,38 +438,45 @@ def _shade_plain(pk: PackedSceneFused, st, acc, t, idx, hit, u, acos_u, v, p,
     for r in range(9):
         st[r] = torch.where(hit, new[r], st[r])
     st[9] = torch.where(hit, alive_next.to(st.dtype), st[9])
+    return hit & spec
 
 
 def _safe_recip(d):
     return 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
 
 
-def window_enter_plain(box, org, inv_d, best_t, eps: float):
+def window_enter_plain(box, org, inv_d, best_t, eps: float, packed_winner: bool = True):
     """K6's window test (``stream_tri.cuh: window_enter``) for every ray:
-    can its winner still come from inside ``box`` (lo3 hi3)? The box entry
-    is compared with the top of best_t's packing bucket (its bits | 63), so
-    a triangle the packed winner would prefer to a sphere is never
-    skipped."""
+    can its winner still come from inside ``box`` (lo3 hi3)? With the
+    packed winner the box entry is compared with the top of best_t's
+    packing bucket (its bits | 63), so a triangle the packed winner would
+    prefer to a sphere is never skipped; unpacked, a triangle must be
+    strictly nearer than best_t, so an entry at or beyond it is skipped."""
     t0 = (box[0:3, None] - org) * inv_d
     t1 = (box[3:6, None] - org) * inv_d
     tmin = torch.minimum(t0, t1).amax(dim=0)
     tmax = torch.maximum(t0, t1).amin(dim=0)
+    inside = tmax >= torch.clamp(tmin, min=eps)
+    if not packed_winner:
+        return inside & (tmin < best_t)
     bucket = (best_t > 0.0) & torch.isfinite(best_t)
     top = torch.where(bucket, (best_t.view(torch.int32) | 63).view(torch.float32), best_t)
-    return (tmax >= torch.clamp(tmin, min=eps)) & (tmin <= top)
+    return inside & (tmin <= top)
 
 
-def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
-    """Plain version of K6's search with the packed winner (and of K4
-    replay's culled search, which walks the same boxes): the spheres, then
+def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float,
+                        packed_winner: bool = True):
+    """Plain version of K6's search with the packed winner (and of the
+    culled warp search of K4's resident and replay modes, which walks the
+    same boxes; with ``packed_winner=False``, of K7's): the spheres, then
     the level-1 boxes in order and, inside each one a ray enters, its
     windows in order; a ray scans a window's chunks only where
     ``window_enter_plain`` says its winner can still lie in the window's
-    box (K6's block scans a window for the rays that voted for it, K4
-    replay's warp for its lanes that entered it). Chunk boundaries and
-    arithmetic are the resident scan's, so the winners are bit-equal to
-    ``winner_search_plain(..., packed_winner=True)``. Returns (best_t,
-    best_i) as it does.
+    box (K6's block scans a window for the rays that voted for it, the
+    culled search's warp for its lanes that entered it). Chunk boundaries
+    and arithmetic are the resident scan's, so the winners are bit-equal to
+    ``winner_search_plain(..., packed_winner=packed_winner)``. Returns
+    (best_t, best_i) as it does.
 
     Each test is per ray, so only the active rays are tested, a group's
     windows only against the rays that enter the group, and a window's
@@ -456,13 +490,13 @@ def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
     bt, bi = best_t[lanes], best_i[lanes]
     inv_d = _safe_recip(dirn)
     for g in range(pk.n_groups):
-        sg = window_enter_plain(pk.wbox1[g], org, inv_d, bt, eps).nonzero()[:, 0]
+        sg = window_enter_plain(pk.wbox1[g], org, inv_d, bt, eps, packed_winner).nonzero()[:, 0]
         if sg.numel() == 0:
             continue
         og, dg, ig = org[:, sg], dirn[:, sg], inv_d[:, sg]
         tg, jg = bt[sg], bi[sg]
         for w in range(g * pk.fan, min((g + 1) * pk.fan, pk.n_windows)):
-            sel = window_enter_plain(pk.wbox[w], og, ig, tg, eps).nonzero()[:, 0]
+            sel = window_enter_plain(pk.wbox[w], og, ig, tg, eps, packed_winner).nonzero()[:, 0]
             if sel.numel() == 0:
                 continue
             o, d = og[:, sel], dg[:, sel]
@@ -472,7 +506,7 @@ def stream_search_plain(pk: PackedSceneStream, org, dirn, active, eps: float):
             for c in range(0, rows, tc):
                 first = base + c
                 ct, ci = chunk_min_plain(pk.tri_win[first:first + min(tc, rows - c)], first,
-                                         o, d, eps, True)
+                                         o, d, eps, packed_winner)
                 take = ct < t_w
                 i_w = torch.where(take, ci, i_w)
                 t_w = torch.where(take, ct, t_w)
@@ -943,6 +977,9 @@ def regen_replay_bwd_plain(pk: PackedSceneFused, lane_ids, resid, cnt, acc_bar, 
 
 
 def _scene_ptrs(pk: PackedSceneFused):
+    if pk.tri_tab.data_ptr() % 16 or pk.sph_tab.data_ptr() % 16:
+        raise ValueError("the kernels read Woop and sphere rows as float4: the tables "
+                         "must be 16-byte aligned")
     env = pk.environment.tolist()
     return (pk.tri_tab.data_ptr(), pk.sph_tab.data_ptr(), pk.tri_attr.data_ptr(),
             pk.sph_attr.data_ptr(), pk.n_tri, pk.n_sph, pk.t_pad,
@@ -975,18 +1012,18 @@ def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
     rep = (replay.rres, replay.col, replay.acc_in, replay.cnt_in) if replay is not None \
         else (None,) * 4
     rres_n = replay.rres.shape[2] if replay is not None else 0
-    boxed = stream or replay is not None
-    if boxed and not isinstance(pk, PackedSceneStream):
-        raise ValueError("K4 replay on the card culls by the window boxes of a "
-                         "PackedSceneStream")
+    if not isinstance(pk, PackedSceneStream):
+        raise ValueError("K4 on the card takes a PackedSceneStream: its culled search "
+                         "reads the window boxes")
     win = (_cuda.ptr(pk.tri_win if stream else None), pk.wbox.data_ptr(), pk.wbox1.data_ptr(),
-           pk.n_windows, pk.n_groups, pk.window, pk.fan) if boxed else (0,) * 7
+           pk.n_windows, pk.n_groups, pk.window, pk.fan)
+    next_lane = torch.zeros((1,), dtype=torch.int32, device=dev)  # the lane queue's head
     err = _cuda.lib().pt3_regen_krng(
         *_scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0),
         lane_ids.data_ptr(), amask.data_ptr(), state0.data_ptr(),
         _cuda.ptr(resid_in), acc.data_ptr(), cnt.data_ptr(), _cuda.ptr(resid_out),
-        *(_cuda.ptr(r) for r in rep), rres_n, *win, n, s_count, nb, float(eps), int(thresh),
-        int(no_glossy), int(block), _cuda.stream_ptr(dev),
+        *(_cuda.ptr(r) for r in rep), next_lane.data_ptr(), rres_n, *win, n, s_count, nb,
+        float(eps), int(thresh), int(no_glossy), int(block), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_krng")
     fused_passes_krng.launches += 1
@@ -996,6 +1033,9 @@ def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
 
 
 def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residuals):
+    if not isinstance(pk, PackedSceneStream):
+        raise ValueError("K7 on the card culls its search by the window boxes of a "
+                         "PackedSceneStream")
     n = org.shape[1]
     dev = org.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1007,7 +1047,8 @@ def _fused_bounces_cuda(pk, org, dirn, beta, alive, unif, eps, nb, with_residual
     err = _cuda.lib().pt3_fused_bounces(
         *_scene_ptrs(pk), org.data_ptr(), dirn.data_ptr(), beta.data_ptr(),
         alive.data_ptr(), unif.data_ptr(), acc.data_ptr(), cnt.data_ptr(),
-        *(_cuda.ptr(r) for r in res), n, nb, float(eps), int(pk.no_glossy),
+        *(_cuda.ptr(r) for r in res), pk.wbox.data_ptr(), pk.wbox1.data_ptr(), pk.n_windows,
+        pk.n_groups, pk.window, pk.fan, n, nb, float(eps), int(pk.no_glossy),
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_fused_bounces")
@@ -1116,18 +1157,18 @@ fused_passes.launches = 0
 
 
 def alive_mask_words(state0: torch.Tensor, s_count: int) -> torch.Tensor:
-    """[2, N] int32: bit ss of word ss // 32 set <=> sample ss alive."""
+    """[2, N] int32: bit ss of word ss // 32 set <=> sample ss alive (the
+    uint32 words in two's complement: a sum of distinct bits, bit 31 the
+    int32 minimum, so it never overflows)."""
     n = state0.shape[1]
     alive0 = state0.reshape(s_count, 10, n)[:, 9] != 0.0
     words = []
     for lo in (0, 32):
-        nbits = min(s_count - lo, 32)
-        w = torch.zeros((n,), dtype=torch.int64, device=state0.device)
-        for b in range(max(nbits, 0)):
-            w = w | (alive0[lo + b].to(torch.int64) << b)
-        words.append(w)
-    # uint32 words reinterpreted as int32 (two's complement)
-    return torch.stack(words).to(torch.int32).contiguous()
+        nbits = max(min(s_count - lo, 32), 0)
+        shift = torch.arange(nbits, dtype=torch.int32, device=state0.device)[:, None]
+        words.append((alive0[lo:lo + nbits].to(torch.int32) << shift).sum(dim=0,
+                                                                          dtype=torch.int32))
+    return torch.stack(words).contiguous()
 
 
 def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,

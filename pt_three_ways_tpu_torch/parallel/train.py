@@ -80,11 +80,15 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
         and not params.preview
     )
     use_regen = use_replay and passes_per_step > 1
+    replay_kw = {}
     if use_replay:
         from ..models.replay import trace_pass_replay, trace_passes_replay
+        from ..ops.megakernel import PackedSceneStream
 
         trace = trace_pass_replay
         params = params.replace(kill_dead_paths=True, remat=False)
+        # the geometry's tables, built once: each step refreshes the material rows
+        replay_kw = dict(packed=PackedSceneStream(scene))
     else:
         trace = trace_pass
         params = params.replace(kill_dead_paths=False, fused="off")
@@ -102,11 +106,11 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
         camera = type(state.camera)(*cam)
         if use_regen:
             radiance = trace_passes_replay(sc, camera, params, key, 0, 0, px, py,
-                                           passes_per_step, tri_chunk)
+                                           passes_per_step, tri_chunk, **replay_kw)
             estimate = radiance / passes_per_step
         else:
             k = rng.tile_key(rng.tile_key(key, 0), 0)
-            estimate = trace(sc, camera, params, k, px, py, tri_chunk)
+            estimate = trace(sc, camera, params, k, px, py, tri_chunk, **replay_kw)
         loss = torch.mean((estimate - target) ** 2)
         leaves = mats + (cam if differentiate_camera else [])
         grads = _grads(loss, leaves)

@@ -35,6 +35,7 @@ from .models.render import resolve_device
 from .models.replay import trace_passes_replay
 from .models.scene import SceneBuilder
 from .ops import rng
+from .ops.megakernel import PackedSceneStream
 from .utils.render_params import RenderParams
 
 S = 16  # passes per training step
@@ -66,9 +67,11 @@ def run(steps: int = 100, res: int = 256, device="cuda", log=print) -> dict:
     pert = np.clip(true_diffuse * gen.uniform(0.4, 1.6, size=true_diffuse.shape), 0.02, 0.98)
     pert = np.where(true_diffuse == 0.0, true_diffuse, pert).astype(np.float32)
 
+    packed = PackedSceneStream(scene)  # the geometry's tables, built once
+
     def loss_fn(diffuse, key):
         sc = scene._replace(materials=scene.materials._replace(diffuse=diffuse))
-        img = trace_passes_replay(sc, camera, params, key, 0, 0, px, py, S)
+        img = trace_passes_replay(sc, camera, params, key, 0, 0, px, py, S, packed=packed)
         return torch.mean((img / S - target) ** 2)
 
     diffuse = torch.tensor(pert, device=dev, requires_grad=True)

@@ -8,7 +8,15 @@ Tolerances as in chip_smoke.py: K2 winner index on >= 99.9 % of rays and
 counts on >= 99 % of lanes; K8's input-state cotangents rtol 1e-3 / atol
 1e-5 of the largest on >= 99.9 % of lanes, its material and environment
 gradients within 1e-3 of the largest, and bit-identical on a second run.
-K4's replay mode: ``acc`` and ``cnt`` bit-equal to K4 without it, and on >=
+K4's resident mode (the one-chunk scan on cornell, the culled warp search
+on the meshes) and K7 (culled, unpacked) bit for bit against their plain
+versions with the cone angles zeroed (the cone sample's sinf/cosf round
+unlike torch's), K4 also against the stream mode with the scene's own
+materials, with and without tail compaction; K7 also on rays aimed at the
+edges two windows share; a ``PackedSceneFused`` raises where the culled
+searches need the window boxes, in every K4 mode on the card. K4's replay
+mode: ``acc`` and ``cnt``
+bit-equal to K4 without it, and on >=
 99 % of lanes the plain version's ``acc``/``cnt`` (rtol 1e-4 / atol 1e-5)
 and residual slots j < cnt (the same gate). K9: ``d_state0`` within 1e-5 of
 its largest on >= 99.9 % of lanes, material and environment gradients within
@@ -102,7 +110,7 @@ def _lanes_agree(a, b):
 @pytest.mark.parametrize("name", ["cornell", "suzanne"])
 def test_kernels_match_plain_versions(dev, name):
     scene, state0, unif, lanes = _state(name, dev)
-    pk = mk.PackedSceneFused(scene)
+    pk = mk.PackedSceneStream(scene)  # K4's culled search reads its window boxes
     org = state0[0:3].contiguous()
     dirn = state0[3:6].contiguous()
     live = state0[9] != 0
@@ -147,7 +155,7 @@ def test_card_render_matches_cpu_scan_wavefront(dev, name):
 @pytest.mark.parametrize("name", ["cornell", "suzanne", "example1"])
 def test_training_kernels_match_plain_versions(dev, name):
     scene, state0, unif, _ = _state(name, dev, s_count=1)
-    pk = mk.PackedSceneFused(scene)
+    pk = mk.PackedSceneStream(scene)  # K7's culled search reads its window boxes
     nb = 3
     a = (pk, state0[0:3], state0[3:6], state0[6:9], state0[9] != 0, unif, 1e-4, nb)
     k7 = mk.fused_bounces(*a, with_residuals=True)
@@ -248,7 +256,7 @@ def test_regen_replay_culled_tail_matches_uncompacted(dev, name):
         assert torch.equal(torch.where(real, got[2], 0.0), torch.where(real, full[2], 0.0))
         b_got = mk.regen_replay_bwd(ps, lanes, (5, 6), 0, got[2], got[1], acc_bar, 3)
         assert all(torch.equal(x, y) for x, y in zip(b_got, b_full))
-    plain = mk.fused_passes_krng(mk.PackedSceneFused(scene), *a)
+    plain = mk.fused_passes_krng(mk.PackedSceneStream(scene), *a)
     assert torch.equal(plain[0], full[0]) and torch.equal(plain[1], full[1])
     with pytest.raises(ValueError):  # the card's replay needs the boxes
         mk.fused_passes_krng(mk.PackedSceneFused(scene), *a, replay=True)
@@ -257,8 +265,8 @@ def test_regen_replay_culled_tail_matches_uncompacted(dev, name):
 @pytest.mark.parametrize("name", ["cornell", "suzanne"])
 def test_stream_matches_resident_bitwise(dev, name):
     scene, state0, _, lanes = _state(name, dev)
-    pk = mk.PackedSceneFused(scene)
     ps = mk.PackedSceneStream(scene, window=64)
+    pk = ps
     a = (state0, lanes, (5, 6), 0, 1e-4, 3, 3)
     for tail in (0.0, 0.125):
         res = mk.fused_passes_krng(pk, *a, tail_frac=tail)
@@ -282,7 +290,7 @@ def test_stream_designs_match_resident_bitwise(dev, fan, window):
     without tail compaction, on suzanne-sub1."""
     scene, state0, _, lanes = _state("suzanne-sub1", dev, w=48, s_count=2)
     a = (state0, lanes, (5, 6), 0, 1e-4, 3, 2)
-    pk = mk.PackedSceneFused(scene)
+    pk = mk.PackedSceneStream(scene)  # the resident K4's culled search: 64-row windows
     ps = mk.PackedSceneStream(scene, window=window, fan=fan)
     for tail in (0.0, 0.125):
         res = mk.fused_passes_krng(pk, *a, tail_frac=tail)
@@ -304,8 +312,9 @@ def test_stream_matches_resident_on_edges_shared_between_windows(dev, name):
     scene = scene.to(dev)
     lanes = torch.arange(n, dtype=torch.int32, device=dev)
     a = (state0, lanes, (5, 6), 0, 1e-4, 3, 1)
-    res = mk.fused_passes_krng(mk.PackedSceneFused(scene), *a)
-    stm = mk.fused_passes_krng(mk.PackedSceneStream(scene, window=64), *a, stream=True)
+    ps = mk.PackedSceneStream(scene, window=64)
+    res = mk.fused_passes_krng(ps, *a)
+    stm = mk.fused_passes_krng(ps, *a, stream=True)
     assert torch.equal(stm[0], res[0]) and torch.equal(stm[1], res[1])
     assert int(res[1].sum()) > n
 
@@ -329,3 +338,66 @@ def test_bounce_step_matches_plain_version(dev, name):
             assert ok.float().mean().item() >= 0.99
         assert all(torch.equal(x, y) for x, y in zip(mk.bounce_step(pk, state, un, 1e-4), k10))
         state = k10[0]
+
+
+def _no_glossy(scene):
+    m = scene.materials
+    return scene._replace(materials=m._replace(cone_angle=torch.zeros_like(m.cone_angle)))
+
+
+@pytest.mark.parametrize("tail_frac", [0.0, 0.125])
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "suzanne-sub1"])
+def test_resident_k4_matches_plain_and_stream_bitwise(dev, monkeypatch, name, tail_frac):
+    """K4's resident mode: its one-chunk scan (cornell) or culled warp search
+    (the meshes) gives acc and counts bit-equal to the stream mode (K6)
+    with the scene's own materials and to its plain version with the cone
+    angles zeroed, with and without tail compaction; a ``PackedSceneFused``
+    raises (the card's K4 takes a ``PackedSceneStream``)."""
+    scene, state0, _, lanes = _state(name, dev)
+    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 3)
+    ps = mk.PackedSceneStream(scene)
+    res = mk.fused_passes_krng(ps, *a, tail_frac=tail_frac)
+    stm = mk.fused_passes_krng(ps, *a, tail_frac=tail_frac, stream=True)
+    assert torch.equal(stm[0], res[0]) and torch.equal(stm[1], res[1])
+    pn = mk.PackedSceneStream(_no_glossy(scene))
+    kern = mk.fused_passes_krng(pn, *a, tail_frac=tail_frac)
+    monkeypatch.setattr(mk, "_regen_krng_cuda", mk.regen_krng_plain)
+    plain = mk.fused_passes_krng(pn, *a, tail_frac=tail_frac)
+    monkeypatch.undo()
+    assert int(kern[1].sum()) > 0
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+    with pytest.raises(ValueError):
+        mk.fused_passes_krng(mk.PackedSceneFused(scene), *a, tail_frac=tail_frac)
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "suzanne-edges"])
+def test_culled_k7_matches_plain_bitwise(dev, name):
+    """K7's culled warp search (unpacked winner) with its residuals: acc,
+    counts, states, t and idx bit-equal to ``fused_bounces_plain`` (which
+    scans every triangle) with the cone angles zeroed, on the camera
+    stage's first-bounce states and on rays aimed at the edges two windows
+    share; a ``PackedSceneFused`` raises."""
+    nb = 3
+    if name == "suzanne-edges":
+        params = RenderParams(width=8, height=8)
+        sb = SceneBuilder()
+        create_scene(sb, "suzanne", params)
+        scene = sb.build()
+        org, dirn, _ = edge_rays(scene, 64)
+        n = org.shape[1]
+        gen = np.random.default_rng(4)
+        unif = torch.from_numpy(gen.uniform(size=(4 * nb, n)).astype(np.float32)).to(dev)
+        st = torch.cat([org, dirn, torch.ones((4, n))]).to(dev)
+        scene = scene.to(dev)
+    else:
+        scene, st, unif, _ = _state(name, dev, s_count=1)
+    ps = mk.PackedSceneStream(_no_glossy(scene))
+    a = (st[0:3].contiguous(), st[3:6].contiguous(), st[6:9].contiguous(), st[9] != 0,
+         unif.contiguous())
+    kern = mk.fused_bounces(ps, *a, 1e-4, nb, with_residuals=True)
+    plain = mk.fused_bounces_plain(ps, *a, 1e-4, nb, True)
+    assert int(kern[1].sum()) > 0
+    assert all(torch.equal(x, y) for x, y in zip(kern, plain))
+    assert all(torch.equal(x, y) for x, y in zip(mk.fused_bounces(ps, *a, 1e-4, nb), plain))
+    with pytest.raises(ValueError):
+        mk.fused_bounces(mk.PackedSceneFused(scene), *a, 1e-4, nb)

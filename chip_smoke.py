@@ -7,12 +7,14 @@ printing no result, when there is no CUDA device or the package is missing.
 Phases (one line each, any failure stops the run):
   1. card, versions, and the build of every CUDA kernel from csrc/ (nvcc,
      sm_90a, one process per source, all started together, with the older
-     K4 and K7 of PREV_COMMIT and the culled build of megakernel.cu, where
-     a one-chunk scene takes the culled warp search), with each kernel
-     instance's registers and spills;
+     K2, K4, K7 and K9 of PREV_COMMIT and this tree's sources again with a
+     flag (ALT_BUILDS: the culled build of megakernel.cu, where a one-chunk
+     scene takes the culled warp search; K2 with the per-lane scan from 8,
+     12, 16 voters or never)), with each kernel instance's registers and
+     spills (and the older K2's and K9's, K2's other builds');
   2. each kernel's wrapper against the same wrapper with its plain PyTorch
      version in place of the launch, at 256^2 camera tiles: K2 (cornell,
-     suzanne), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
+     suzanne; bit for bit), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
      compaction against the same run to exhaustion; with the cone angles
      zeroed, bit for bit against its plain version and its stream mode);
   3. a small-image reference: cornell 32^2 on the card in table-RNG mode
@@ -24,7 +26,13 @@ Phases (one line each, any failure stops the run):
      decides; each writes a .raw (build/chip_smoke/) and a PNG
      (chiprun_out/); every launch counter is set to 0 just before each
      render and read just after it;
-  5. on the inputs each render gave them (the first call of its main pass
+  5. each render again, every K2 launch held bit for bit (t, idx) against
+     its plain version and the older K2, the first one's kernel timed in
+     turns with the older K2 and, on a mesh, with K2's builds whose
+     per-lane scan starts from other numbers of voters (and through the
+     wrapper), with its bound and the test iterations a warp of either
+     design runs; on the inputs each
+     render gave them (the first call of its main pass
      group, after the probe): every kernel's wrapper against its plain
      version, timed, with the bound computed from those inputs; K4 also
      bit for bit against the older K4 and, on cornell, the culled build
@@ -43,9 +51,9 @@ Phases (one line each, any failure stops the run):
      without residuals) and K8 (each bounce, and twice for bitwise
      repeatability) against their plain versions on the first step's
      inputs, timed, K7 also bit for bit against the older K7 and timed in
-     turns with it; the geometry pack's rebuild against its material
-     refresh; and the card's step against the CPU's on a 32^2 crop of
-     cornell 512^2;
+     turns with it; K2 on the first step's launch as in phase 5; the
+     geometry pack's rebuild against its material refresh; and the card's
+     step against the CPU's on a 32^2 crop of cornell 512^2;
   7. the regenerating training path: three make_sharded_train_step steps
      with passes_per_step=8 on suzanne 512^2 (K=16, depth 5: eight camera
      stages with K2, one K4 launch in replay mode forward, one K9 launch
@@ -59,7 +67,12 @@ Phases (one line each, any failure stops the run):
      the older K4's replay (bit for bit, timed in turns; see PREV_COMMIT),
      its tail-fraction sweep, and K9 against its plain
      version and twice for bitwise repeatability, on the first step's
-     inputs, timed; trace_passes_replay forward + backward with the feedback sort key chained across calls,
+     inputs, timed in turns with the older K9 (d_state0 bit-equal), both
+     walks' lane utilisation and sectors per request from the counts, and
+     two probes on both K9s (the lanes and their slots sorted by count; one
+     material);
+     K2 on the first step's eight launches as in phase 5;
+     trace_passes_replay forward + backward with the feedback sort key chained across calls,
      in ms per pass; the card's regen step against the CPU's on a 32^2
      crop of cornell 512^2; and ten steps of the train_demo (cornell 256^2,
      Adam, 16 passes per step);
@@ -73,7 +86,8 @@ Phases (one line each, any failure stops the run):
      spp twice, on the gate's route (resident) and with the gate lowered
      (stream: K6), the counters set to 0 just before each render and read
      just after (K4 in the one mode only; K6's launches are the stream
-     render's), the two images bit-equal; each of the stream render's
+     render's), the two images bit-equal; the resident render again with
+     K2 checked on every launch as in phase 5; each of the stream render's
      launches against the resident mode bit for bit, and its main launch
      against its plain version (K6's occupancy counted from it), against
      the older K4's stream mode (bit for bit, timed in turns), timed, with
@@ -102,12 +116,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-# The commit whose K4 (the unculled resident scan of 12 scalar loads a
-# Woop row, K6, the culled replay) and K7 (the unculled scan) the kernels
-# line's prev_ms times on the same inputs, in turns: its csrc comes from
-# --prev, from build/prev_csrc, or from `git archive` when the checkout has
-# that commit; without it prev_ms is null.
-PREV_COMMIT = "c238e3c"
+# The commit whose kernels the kernels line's prev_ms (K2: prev_kernel_ms,
+# the kernel alone, beside this K2's kernel_ms; its ms is through the
+# wrapper) times on the same inputs, in turns, and holds bit for bit
+# against this tree's: K2 (the per-thread scan, culled by FAN-8 chunk boxes
+# on meshes), K9 (one lane a thread, lanes in place) and K7 (its windows in
+# order), whose searches or walks this tree redesigned, and K4, which it did
+# not. Its csrc comes from --prev, from build/prev_csrc, or from `git
+# archive` when the checkout has that commit; without it prev_ms is null.
+PREV_COMMIT = "d1ba3fe"
 PREV_CSRC = os.path.join(ROOT, "build", "prev_csrc")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP32
@@ -127,9 +144,6 @@ OPS_SHADE = 200
 REPLAY_SLOT_BYTES = 13 * 4
 # passes per step of the regenerating training path (phase 7)
 S_REGEN = 8
-# the older K4's unculled resident scan is run on crossover scenes up to this
-# size (it takes ~4 s a launch at suzanne-sub3's 62,080 triangles)
-PREV_SCAN_MAX_TRIANGLES = 65_536
 # phase 8's crossover scenes (name@16:9: framed 16:9, as the CLI default)
 CROSSOVER_SCENES = ("cornell@16:9", "cornell", "suzanne", "suzanne-sub1", "suzanne-sub2",
                     "suzanne-sub3")
@@ -160,7 +174,7 @@ def smi_line() -> str:
 
 
 def prev_csrc(arg):
-    """The older K4's csrc directory (see PREV_COMMIT), or None."""
+    """The older kernels' csrc directory (see PREV_COMMIT), or None."""
     import io
     import tarfile
 
@@ -196,118 +210,211 @@ def start_builds(jobs, nvcc, flags):
     return builds
 
 
+# the older kernels built beside this tree's: kernel -> its source
+PREV_SOURCES = {"K4": "megakernel", "K7": "fused_bounces", "K2": "intersect",
+                "K9": "regen_replay_bwd"}
+
+
 def prev_jobs(csrc):
-    """The older megakernel.cu and fused_bounces.cu, each into its own
-    library under build/prev_kernels/."""
+    """The older kernels' sources (PREV_SOURCES), each into its own library
+    under build/prev_kernels/."""
     out = os.path.join(ROOT, "build", "prev_kernels")
     return [(csrc, src, os.path.join(out, f"libprev_{src}.so"), [])
-            for src in ("megakernel", "fused_bounces")]
+            for src in PREV_SOURCES.values()]
 
 
-def culled_job(csrc):
-    """This tree's megakernel.cu with -DPT3_K4_ONE_CHUNK_CULLED: a scene of
-    one chunk takes the culled warp search instead of the one-chunk scan
-    (csrc/megakernel.cu flat_fits), under build/alt_kernels/."""
-    return (csrc, "megakernel", os.path.join(ROOT, "build", "alt_kernels",
-                                             "libculled_megakernel.so"),
-            ["-DPT3_K4_ONE_CHUNK_CULLED"])
+# this tree's sources built again with a flag, each timed against the
+# default build on the same launches: name -> (source, flags, entry point)
+ALT_BUILDS = {
+    # K4: a scene of one chunk takes the culled warp search instead of the
+    # one-chunk scan (csrc/flat_scene.cuh flat_fits)
+    "culled": ("megakernel", ["-DPT3_K4_ONE_CHUNK_CULLED"], "pt3_regen_krng"),
+    # K2: the per-lane scan of a window from other numbers of agreeing
+    # lanes (33: never)
+    **{f"voters{v}": ("intersect", [f"-DPT3_THREAD_SCAN_VOTERS={v}"], "pt3_intersect")
+       for v in (8, 12, 16, 33)},
+}
 
 
-def load_culled(build):
-    """The library of culled_job, with this tree's K4 signature."""
+def alt_jobs(csrc):
+    """ALT_BUILDS' jobs, each into its own library under build/alt_kernels/."""
+    out = os.path.join(ROOT, "build", "alt_kernels")
+    return [(csrc, src, os.path.join(out, f"lib{name}_{src}.so"), flags)
+            for name, (src, flags, _) in ALT_BUILDS.items()]
+
+
+def load_alt(builds):
+    """ALT_BUILDS' libraries by name, each entry point with this tree's
+    signature, and their ptxas reports."""
     import ctypes
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    proc, lib = build
-    report, _ = proc.communicate()
-    if proc.returncode != 0:
-        fail(f"the build of {os.path.basename(lib)} failed:\n{report}")
-    handle = ctypes.CDLL(lib)
-    handle.pt3_regen_krng.argtypes = _cuda._SIGNATURES["pt3_regen_krng"]
-    handle.pt3_regen_krng.restype = ctypes.c_int
-    return handle
+    handles, reports = {}, []
+    for (name, (src, flags, entry)), (proc, lib) in zip(ALT_BUILDS.items(), builds):
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the build of {os.path.basename(lib)} failed:\n{report}")
+        reports.append(f"== {src}.cu {' '.join(flags)}\n{report}")
+        handles[name] = ctypes.CDLL(lib)
+        fn = getattr(handles[name], entry)
+        fn.argtypes = _cuda._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    return handles, "\n".join(reports)
 
 
 def load_prev(builds):
-    """The older K4's and K7's entry points: K4's argument list has no lane
-    queue, K7's no window boxes."""
+    """The older kernels' libraries by kernel (PREV_SOURCES), with their
+    ptxas reports. K4's and K7's entry points take this tree's arguments;
+    K2's takes the chunk boxes and a float live mask, K9's a zeroed
+    d_state0 and no s_count."""
     import ctypes
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    handles = []
-    for proc, lib in builds:
+    handles, reports = {}, []
+    for kernel, (proc, lib) in zip(PREV_SOURCES, builds):
         report, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"the build of the older {os.path.basename(lib)} failed:\n{report}")
-        handles.append(ctypes.CDLL(lib))
+        reports.append(f"== {PREV_SOURCES[kernel]}.cu\n{report}")
+        handles[kernel] = ctypes.CDLL(lib)
     P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    mk_lib, k7_lib = handles
-    mk_lib.pt3_regen_krng.argtypes = [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
-                                      P, P, P, P, P, P, P, P, P, P, P, I,
-                                      P, P, P, I, I, I, I, I, I, I, F, I, I, I, P]
-    k7_lib.pt3_fused_bounces.argtypes = [P, P, P, P, I, I, I, F, F, F,
-                                         P, P, P, P, P, P, P, P, P, P, I, I, F, I, P]
-    for fn in (mk_lib.pt3_regen_krng, k7_lib.pt3_fused_bounces):
+    sigs = {"K4": ("pt3_regen_krng", _cuda._SIGNATURES["pt3_regen_krng"]),
+            "K7": ("pt3_fused_bounces", _cuda._SIGNATURES["pt3_fused_bounces"]),
+            "K2": ("pt3_intersect", [P, P, P, P, I, I, I, I, P, P, P, P, P, I, F, I, P]),
+            "K9": ("pt3_regen_replay_bwd", [P, P, P, P, I, I, I, F, F, F, P, P, I, U, U, U,
+                                            I, P, P, P, P, P, P, P, I, P])}
+    for kernel, (name, argtypes) in sigs.items():
+        fn = getattr(handles[kernel], name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return {"K4": mk_lib, "K7": k7_lib}
+    return handles, "\n".join(reports)
 
 
-def prev_krng(prev, mk, args):
+# this tree's K4 and K7 launch functions as imported (main swaps the
+# module's names for hooks and for the older kernels)
+LAUNCH = {}
+
+
+@contextlib.contextmanager
+def swap_attr(obj, name, value):
+    """obj.name replaced by value for the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def prev_krng(prev, args):
     """One launch of the older K4 on the arguments of one
-    ``mk._regen_krng_cuda`` call: a resident launch runs its unculled scan
-    (no boxes), a stream launch K6 over the same windows, a replay launch
-    (one column per lane) its culled replay. Returns (acc, cnt, resid_out or
-    the replay slots)."""
+    ``mk._regen_krng_cuda`` call (the same entry point: the wrapper's launch
+    with the older library in place); a replay launch writes its slots into
+    a buffer of its own. Returns (acc, cnt, resid_out or the replay slots)."""
     import torch
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb, s_count, thresh, \
-        no_glossy, block, replay, stream = args
-    n = state0.shape[1]
-    dev = state0.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    acc = torch.empty((3, n), **f32)
-    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
-    res = torch.empty((12, n), **f32) if thresh else None
-    rres = torch.empty((s_count * nb, 13, n), **f32) if replay is not None else None
-    boxed = stream or replay is not None
-    win = (_cuda.ptr(pk.tri_win if stream else None), pk.wbox.data_ptr(), pk.wbox1.data_ptr(),
-           pk.n_windows, pk.n_groups, pk.window, pk.fan) if boxed else (0,) * 7
-    err = prev["K4"].pt3_regen_krng(
-        *mk._scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(),
-        amask.data_ptr(), state0.data_ptr(), _cuda.ptr(resid_in), acc.data_ptr(),
-        cnt.data_ptr(), _cuda.ptr(res), _cuda.ptr(rres), 0, 0, 0, n if replay is not None else 0,
-        *win, n, s_count, nb, float(eps), int(thresh), int(no_glossy), int(block),
-        _cuda.stream_ptr(dev))
-    _cuda.check(err, "older pt3_regen_krng")
-    return acc, cnt, (res if replay is None else rres[:, :, :replay.rres.shape[2]])
+    a = list(args)
+    replay = a[13] if len(a) > 13 else None
+    if replay is not None:
+        replay = a[13] = replay._replace(rres=torch.empty_like(replay.rres))
+    with swap_attr(_cuda, "_LIB", prev["K4"]):
+        acc, cnt, res = LAUNCH["K4"](*a)
+    return acc, cnt, (res if replay is None else replay.rres)
 
 
-def prev_k7(prev, mk, args):
-    """One launch of the older K7 (its unculled scan) on the arguments of
-    one ``mk._fused_bounces_cuda`` call; returns what that call returns."""
+def prev_k7(prev, args):
+    """One launch of the older K7 on the arguments of one
+    ``mk._fused_bounces_cuda`` call; returns what that call returns."""
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    with swap_attr(_cuda, "_LIB", prev["K7"]):
+        return LAUNCH["K7"](*args)
+
+
+def chunk_boxes(scene, packed):
+    """The older K2's culling tables: one box per 64-row chunk of the
+    Morton-ordered triangles (``box_tab`` [C, 8]: lo3 hi3 pad2, the chunk's
+    vertices, the last chunk padded with the last vertex) and one per FAN = 8
+    chunks (``box1_tab``), as the older ``PackedScene`` built them (the JAX
+    package's tables)."""
+    import torch
+
+    f32 = torch.float32
+    dev = packed.tri_tab.device
+    if not packed.n_tri:
+        return torch.zeros((1, 8), dtype=f32, device=dev), torch.zeros((1, 8), dtype=f32,
+                                                                        device=dev)
+    verts = scene.triangles.verts.to(f32).to(dev)
+    pad = packed.t_pad - packed.n_tri
+    if pad:
+        verts = torch.cat([verts, verts[-1:, -1:, :].expand(pad, 3, 3)], dim=0)
+    chunk = packed.chunk_rows
+    v = verts.reshape(-1, chunk * 3, 3)
+    lo, hi = v.min(dim=1).values, v.max(dim=1).values
+    zeros2 = lambda k: torch.zeros((k, 2), dtype=f32, device=dev)
+    n_c = lo.shape[0]
+    n_l1 = -(-n_c // 8)
+    inf = torch.full((n_l1 * 8 - n_c, 3), float("inf"), dtype=f32, device=dev)
+    lo1 = torch.cat([lo, inf]).reshape(n_l1, 8, 3).min(dim=1).values
+    hi1 = torch.cat([hi, -inf]).reshape(n_l1, 8, 3).max(dim=1).values
+    return (torch.cat([lo, hi, zeros2(n_c)], dim=1).contiguous(),
+            torch.cat([lo1, hi1, zeros2(n_l1)], dim=1).contiguous())
+
+
+def prev_k2_launch(prev, boxes, a):
+    """The older K2 alone on the arguments (packed, org, dirn, live, eps) of
+    one ``ik._intersect_cuda`` call, inputs converted and outputs allocated
+    once: (a function that launches it, its outputs (t, idx))."""
     import torch
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    pk, org, dirn, beta, alive, unif, eps, nb, with_residuals = args
-    n = org.shape[1]
+    packed, org, dirn, live, eps = a
     dev = org.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    acc = torch.empty((3, n), **f32)
-    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
-    res = ((torch.empty((13 * nb, n), **f32), torch.empty((nb, n), **f32),
-            torch.empty((nb, n), dtype=torch.int32, device=dev))
-           if with_residuals else (None, None, None))
-    err = prev["K7"].pt3_fused_bounces(
-        *mk._scene_ptrs(pk), org.data_ptr(), dirn.data_ptr(), beta.data_ptr(), alive.data_ptr(),
-        unif.data_ptr(), acc.data_ptr(), cnt.data_ptr(), *(_cuda.ptr(r) for r in res), n, nb,
-        float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev))
-    _cuda.check(err, "older pt3_fused_bounces")
-    return (acc, cnt, *res) if with_residuals else (acc, cnt)
+    org, dirn = org.float().contiguous(), dirn.float().contiguous()
+    live_f = live.float().contiguous()
+    n = org.shape[1]
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    box, box1 = boxes
+    args = (packed.tri_tab.data_ptr(), box.data_ptr(), box1.data_ptr(),
+            packed.sph_tab.data_ptr(), packed.n_tri, packed.n_sph, packed.t_pad,
+            int(box.shape[0]), org.data_ptr(), dirn.data_ptr(), live_f.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), n, float(eps), int(packed.n_tri > 2 * 64),
+            _cuda.stream_ptr(dev))
+    return lambda: _cuda.check(prev["K2"].pt3_intersect(*args), "older pt3_intersect"), (t, idx)
+
+
+def prev_k9(prev, mk, b9):
+    """The older K9 on the arguments (pk, lane_ids, key_words, sample0,
+    resid, cnt, acc_bar, s_count) of one ``mk.regen_replay_bwd`` call:
+    (d_state0, d_mat, d_env)."""
+    import torch
+
+    from pt_three_ways_tpu_torch.ops import _cuda
+    from pt_three_ways_tpu_torch.ops import kernel_rng as kr
+
+    pk, lane_ids, kw, sample0, resid, cnt, acc_bar, s_count = b9
+    lane_ids, cnt = lane_ids.to(torch.int32).contiguous(), cnt.to(torch.int32).contiguous()
+    resid, acc_bar = resid.float().contiguous(), acc_bar.float().contiguous()
+    n = acc_bar.shape[1]
+    dev = acc_bar.device
+    n_col = 9 * pk.n_mat + 3
+    seeds = kr.channel_seeds(int(kw[0]), int(kw[1]))
+    d_state0 = torch.zeros((s_count * 10, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_col, -(-n // 128)), dtype=torch.float32, device=dev)
+    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
+    err = prev["K9"].pt3_regen_replay_bwd(
+        *mk._scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
+        seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(), resid.data_ptr(),
+        cnt.data_ptr(), acc_bar.data_ptr(), d_state0.data_ptr(), partial.data_ptr(),
+        d_out.data_ptr(), n, _cuda.stream_ptr(dev))
+    _cuda.check(err, "older pt3_regen_replay_bwd")
+    return d_state0, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
 
 
 def ptxas_table(report):
@@ -340,7 +447,7 @@ def ptxas_table(report):
 
 
 def fmt_ms(ms) -> str:
-    return "not built" if ms is None else f"{ms:.3f}"
+    return "not built" if ms is None else f"{ms:.3f} ms"
 
 
 def k6_occupancy(mk, args, dev):
@@ -408,6 +515,115 @@ def k6_occupancy(mk, args, dev):
     return t0.elapsed_time(t1), out, occ
 
 
+def culled_walk_counts(ik, mk, box, box1, fan, packed, org, dirn, live, eps):
+    """The culled walk of each live ray over two-level boxes (``box`` [W, 8]:
+    one a window of 64 rows; ``box1``: one per ``fan`` windows), in window
+    order with the ray's running best_t (the unpacked rule: a window whose
+    entry is at or beyond best_t is skipped), from the plain search. Returns
+    (windows entered summed over the rays, windows any lane of a warp entered
+    summed over the warps of 32 consecutive rays, live rays). A per-thread
+    scan (the older K2) runs 64 test iterations a warp for each window any
+    of its lanes entered; the culled warp search 2 for each (ray, window)."""
+    import torch
+
+    r = org.shape[1]
+    pad = (-r) % 32
+    best_t, _ = ik.sphere_search_plain(packed, org, dirn, live, eps)
+    inv = mk._safe_recip(dirn)
+    lane_n = torch.zeros((r + pad,), dtype=torch.int64, device=org.device)
+    warp_n = torch.zeros((), dtype=torch.int64, device=org.device)
+    n_win = box.shape[0]
+    for g in range((n_win + fan - 1) // fan):
+        en = live & mk.window_enter_plain(box1[g], org, inv, best_t, eps, False)
+        if not bool(en.any()):
+            continue
+        for c in range(g * fan, min(g * fan + fan, n_win)):
+            e = en & mk.window_enter_plain(box[c], org, inv, best_t, eps, False)
+            sel = e.nonzero()[:, 0]
+            if sel.numel() == 0:
+                continue
+            ep = torch.cat([e, e.new_zeros(pad)])
+            lane_n += ep
+            warp_n += ep.reshape(-1, 32).any(dim=1).sum()
+            first = c * 64
+            ct, _ = ik.chunk_min_plain(packed.tri_tab[first:min(first + 64, packed.n_tri)],
+                                       first, org[:, sel], dirn[:, sel], eps, False)
+            best_t[sel] = torch.minimum(ct, best_t[sel])
+    return lane_n.sum().item(), warp_n.item(), int(live.sum().item())
+
+
+def near_walk_count(ik, mk, packed, org, dirn, live, eps):
+    """Windows scanned by K2's culled search (stream_tri.cuh:
+    culled_search_warp_near), summed over the live rays, from the plain
+    search: the level-1 boxes in order; inside an entered one, each ray's
+    entered windows nearest entry first, each scanned while its entry is
+    still before the ray's best_t."""
+    import torch
+
+    best, _ = ik.sphere_search_plain(packed, org, dirn, live, eps)
+    best = torch.where(live, best, torch.full_like(best, -float("inf")))
+    inv = mk._safe_recip(dirn)
+    scanned = torch.zeros((), dtype=torch.int64, device=org.device)
+    fan, n_win = packed.fan, packed.n_windows
+    for g in range(packed.n_groups):
+        eg = live & mk.window_enter_plain(packed.wbox1[g], org, inv, best, eps, False)
+        if not bool(eg.any()):
+            continue
+        sel = eg.nonzero()[:, 0]
+        o, d, iv, b = org[:, sel], dirn[:, sel], inv[:, sel], best[sel]
+        ws = range(g * fan, min(g * fan + fan, n_win))
+        tmin, ct, todo = [], [], []
+        for wi in ws:
+            box = packed.wbox[wi]
+            t0 = (box[0:3, None] - o) * iv
+            t1 = (box[3:6, None] - o) * iv
+            lo = torch.minimum(t0, t1).amax(dim=0)
+            hi = torch.maximum(t0, t1).amin(dim=0)
+            tmin.append(lo)
+            todo.append((hi >= torch.clamp(lo, min=eps)) & (lo < b))
+            first = wi * packed.window
+            rows = packed.tri_tab[first:min(first + packed.window, packed.n_tri)]
+            ct.append(ik.chunk_min_plain(rows, first, o, d, eps, False)[0])
+        tmin, ct, todo = torch.stack(tmin), torch.stack(ct), torch.stack(todo)
+        for _ in ws:
+            todo &= tmin < b[None, :]
+            if not bool(todo.any()):
+                break
+            near = torch.where(todo, tmin, torch.full_like(tmin, float("inf")))
+            pick = near.argmin(dim=0)
+            has = todo.any(dim=0)
+            scanned += has.sum()
+            cols = torch.arange(b.shape[0], device=b.device)
+            b = torch.where(has, torch.minimum(b, ct[pick, cols]), b)
+            todo[pick, cols] = False
+        best[sel] = b
+    return scanned.item()
+
+
+def k9_walk_stats(cnt, aligned=False):
+    """K9's walk over a lane's slots j = cnt - 1 ... 0 from the counts alone:
+    (lane utilisation, 32-B sectors per 13-row load request). Utilisation is
+    the lanes' slots over 32 times the slots of each warp's longest lane; a
+    request is one row of one iteration of one warp, and 8 consecutive lanes
+    share a sector of a row. Not ``aligned``: as the older K9 walked, lane L
+    at slot cnt_L - 1 - jj in iteration jj (a group of 8 lanes reads one
+    sector per distinct count); ``aligned``: the walk aligned on its warp's
+    longest lane, as this K9 does (a sector is read while one of its lanes
+    walks)."""
+    import torch
+
+    c = cnt.to(torch.int64)
+    c = torch.cat([c, c.new_zeros((-c.shape[0]) % 32)])
+    requests = max(c.reshape(-1, 32).max(dim=1).values.sum().item(), 1)
+    use = c.sum().item() / (32 * requests)
+    if aligned:
+        return use, c.reshape(-1, 8).max(dim=1).values.sum().item() / requests
+    g = torch.sort(c.reshape(-1, 8), dim=1).values
+    first = torch.ones_like(g, dtype=torch.bool)
+    first[:, 1:] = g[:, 1:] != g[:, :-1]
+    return use, (g * first).sum().item() / requests
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -441,6 +657,8 @@ def main(argv=None) -> int:
     from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
     from pt_three_ways_tpu_torch.ops import megakernel as mk
 
+    LAUNCH.update(K4=mk._regen_krng_cuda, K7=mk._fused_bounces_cuda)
+
     # ---- phase 1: card, versions, build --------------------------------
     smi = smi_line()
     nvcc = subprocess.run([_cuda.nvcc_path(), "--version"], capture_output=True,
@@ -450,16 +668,22 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda} nvcc '{nvcc}'")
     t0 = time.time()
     prev = prev_csrc(args.prev)
-    side = start_builds((prev_jobs(prev) if prev else []) + [culled_job(_cuda.CSRC)],
+    side = start_builds((prev_jobs(prev) if prev else []) + alt_jobs(_cuda.CSRC),
                         _cuda.nvcc_path(), _cuda.NVCC_FLAGS)
     report = _cuda.build()
-    prev_lib = load_prev(side[:-1]) if prev else None
-    culled_lib = load_culled(side[-1])
-    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K4 and K7 from {prev}; K4 with "
-          f"one-chunk scenes culled, -DPT3_K4_ONE_CHUNK_CULLED); ptxas "
-          f"(registers, spill bytes stored/loaded; megakernel.cu regen_krng_kernel<NO_GLOSSY, "
-          f"THRESH, RESUME, MODE>, MODE 0 culled, 1 replay, 2 stream, 3 one chunk): "
-          + " | ".join(ptxas_table(report)))
+    n_alt = len(ALT_BUILDS)
+    prev_lib, prev_report = load_prev(side[:-n_alt]) if prev else (None, "")
+    alt_lib, alt_report = load_alt(side[-n_alt:])
+    older = [r for r in ptxas_table(prev_report)
+             if r.startswith(("intersect.cu", "regen_replay_bwd.cu"))]
+    alt = [r for r in ptxas_table(alt_report) if not r.startswith("megakernel.cu")]
+    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K2, K4, K7 and K9 from {prev or 'nowhere: not built'}; "
+          f"this tree's again with {', '.join(f for _, fl, _ in ALT_BUILDS.values() for f in fl)}"
+          f"); ptxas (registers, spill bytes stored/loaded; megakernel.cu "
+          f"regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>, MODE 0 culled, 1 replay, 2 "
+          f"stream, 3 one chunk; intersect.cu intersect_kernel<FLAT>): "
+          + " | ".join(ptxas_table(report)) + " || the older K2 and K9: " + " | ".join(older)
+          + " || K2 with other voters: " + " | ".join(alt))
     _cuda.lib()
 
     # ---- helpers ---------------------------------------------------------
@@ -502,6 +726,25 @@ def main(argv=None) -> int:
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b), out
+
+    def k2_launch(a, lib=None):
+        """This tree's K2 alone (or the build ``lib`` of its source) on the
+        arguments (packed, org, dirn, live, eps) of one ``ik._intersect_cuda``
+        call, inputs converted and outputs allocated once: (a function that
+        launches it, its outputs (t, idx))."""
+        packed, org, dirn, live, eps = a
+        org, dirn = org.float().contiguous(), dirn.float().contiguous()
+        live = live.contiguous()
+        n = org.shape[1]
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        idx = torch.empty((n,), dtype=torch.int32, device=dev)
+        args = (packed.tri_tab.data_ptr(), packed.sph_tab.data_ptr(), packed.n_tri,
+                packed.n_sph, packed.t_pad, packed.wbox.data_ptr(), packed.wbox1.data_ptr(),
+                packed.n_windows, packed.n_groups, packed.window, packed.fan, org.data_ptr(),
+                dirn.data_ptr(), live.data_ptr(), t.data_ptr(), idx.data_ptr(), n, float(eps),
+                _cuda.stream_ptr(dev))
+        fn = (lib or _cuda.lib()).pt3_intersect
+        return lambda: _cuda.check(fn(*args), "pt3_intersect"), (t, idx)
 
     # each wrapper's launch, and the plain version with the same signature
     launchers = {"K2": (ik, "_intersect_cuda", ik.intersect_plain),
@@ -567,19 +810,14 @@ def main(argv=None) -> int:
 
     def cmp_k2(a, kw):
         """K2's wrapper on the card against the same call on its plain
-        version: (idx agreement, max |dt| where idx agrees, plain output)."""
+        version: t and idx bit-equal (fails otherwise)."""
         t_k, i_k = ik.intersect_packed(*a, **kw)
         with plain("K2"):
             t_p, i_p = ik.intersect_packed(*a, **kw)
         torch.cuda.synchronize()
-        agree = i_k == i_p
-        fin = agree & torch.isfinite(t_p)
-        rel = ((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs()).max().item() if bool(fin.any()) else 0.0
-        err = (t_k[fin] - t_p[fin]).abs().max().item() if bool(fin.any()) else 0.0
-        frac = agree.float().mean().item()
-        if frac < 0.999 or rel > 1e-5:
-            fail(f"K2 disagrees with its plain version: idx agree {frac}, t rel {rel}")
-        return frac, err, t_p
+        if not (torch.equal(t_k, t_p) and torch.equal(i_k, i_p)):
+            fail(f"K2 differs from its plain version: idx agree "
+                 f"{(i_k == i_p).float().mean().item()}")
 
     @contextlib.contextmanager
     def swapped(mod, name, fn):
@@ -613,9 +851,9 @@ def main(argv=None) -> int:
         return ", ".join(f"{k} {v:.2f} ms" for k, v in t.items())
 
     def run_culled(fn):
-        """fn() with K4's launches on the culled build (culled_job): a
+        """fn() with K4's launches on the culled build (ALT_BUILDS): a
         one-chunk scene takes the culled warp search."""
-        with swapped(_cuda, "_LIB", culled_lib):
+        with swapped(_cuda, "_LIB", alt_lib["culled"]):
             return fn()
 
     def k4_design(pk):
@@ -660,13 +898,13 @@ def main(argv=None) -> int:
 
     def crossover(names):
         """K4's resident mode (the one-chunk scan or the culled warp search)
-        against its stream mode (K6), against the older K4's resident scan
+        against its stream mode (K6), against the older K4's resident mode
         (PREV_COMMIT) and, on a one-chunk scene, against the culled warp
         search (the culled build) on the same inputs: each scene at 256 wide
         (16:9 as ``name@16:9``), K=16, depth 5, S=8; acc and counts
         bit-equal; timed in turns (resident, stream, older, culled; culled,
-        older, stream, resident), all but the older over two launches after
-        a warm-up, the older over one. Prints one line a scene and the gate
+        older, stream, resident), each over two launches after a warm-up.
+        Prints one line a scene and the gate
         the table implies; returns {tag: dict(a=launch arguments, ps=pack)}."""
         from pt_three_ways_tpu_torch.models.integrator import uses_stream
 
@@ -695,22 +933,22 @@ def main(argv=None) -> int:
             one_chunk = ps.n_tri <= ik.TC
             if one_chunk and not same_out(out_r, run_c()):
                 fail(f"K4's culled warp search differs from the one-chunk scan on {tag}")
-            ms = {"resident": [], "stream": [], "older": [], "culled": []}
+            runs = {"resident": run_r, "stream": run_s}
+            if one_chunk:
+                runs["culled"] = run_c
             same_prev = None
-            older = prev_lib is not None and scene.num_triangles <= PREV_SCAN_MAX_TRIANGLES
+            older = prev_lib is not None
             if older:
-                run_p = lambda: prev_krng(prev_lib, mk, kept[0])
-                same_prev = same_out(out_r, run_p())
+                runs["older"] = lambda: prev_krng(prev_lib, kept[0])
+                same_prev = same_out(out_r, runs["older"]())
                 if not same_prev:
                     fail(f"K4 resident differs from the older K4 on {tag}")
+            ms = {"resident": [], "stream": [], "older": [], "culled": []}
             for turn in (("resident", "stream", "older", "culled"),
                          ("culled", "older", "stream", "resident")):
                 for k in turn:
-                    if (k == "older" and not older) or (k == "culled" and not one_chunk):
-                        continue
-                    ms[k].append(events_ms({"resident": run_r, "stream": run_s,
-                                            "culled": run_c}[k], 2)
-                                 if k != "older" else events_ms(run_p, 1))
+                    if k in runs:
+                        ms[k].append(events_ms(runs[k], 2))
             ms = {k: (sum(v) / len(v) if v else None) for k, v in ms.items()}
             rows.append((scene.num_triangles, ms["stream"] / ms["resident"]))
             print(f"phase 8 route {tag} {w}x{h}: {scene.num_triangles} triangles, Woop table "
@@ -719,8 +957,8 @@ def main(argv=None) -> int:
                   f"({k4_design(ps)}) "
                   f"{ms['resident']:.3f} ms, K4 stream {ms['stream']:.3f} ms ({ps.n_windows} "
                   f"windows of {ps.window}), stream / resident "
-                  f"{ms['stream'] / ms['resident']:.3f}, the older K4's resident scan "
-                  f"{fmt_ms(ms['older']) + ' ms' if older else 'not run'}"
+                  f"{ms['stream'] / ms['resident']:.3f}, the older K4's resident mode "
+                  f"{fmt_ms(ms['older'])}"
                   + (f", the culled warp search {ms['culled']:.3f} ms (culled / one-chunk scan "
                      f"{ms['culled'] / ms['resident']:.3f})" if one_chunk else "")
                   + f"; acc and counts bit-equal (stream True, older K4 {same_prev}"
@@ -751,11 +989,11 @@ def main(argv=None) -> int:
         packed = ik.PackedScene(scene)
         org, dirn = camera_rays(scene, camera, params)
         k2 = ((packed, org, dirn, params.epsilon), {})
-        frac, err, _ = cmp_k2(*k2)
+        cmp_k2(*k2)
         ms = events_ms(lambda: ik.intersect_packed(*k2[0]), 20)
         with plain("K2"):
             pms, _ = once_ms(lambda: ik.intersect_packed(*k2[0]))
-        print(f"phase 2 K2 {name} 256^2: idx agree {frac:.6f} max|dt| {err:.3e} "
+        print(f"phase 2 K2 {name} 256^2: t and idx bit-equal to its plain version; "
               f"kernel {ms:.4f} ms plain {pms:.3f} ms")
     S, nb = 4, 4
     for name in ("cornell", "suzanne"):
@@ -895,6 +1133,7 @@ def main(argv=None) -> int:
     raw_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(raw_dir, exist_ok=True)
     launches = {}
+    render_inputs = {}
     for tag, name, params, expect in renders:
         path["tag"] = tag
         captured[tag] = {}
@@ -902,6 +1141,7 @@ def main(argv=None) -> int:
         camera = create_scene(sb, name, params)
         scene = sb.build()
         params = params.replace(epsilon=auto_epsilon(scene, camera))
+        render_inputs[tag] = (scene, camera, params)
         rays["camera"] = 0
         rays["bounce"].zero_()
         spans.clear()
@@ -959,32 +1199,37 @@ def main(argv=None) -> int:
     def search_ops(packed, org, dirn, live, t_win, eps):
         """FP32 operations of the least winner search this data needs:
         every sphere for each live ray and, where the scene has more than
-        one triangle leaf, every box test and the triangles of each leaf
-        whose box the ray enters before its winner; a one-leaf scene is a
-        full scan."""
+        one window, the box tests (every level-1 box; the window boxes of
+        each group the ray enters) and the triangles of each window whose
+        box the ray enters before its winner; a one-window scene is a full
+        scan."""
         org, dirn, t_win = org[:, live], dirn[:, live], t_win[live]
         r = org.shape[1]
-        n_leaf = packed.box_tab.shape[0]
-        if packed.n_tri == 0 or n_leaf == 1:
+        if packed.n_tri == 0 or packed.n_windows == 1:
             return r * full_scan_ops(packed)
         ops = r * packed.n_sph * OPS_SPHERE
-        tc = packed.chunk_rows
-        rows = (packed.n_tri - tc * torch.arange(n_leaf, device=org.device)).clamp(0, tc)
-        lo = packed.box_tab[:, 0:3].T[:, :, None]
-        hi = packed.box_tab[:, 3:6].T[:, :, None]
-        tri = 0
-        for j in range(0, r, 1 << 20):
-            o = org[:, None, j:j + (1 << 20)]
-            d = dirn[:, None, j:j + (1 << 20)]
+        w, fan = packed.window, packed.fan
+        n_w, n_g = packed.n_windows, packed.n_groups
+        rows = (packed.n_tri - w * torch.arange(n_w, device=org.device)).clamp(0, w)
+        in_group = (n_w - fan * torch.arange(n_g, device=org.device)).clamp(0, fan)
+        tri = boxes = 0
+        step = max(1, (1 << 24) // (n_w + n_g))
+        for j in range(0, r, step):
+            o = org[:, None, j:j + step]
+            d = dirn[:, None, j:j + step]
             inv = 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
-            t0_ = (lo - o) * inv
-            t1_ = (hi - o) * inv
-            tmin = torch.minimum(t0_, t1_).amax(dim=0)
-            tmax = torch.maximum(t0_, t1_).amin(dim=0)
-            enter = (tmax >= torch.clamp(tmin, min=eps)) & (tmin < t_win[None, j:j + (1 << 20)])
-            tri += int((enter.sum(dim=1) * rows).sum().item())
-        n_box = n_leaf + packed.box1_tab.shape[0]
-        return ops + r * n_box * OPS_SLAB + tri * OPS_TRIANGLE
+            tw = t_win[None, j:j + step]
+
+            def enter(tab):
+                t0_ = (tab[:, 0:3].T[:, :, None] - o) * inv
+                t1_ = (tab[:, 3:6].T[:, :, None] - o) * inv
+                tmin = torch.minimum(t0_, t1_).amax(dim=0)
+                tmax = torch.maximum(t0_, t1_).amin(dim=0)
+                return (tmax >= torch.clamp(tmin, min=eps)) & (tmin < tw)
+
+            tri += int((enter(packed.wbox).sum(dim=1) * rows).sum().item())
+            boxes += int((enter(packed.wbox1).sum(dim=1) * in_group).sum().item())
+        return ops + (r * n_g + boxes) * OPS_SLAB + tri * OPS_TRIANGLE
 
     @contextlib.contextmanager
     def counting_search(total):
@@ -1008,6 +1253,98 @@ def main(argv=None) -> int:
         calls = captured[tag].get(what, {})
         return list(calls.values())[-1] if calls else None
 
+    def k2_check(a, boxes):
+        """This tree's K2 on one launch's arguments (packed, org, dirn, live,
+        eps) against its plain version and the older K2: t and idx bit-equal
+        (fails otherwise). Returns the plain version's (ms, t, idx)."""
+        packed, org, dirn, live, eps = a
+        fn, (t_k, i_k) = k2_launch(a)
+        fn()
+        pms, (t_p, i_p) = once_ms(lambda: ik.intersect_plain(packed, org.float(), dirn.float(),
+                                                             live, eps))
+        same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        if prev_lib is not None:
+            fp, (t_o, i_o) = prev_k2_launch(prev_lib, boxes, a)
+            fp()
+            torch.cuda.synchronize()
+            same = same and torch.equal(t_k, t_o) and torch.equal(i_k, i_o)
+        if not same:
+            fail(f"K2 differs from its plain version or the older K2 on a launch of "
+                 f"{org.shape[1]} rays")
+        return pms, t_p, i_p
+
+    def k2_report(phase, tag, scene, a, n_launches, n_checked):
+        """K2 on one launch's arguments: bit for bit against its plain
+        version and the older K2; the kernels alone timed in turns (this,
+        older, the voter builds on a mesh, and back; 20 launches each:
+        kernel_ms, prev_kernel_ms), this one also through its wrapper,
+        intersect_packed (ms); the bound from this launch's data; the test
+        iterations a warp of the older per-thread scan and of this warp
+        search run. Records checks['K2'][tag] and prints one line."""
+        packed, org, dirn, live, eps = a
+        boxes = chunk_boxes(scene, packed)
+        pms, t_p, i_p = k2_check(a, boxes)
+        flat = packed.n_tri <= ik.TC
+        runs = {"this": k2_launch(a)[0]}
+        if prev_lib is not None:
+            runs["older"] = prev_k2_launch(prev_lib, boxes, a)[0]
+        voters = ""
+        if not flat:  # the per-lane scan's threshold (ALT_BUILDS), bit-equal
+            for v in (k for k in ALT_BUILDS if k.startswith("voters")):
+                runs[v], (t_v, i_v) = k2_launch(a, alt_lib[v])
+                runs[v]()
+                torch.cuda.synchronize()
+                if not (torch.equal(t_v, t_p) and torch.equal(i_v, i_p)):
+                    fail(f"K2 built with {ALT_BUILDS[v][1][0]} differs from its plain version")
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(events_ms(runs[k], 20))
+        ms = {k: sum(v) / len(v) for k, v in ms.items()}
+        ms.setdefault("older", None)
+        if not flat:
+            voters = "; the kernel alone with the per-lane scan from N voters, in turns: " \
+                + ", ".join(f"{k[6:]} {v:.4f} ms" for k, v in ms.items() if k[:6] == "voters")
+        ms_wrap = events_ms(lambda: ik.intersect_packed(packed, org, dirn, eps, live), 20)
+        ops = search_ops(packed, org, dirn, live, t_p, eps)
+        b, by = bound(nbytes(org, dirn, live, packed.tri_tab, packed.sph_tab, packed.wbox,
+                             packed.wbox1) + 8 * org.shape[1], ops)
+        walk = ""
+        if not flat:
+            lanes_o, warps_o, n_live = culled_walk_counts(ik, mk, *boxes, 8, packed, *a[1:])
+            lanes_n = near_walk_count(ik, mk, packed, *a[1:])
+            walk = (f"; the older per-thread scan: lane utilisation "
+                    f"{lanes_o / max(32 * warps_o, 1):.4f}, {lanes_o / n_live:.2f} chunks a live "
+                    f"ray; this search: {lanes_n / n_live:.2f} windows a live ray, nearest first")
+        checks["K2"][tag] = dict(launches=n_launches, max_abs_err=0.0, ms=ms_wrap,
+                                 plain_ms=pms, bound_ms=b, bound_by=by, kernel_ms=ms["this"],
+                                 prev_kernel_ms=ms["older"])
+        print(f"phase {phase} K2 {tag} R={org.shape[1]} "
+              f"({'one-chunk scan' if flat else 'culled warp search'}): t and idx bit-equal to "
+              f"its plain version{' and the older K2' if prev_lib is not None else ''} on "
+              f"{n_checked} of {n_launches} launches; "
+              f"the kernel alone {ms['this']:.4f} ms in turns with the older K2 "
+              f"{fmt_ms(ms['older'])}; through the wrapper {ms_wrap:.4f} ms; plain "
+              f"{pms:.2f} ms; bound {b:.4f} ms ({by}){walk}{voters}", flush=True)
+
+    def k2_check_render(scene, camera, params):
+        """The render again, every K2 launch checked with k2_check; returns
+        (launches checked, the first launch's arguments)."""
+        orig = ik._intersect_cuda
+        boxes, seen = {}, []
+
+        def hook(*a):
+            out = orig(*a)
+            if not seen:
+                boxes["b"] = chunk_boxes(scene, a[0])
+            seen.append(a if not seen else None)
+            k2_check(a, boxes["b"])
+            return out
+
+        with swap_attr(ik, "_intersect_cuda", hook):
+            render(scene, camera, params, device="cuda")
+        torch.cuda.synchronize()
+        return len(seen), seen[0]
+
     def vs_prev_k4(a, kw):
         """The K4 wrapper call (a, kw) on this tree's kernel, on the older one
         (PREV_COMMIT) in its place and, on a one-chunk scene, on the culled
@@ -1026,7 +1363,7 @@ def main(argv=None) -> int:
         run = lambda: wrappers["K4"](*a, **kw)
         eq = None
         if prev_lib is not None:
-            eq = all(same_out(launch(*k), prev_krng(prev_lib, mk, k)) for k in kept)
+            eq = all(same_out(launch(*k), prev_krng(prev_lib, k)) for k in kept)
         one_chunk = a[0].n_tri <= ik.TC
         if one_chunk and not all(same_out(launch(*k), run_culled(lambda: launch(*k)))
                                  for k in kept):
@@ -1035,7 +1372,7 @@ def main(argv=None) -> int:
         del kept
 
         def run_prev():
-            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, mk, x)):
+            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, x)):
                 return wrappers["K4"](*a, **kw)
 
         others = {"older": run_prev if prev_lib is not None else None,
@@ -1072,23 +1409,10 @@ def main(argv=None) -> int:
 
     checks = {"K2": {}, "K5": {}, "K4": {}}
     for tag, _, _, _ in renders:
-        # K2: the render's first camera-stage launch
-        a, kw = main_group(tag, "K2")
-        packed, org, dirn, eps = a
-        frac, err, t_p = cmp_k2(a, kw)
-        ms = events_ms(lambda: ik.intersect_packed(*a, **kw), 20)
-        with plain("K2"):
-            pms, _ = once_ms(lambda: ik.intersect_packed(*a, **kw))
-        live = kw.get("live")
-        live = torch.ones_like(t_p, dtype=torch.bool) if live is None else live
-        ops = search_ops(packed, org, dirn, live, t_p, eps)
-        b, by = bound(nbytes(org, dirn, live, packed.tri_tab, packed.box_tab,
-                             packed.box1_tab, packed.sph_tab) + 8 * org.shape[1], ops)
-        checks["K2"][tag] = dict(launches=launches[tag]["K2"], max_abs_err=err, ms=ms,
-                                 plain_ms=pms, bound_ms=b, bound_by=by)
-        print(f"phase 5 K2 {tag} R={org.shape[1]} cull={packed.n_tri > 2 * ik.TC}: "
-              f"idx agree {frac:.6f} max|dt| {err:.3e} kernel {ms:.4f} ms "
-              f"plain {pms:.2f} ms bound {b:.4f} ms ({by})")
+        # K2: every launch of the render run again, checked; the first timed
+        n_checked, a2 = k2_check_render(*render_inputs[tag])
+        k2_report(5, tag, render_inputs[tag][0], a2, launches[tag]["K2"], n_checked)
+        del a2
 
         for kernel in ("K5", "K4"):
             call = main_group(tag, kernel)
@@ -1121,7 +1445,7 @@ def main(argv=None) -> int:
                          f"bit-equal to the older K4 (acc, counts, continuation state of each "
                          f"launch) {same_prev}, to its plain version "
                          f"{no_bits if pk.no_glossy else 'n/a (glossy: sinf/cosf)'}; older K4 "
-                         f"{fmt_ms(prev_ms)} ms in turns"
+                         f"{fmt_ms(prev_ms)} in turns"
                          + (f", the culled warp search (bit-equal) {culled_ms:.3f} ms in turns "
                             f"(culled / one-chunk scan {culled_ms / ms:.3f})"
                             if culled_ms is not None else "")
@@ -1134,7 +1458,7 @@ def main(argv=None) -> int:
             live_bounces = int(out_p[1].sum().item())
             # a bounce searches like K2 (leaves entered before its winner)
             search = [live_bounces * full_scan_ops(pk)]
-            if pk.box_tab.shape[0] > 1 and pk.n_tri > 0:
+            if pk.n_windows > 1 and pk.n_tri > 0:
                 search = [0]
                 with plain(kernel), counting_search(search):
                     wrappers[kernel](*a, **kw)
@@ -1169,7 +1493,8 @@ def main(argv=None) -> int:
         scene, camera, params, key, px, py = a[:6]
         t0 = time.time()
         host = integ._first_bounce_state(scene.to("cpu"), camera.to("cpu"), params, key,
-                                         px.cpu(), py.cpu(), *a[6:], **kw)
+                                         px.cpu(), py.cpu(), *a[6:],
+                                         **{k: v for k, v in kw.items() if k != "packed"})
         cpu_s += time.time() - t0
         card_ms += ms
         st_c, st_h = card[0].cpu(), host[0]
@@ -1227,7 +1552,7 @@ def main(argv=None) -> int:
     # and the first step's K7/K8 wrapper calls (replay's names for them)
     tspans = []
     marks = {}
-    tcapt = {"K7": [], "K8": []}
+    tcapt = {"K7": [], "K8": [], "K2": []}
     trestore = []
 
     def patch(mod, name, hook):
@@ -1263,6 +1588,7 @@ def main(argv=None) -> int:
     patch(replay, "fused_bounces", capture_first("K7", replay.fused_bounces))
     patch(replay, "bounce_bwd_step", capture_first("K8", replay.bounce_bwd_step))
     patch(train, "_grads", grads_hook(train._grads))
+    patch(ik, "_intersect_cuda", capture_first("K2", ik._intersect_cuda))
 
     state = TrainState(mats0, tcam, 0)
     losses = []
@@ -1347,7 +1673,7 @@ def main(argv=None) -> int:
         fail("K7 differs from its plain version (acc, counts, states, t, idx)")
     same_prev7 = ms7_prev = None
     if prev_lib is not None:
-        same_prev7 = same_out(out_k, prev_k7(prev_lib, mk, kept7[0]))
+        same_prev7 = same_out(out_k, prev_k7(prev_lib, kept7[0]))
         if not same_prev7:
             fail("K7 differs from the older K7 (acc, counts, states, t, idx)")
     idx_ok = (out_k[4] == out_p[4]).all(dim=0) & (out_k[1] == out_p[1])
@@ -1367,7 +1693,7 @@ def main(argv=None) -> int:
     ms = events_ms(run7, 3)
     if prev_lib is not None:
         def run7_prev():
-            with swapped(mk, "_fused_bounces_cuda", lambda *x: prev_k7(prev_lib, mk, x)):
+            with swapped(mk, "_fused_bounces_cuda", lambda *x: prev_k7(prev_lib, x)):
                 return mk.fused_bounces(*a, **kw)
 
         ms7_prev = (events_ms(run7_prev, 3) + events_ms(run7_prev, 3)) / 2
@@ -1376,7 +1702,7 @@ def main(argv=None) -> int:
     pk7 = a[0]
     live7 = int(out_p[1].sum().item())
     search = [live7 * full_scan_ops(pk7)]
-    if pk7.box_tab.shape[0] > 1 and pk7.n_tri > 0:
+    if pk7.n_windows > 1 and pk7.n_tri > 0:
         search = [0]
         with plain("K7"), counting_search(search):
             mk.fused_bounces(*a, **kw)
@@ -1389,8 +1715,8 @@ def main(argv=None) -> int:
           f"{frac:.6f} max|dacc| {err:.3e}, residuals on agreeing lanes max|d| {res_err:.3e} "
           f"(without residuals: lanes {frac_nr:.6f} max|dacc| {err_nr:.3e}); acc, counts, "
           f"states, t and idx bit-equal to its plain version {same_plain7} and to the older "
-          f"K7 {same_prev7}; kernel {ms:.3f} ms in turns with the older K7 "
-          f"{fmt_ms(ms7_prev)} ms ({ms_nr:.3f} without residuals) plain {pms:.1f} ms bound "
+          f"K7 {same_prev7}; kernel {ms:.3f} ms in turns with the older K7 (windows in order) "
+          f"{fmt_ms(ms7_prev)} ({ms_nr:.3f} without residuals) plain {pms:.1f} ms bound "
           f"{b7:.3f} ms ({by7}; residual bytes {nbytes(*out_k[2:]) / 1e9:.3f} GB); live "
           f"bounces {live7}")
     # the geometry's pack: built once per train step builder, its material
@@ -1444,6 +1770,9 @@ def main(argv=None) -> int:
         launches=tlaunch["K8"], max_abs_err=max(r["max_abs_err"] for r in k8),
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=max(k8, key=lambda r: r["bound_ms"])["bound_by"])}
+    # K2: the first step's launch (every step's camera stage has the same
+    # inputs: the same key, pixels and camera)
+    k2_report(6, "train", tscene, tcapt["K2"][0][0], tlaunch["K2"], len(tcapt["K2"]))
     del tcapt, out_k, out_p, kern_nr
 
     # the card's step against the CPU's on a 32^2 crop of cornell 512^2
@@ -1515,6 +1844,9 @@ def main(argv=None) -> int:
     patch(replay, "regen_replay_bwd", capture_regen(
         "K9", replay.regen_replay_bwd, lambda a, kw: a[6].cpu()))  # acc_bar
     patch(train, "_grads", grads_hook(train._grads))
+    rcapt["K2"] = []
+    patch(ik, "_intersect_cuda", capture_regen(
+        "K2", ik._intersect_cuda, lambda a, kw: rcapt["K2"] + [host(a)]))
 
     state = TrainState(mats0, tcam, 0)
     losses = []
@@ -1605,7 +1937,7 @@ def main(argv=None) -> int:
         mk.regen_replay_bwd(*b9), mk.regen_replay_bwd(*b9[:4], out_c[2], out_c[1], *b9[6:])))
     same_prev4 = None
     if prev_lib is not None:
-        out_f = prev_krng(prev_lib, mk, args4)
+        out_f = prev_krng(prev_lib, args4)
         torch.cuda.synchronize()
         same_prev4 = (torch.equal(out_f[1], cnt_k) and torch.equal(out_f[0], out_k[0])
                       and bool(torch.where(real, res_k == out_f[2], True).all()))
@@ -1649,7 +1981,7 @@ def main(argv=None) -> int:
     ms4_prev = None
     if prev_lib is not None:
         def run4_prev():
-            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, mk, x)):
+            with swapped(mk, "_regen_krng_cuda", lambda *x: prev_krng(prev_lib, x)):
                 return mk.fused_passes_krng(*a4, **kw4)
 
         ms4_prev = sum(events_ms(run4_prev, 3) for _ in range(2)) / 2
@@ -1702,18 +2034,83 @@ def main(argv=None) -> int:
     if not (bitwise9 and finite9 and max(rel) <= 1e-5):
         fail(f"K9 disagrees with its plain version: bitwise {bitwise9}, finite {finite9}, "
              f"relative max|d| (d_state0, d_mat, d_env) {rel}")
-    ms9 = events_ms(lambda: mk.regen_replay_bwd(*b9), 3)
+    # in turns with the older K9 (PREV_COMMIT) on the same call (this, older,
+    # older, this): d_state0 bit-equal to the older K9's; d_mat and d_env are
+    # summed in another order, so their last bits may move
+    run9 = lambda: mk.regen_replay_bwd(*b9)
+    run9_prev = (lambda: prev_k9(prev_lib, mk, b9)) if prev_lib is not None else None
+    same_prev9, prev_rel9 = None, [None, None]
+    if run9_prev is not None:
+        o6 = run9_prev()
+        torch.cuda.synchronize()
+        same_prev9 = torch.equal(o1[0], o6[0])
+        prev_rel9 = [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                     for x, y in zip(o1[1:], o6[1:])]
+        del o6
+        if not same_prev9:
+            fail("K9's d_state0 differs from the older K9's")
+    ms9 = {"this": [], "older": []}
+    for k in ("this", "older", "older", "this"):
+        if k == "this" or run9_prev is not None:
+            ms9[k].append(events_ms(run9 if k == "this" else run9_prev, 3))
+    ms9, ms9_prev = (sum(v) / len(v) if v else None for v in (ms9["this"], ms9["older"]))
+    # the walks' lane utilisation and sectors per request, from the counts
+    walk, walk_prev = k9_walk_stats(cnt_k, aligned=True), k9_walk_stats(cnt_k)
+    print(f"phase 7 K9 walk on the step's call: utilisation {walk[0]:.4f}, sectors a request "
+          f"{walk[1]:.3f} (aligned on each warp's longest lane); the older K9's "
+          f"{walk_prev[0]:.4f}, {walk_prev[1]:.3f} (4 a full coalesced warp)", flush=True)
+    # what held the older K9 back, each K9 in turns: the same call with the
+    # lanes (and their slots) sorted by count; with every primitive on
+    # material 0 (one material's sums an iteration in the older K9); the
+    # zeroed d_state0 the older K9 needs, alone
+    import copy
+
+    perm = torch.argsort(-cnt_k.to(torch.int64), stable=True)
+    b9s = (pk4, lanes4[perm], a4[3], a4[4], res_k[:, :, perm], cnt_k[perm], acc_bar[:, perm], sc4)
+    o_s = mk.regen_replay_bwd(*b9s)
+    same_sorted = torch.equal(o_s[0], o1[0][:, perm])
+    del o_s
+    pk1 = copy.copy(pk4)
+    pk1.tri_mat, pk1.sph_mat = torch.zeros_like(pk4.tri_mat), torch.zeros_like(pk4.sph_mat)
+    b9o = (pk1,) + b9[1:]
+    probe = {}
+    for label, args9 in (("sorted", b9s), ("one material", b9o)):
+        runs = {"this": lambda: mk.regen_replay_bwd(*args9)}
+        if prev_lib is not None:
+            runs["older"] = lambda: prev_k9(prev_lib, mk, args9)
+        t9 = {k: [] for k in runs}
+        for k in ("this", "older", "older", "this"):
+            if k in runs:
+                t9[k].append(events_ms(runs[k], 3))
+        probe[label] = {k: sum(v) / len(v) for k, v in t9.items()}
+    del b9s, b9o, pk1, perm, args9, runs
+    ms_zero = events_ms(lambda: torch.zeros((sc4 * 10, lanes4.shape[0]), device=dev), 3)
+    fmt_p = lambda d: (f"{d['this']:.3f} ms (the older K9 {fmt_ms(d.get('older'))})")
+    print(f"phase 7 K9 probes: the lanes and their slots sorted by count: K9 "
+          f"{fmt_p(probe['sorted'])}, d_state0 bit-equal, permuted: {same_sorted}; every "
+          f"primitive on material 0: K9 {fmt_p(probe['one material'])} (scene materials "
+          f"{pk4.n_mat}); the older K9's zeroed d_state0 alone {ms_zero:.3f} ms", flush=True)
     b9_, by9 = bound(slots * REPLAY_SLOT_BYTES + nbytes(cnt_k, lanes4, acc_bar, *o1)
                      + nbytes(pk4.tri_attr, pk4.sph_attr, pk4.tri_mat, pk4.sph_mat),
                      n_hit * OPS_BWD_HIT + (slots - n_hit) * OPS_BWD_MISS)
     checks["K9"] = {"regen-train": dict(launches=rlaunch["K9"], max_abs_err=err9, ms=ms9,
-                                        plain_ms=pms9, bound_ms=b9_, bound_by=by9)}
+                                        plain_ms=pms9, bound_ms=b9_, bound_by=by9,
+                                        prev_ms=ms9_prev)}
+    rel_prev = ", ".join("n/a" if x is None else f"{x:.2e}" for x in prev_rel9)
     print(f"phase 7 K9 N={lanes4.shape[0]} S={sc4}: bitwise repeat {bitwise9}; max|d| "
-          f"relative to the largest: d_state0 {rel[0]:.2e} (of {scales[0]:.3e}), d_mat "
-          f"{rel[1]:.2e} (of {scales[1]:.3e}), d_env {rel[2]:.2e} (of {scales[2]:.3e}); "
-          f"kernel {ms9:.3f} ms plain {pms9:.1f} ms bound {b9_:.3f} ms ({by9}); hit / "
-          f"live-miss slots {n_hit} / {slots - n_hit}")
-    del o1, out_k, res_k, b9, a4, rcapt
+          f"relative to the largest of the plain version (float64 adjoint and sums): "
+          f"d_state0 {rel[0]:.2e} (of {scales[0]:.3e}), d_mat {rel[1]:.2e} (of "
+          f"{scales[1]:.3e}), d_env {rel[2]:.2e} (of {scales[2]:.3e}); against the older K9: "
+          f"d_state0 bit-equal {same_prev9}, d_mat / d_env relative {rel_prev}; kernel "
+          f"{ms9:.3f} ms in turns with the older K9 {fmt_ms(ms9_prev)}, plain {pms9:.1f} ms, "
+          f"bound {b9_:.3f} ms ({by9}); hit / live-miss slots {n_hit} / {slots - n_hit}")
+    # K2: the first step's eight camera stages (the later steps repeat them)
+    k2_runs = [tuple(x.to(dev) if torch.is_tensor(x) else x for x in a2)
+               for a2 in rcapt["K2"]]
+    for a2 in k2_runs[1:]:
+        k2_check(a2, chunk_boxes(tscene, a2[0]))
+    k2_report(7, "regen-train", tscene, k2_runs[0], rlaunch["K2"], len(k2_runs))
+    del o1, out_k, res_k, b9, a4, rcapt, k2_runs
     torch.cuda.empty_cache()
 
     # (f) trace_passes_replay forward + backward per pass, the feedback sort
@@ -1899,6 +2296,12 @@ def main(argv=None) -> int:
           "render's bit for bit (radiance sums and sample counts)", flush=True)
     del out, out_s
     torch.cuda.empty_cache()
+    # K2 on every launch of the sub3 render, run again (the stream render's
+    # camera stages are the resident render's)
+    n_checked, a2 = k2_check_render(sscene, scam, sparams)
+    k2_report(8, "sub3", sscene, a2, launches["sub3"]["K2"], n_checked)
+    del a2
+    torch.cuda.empty_cache()
 
     # (4) K6 on the stream render's own launch inputs. Each launch again in
     # the stream mode and in the resident mode: acc, counts and the
@@ -1931,7 +2334,7 @@ def main(argv=None) -> int:
     run6 = lambda: mk._regen_krng_cuda(*main6)
     ms6_prev = same_prev6 = None
     if prev_lib is not None:
-        run6_prev = lambda: prev_krng(prev_lib, mk, main6)
+        run6_prev = lambda: prev_krng(prev_lib, main6)
         o_f = run6_prev()
         torch.cuda.synchronize()
         same_prev6 = same_out(o_k, o_f)
@@ -1992,7 +2395,7 @@ def main(argv=None) -> int:
             sweep6[f"{window}x{fan}"] = round(events_ms(lambda: mk._regen_krng_cuda(*aw), 3), 3)
             del pw, aw, ow
     print(f"phase 8 K6 window x fan sweep on that launch (ms, each bit-equal): {sweep6}; "
-          f"default {mk.STREAM_WINDOW}x{mk.STREAM_FAN}", flush=True)
+          f"default {ik.WINDOW}x{ik.WINDOW_FAN}", flush=True)
     del k4_calls, main6, ps, ref, sscene
     torch.cuda.empty_cache()
 

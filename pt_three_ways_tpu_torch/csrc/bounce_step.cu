@@ -43,7 +43,7 @@ bounce_step_kernel(pt3::SceneView s, const float* __restrict__ state_in,
     const pt3::Ray r{st[0], st[1], st[2], st[3], st[4], st[5]};
     float t;
     int idx;
-    pt3::winner_search<false, false>(s, r, eps, nullptr, nullptr, t, idx);
+    pt3::winner_search<false>(s, r, eps, t, idx);
     const bool hit = isfinite(t) && t > 0.0f;
     if (!hit) {
       acc[0] = acc[0] + st[6] * s.env[0];

@@ -9,11 +9,11 @@
 // each bounce's input state [13 * nb, N] and winner record (t [nb, N],
 // idx [nb, N]).
 //
-// The winner search is culled: stream_tri.cuh culled_search_warp<false>
+// The winner search is culled: stream_tri.cuh culled_search_warp_near, K2's,
 // over the window boxes of a PackedSceneStream (level-1 boxes, then 64-row
-// windows, each entered (ray, window) pair's tests spread over the warp),
-// with the unpacked rule, so the winners are the unculled scan's bit for
-// bit. The warp runs all nb bounces together; a thread past n stays in it
+// windows nearest entry first, each entered (ray, window) pair's tests
+// spread over the warp), with the unpacked rule, so the winners are the
+// unculled scan's bit for bit. The warp runs all nb bounces together; a thread past n stays in it
 // as an inactive lane (the search's shuffles and ballots take the full
 // warp).
 //

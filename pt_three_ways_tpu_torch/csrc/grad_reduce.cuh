@@ -3,11 +3,13 @@
 // (regen_replay_bwd.cu). No float atomics: the same inputs give
 // bit-identical gradients on every run.
 //
-//   * warp_add_grads: per warp, one butterfly shuffle sum per material
-//     present in the warp (materials visited in lane order) and one per
-//     environment channel, which lane 0 adds into the warp's row of shared
+//   * warp_add_grads (K8, once a bounce; K9 at the end of its walk, and for
+//     a material that finds no accumulator of its thread): per warp, one
+//     butterfly shuffle sum per material present in the warp (materials
+//     visited in lane order, warp_add_mat) and one per environment channel
+//     (warp_add_env), which lane 0 adds into the warp's row of shared
 //     memory ([9 * n_mat + 3] floats: materials row-major, then the
-//     environment). Every lane of the warp must call it.
+//     environment). Every lane of the warp must call them.
 //   * block_partials: a block's warp rows summed in warp order into column
 //     blockIdx.x of a [9 * n_mat + 3, blocks] partial table.
 //   * reduce_columns_kernel: one block per column sums its partials in a
@@ -27,24 +29,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void warp_add_grads(const BwdOut& o, float* ws, int n_mat) {
+// The warp's environment gradient g3 added into its row (lane 0).
+__device__ __forceinline__ void warp_add_env(const float* g3, float* ws, int n_mat) {
   const int wl = threadIdx.x & 31;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float v = warp_sum(o.g_env[c]);
+    const float v = warp_sum(g3[c]);
     if (wl == 0) ws[9 * n_mat + c] = ws[9 * n_mat + c] + v;
   }
-  unsigned todo = __ballot_sync(kFullMask, o.mat >= 0);
+}
+
+// Each lane's material gradient g9 of material `mat` (-1: none) added into
+// the warp's row: one sum per material present, in order of the lowest lane
+// that holds it.
+__device__ __forceinline__ void warp_add_mat(int mat, const float* g9, float* ws, int n_mat) {
+  const int wl = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(kFullMask, mat >= 0);
   while (todo) {
-    const int m = __shfl_sync(kFullMask, o.mat, __ffs(todo) - 1);
-    const bool mine = o.mat == m;
+    const int m = __shfl_sync(kFullMask, mat, __ffs(todo) - 1);
+    const bool mine = mat == m;
     todo &= ~__ballot_sync(kFullMask, mine);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      const float v = warp_sum(mine ? o.g_mat[k] : 0.0f);
+      const float v = warp_sum(mine ? g9[k] : 0.0f);
       if (wl == 0) ws[9 * m + k] = ws[9 * m + k] + v;
     }
   }
+}
+
+__device__ __forceinline__ void warp_add_grads(const BwdOut& o, float* ws, int n_mat) {
+  warp_add_env(o.g_env, ws, n_mat);
+  warp_add_mat(o.mat, o.g_mat, ws, n_mat);
 }
 
 __device__ __forceinline__ void block_partials(const float* smem, int n_warps, int n_col,

@@ -10,7 +10,7 @@
 // pt3_device.cuh's.
 //
 // K4's resident mode has one design per kind of scene, chosen by the
-// launch from the scene (flat_fits): FLAT, for a scene of at most one 64-row
+// launch from the scene (flat_scene.cuh: flat_fits): FLAT, for a scene of at most one 64-row
 // chunk (cornell: 38 triangles and a sphere), stages the Woop, sphere and
 // attribute rows in shared memory once per block and scans them per thread
 // as warp-uniform broadcasts (three float4 a Woop row): every ray tests every
@@ -74,7 +74,7 @@
 // CULLED's and REPLAY's, are capped so that 8 blocks of 128 fit an SM (64
 // registers: occupancy, not arithmetic, set K6's time on the H100).
 #include "kernel_rng.cuh"
-#include "pt3_device.cuh"
+#include "flat_scene.cuh"
 #include "stream_tri.cuh"
 
 namespace {
@@ -114,7 +114,7 @@ __device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
                                                float eps, float& t, int& idx) {
   L.cnt += 1;
   const pt3::Ray r{L.st[0], L.st[1], L.st[2], L.st[3], L.st[4], L.st[5]};
-  pt3::winner_search<false, false>(s, r, eps, nullptr, nullptr, t, idx);
+  pt3::winner_search<false>(s, r, eps, t, idx);
   return finish_search(s, L, t);
 }
 
@@ -272,43 +272,6 @@ constexpr int kFlat = 3;
 constexpr int kMaxBlock = 128;
 constexpr int kCappedMinBlocks = 8;
 
-// FLAT's shared memory: Woop rows, sphere rows, sphere attributes, then
-// triangle attributes (each table's offset 16-byte aligned but the last).
-struct FlatLayout {
-  int tri, sph, sph_attr, tri_attr, total;  // floats
-};
-
-__host__ __device__ inline FlatLayout flat_layout(int n_tri, int n_sph) {
-  FlatLayout L;
-  L.tri = 0;
-  L.sph = 12 * n_tri;
-  L.sph_attr = L.sph + 8 * n_sph;
-  L.tri_attr = L.sph_attr + pt3::kSphAttr * n_sph;
-  L.total = L.tri_attr + pt3::kTriAttr * n_tri;
-  return L;
-}
-
-// The block copies the scene tables into shared memory (FLAT) and returns
-// the view that reads them there.
-__device__ __forceinline__ pt3::SceneView flat_stage(const pt3::SceneView& s, float* sm) {
-  const FlatLayout L = flat_layout(s.n_tri, s.n_sph);
-  for (int i = threadIdx.x; i < L.total; i += blockDim.x) {
-    float v;
-    if (i < L.sph) v = __ldg(s.tri + i);
-    else if (i < L.sph_attr) v = __ldg(s.sph + (i - L.sph));
-    else if (i < L.tri_attr) v = __ldg(s.sph_attr + (i - L.sph_attr));
-    else v = __ldg(s.tri_attr + (i - L.tri_attr));
-    sm[i] = v;
-  }
-  __syncthreads();
-  pt3::SceneView v = s;
-  v.tri = sm + L.tri;
-  v.sph = sm + L.sph;
-  v.sph_attr = sm + L.sph_attr;
-  v.tri_attr = sm + L.tri_attr;
-  return v;
-}
-
 // REPLAY: the lane's slot for this iteration (slot cnt), rows (j * 13 + r)
 // * rres_n + col; writes the input state rows.
 __device__ __forceinline__ float* replay_slot_open(const KrngLane& K, const KrngArgs& a) {
@@ -336,7 +299,7 @@ __device__ __forceinline__ void krng_bounce_flat(const pt3::SceneView& s, KrngLa
   int idx;
   K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
-  pt3::winner_search<true, false, true>(s, r, a.eps, nullptr, nullptr, t, idx);
+  pt3::winner_search<true, true>(s, r, a.eps, t, idx);
   const bool hit = finish_search(s, K.L, t);
   krng_shade_refill<NO_GLOSSY, true>(s, K, a, lane, hit, t, idx);
 }
@@ -352,7 +315,7 @@ __device__ __forceinline__ void krng_bounce_culled(const pt3::SceneView& s, Krng
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
   float t;
   int idx;
-  pt3::culled_search_warp<true>(s, a.w, r, active, a.eps, t, idx);
+  pt3::culled_search_warp(s, a.w, r, active, a.eps, t, idx);
   if (!active) return;
   const bool hit = finish_search(s, K.L, t);
   if (SLOTS) replay_slot_close(slot, K, a, hit, t, idx);
@@ -531,10 +494,10 @@ __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const K
 
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
 __device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s_in, const KrngArgs& a) {
-  // STREAM: stream_layout; FLAT: flat_layout
+  // STREAM: stream_layout; FLAT: pt3::flat_layout
   extern __shared__ __align__(16) unsigned char smem[];
   const pt3::SceneView s =
-      MODE == kFlat ? flat_stage(s_in, reinterpret_cast<float*>(smem)) : s_in;
+      MODE == kFlat ? pt3::flat_stage<true>(s_in, reinterpret_cast<float*>(smem)) : s_in;
   if constexpr (!THRESH && MODE != kStream)
     krng_lane_queue<NO_GLOSSY, RESUME, MODE>(s, a);
   else
@@ -597,24 +560,10 @@ cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, int mode, bool thre
     case kFlat:
       return launch_krng_mode<NO_GLOSSY, kFlat>(
           s, a, thresh, resume, grid, block,
-          flat_layout(s.n_tri, s.n_sph).total * sizeof(float), st);
+          pt3::flat_layout(s.n_tri, s.n_sph).total * sizeof(float), st);
     default:
       return launch_krng_mode<NO_GLOSSY, kCulled>(s, a, thresh, resume, grid, block, 0, st);
   }
-}
-
-// FLAT takes a scene of at most one chunk whose tables fit the default 48 KB
-// of shared memory. Built with -DPT3_K4_ONE_CHUNK_CULLED (chip_smoke.py's
-// second build of this file), such a scene takes the culled warp search
-// instead, so that the two designs are timed on the same launches.
-bool flat_fits(int n_tri, int n_sph) {
-#ifdef PT3_K4_ONE_CHUNK_CULLED
-  (void)n_tri;
-  (void)n_sph;
-  return false;
-#else
-  return n_tri <= pt3::kTc && flat_layout(n_tri, n_sph).total * sizeof(float) <= 48 * 1024;
-#endif
 }
 
 }  // namespace
@@ -665,7 +614,7 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
   const bool boxed = wbox != nullptr;  // STREAM, or the culled search's boxes
   const int mode = replay ? kReplay
                    : stream_mode ? kStream
-                   : flat_fits(n_tri, n_sph) ? kFlat
+                   : pt3::flat_fits(n_tri, n_sph) ? kFlat
                    : kCulled;
   // a window and its second buffer live in dynamic shared memory (opted in
   // above 48 KB; 1024 rows double-buffered take 96 KB)

@@ -4,8 +4,8 @@
 // One thread owns one ray / path lane. Scene tables stay in global memory
 // and are read with __ldg (read-only cache; a Woop row as three float4); at
 // catalog scene sizes they sit in L1/L2. With SMEM the same functions read a
-// copy of the tables that the kernel staged in shared memory (K4's one-chunk
-// mode). Arithmetic mirrors the plain PyTorch versions operation for
+// copy of the tables that the kernel staged in shared memory (the one-chunk
+// design of K2 and K4, flat_scene.cuh). Arithmetic mirrors the plain PyTorch versions operation for
 // operation (ops/intersect_kernel.py: winner_search_plain,
 // ops/megakernel.py: _shade_plain); with -fmad=false every product and sum is
 // rounded on its own, division and sqrtf are IEEE, so kernel and plain
@@ -26,8 +26,7 @@ constexpr float kNormFloor = 0x1.4484c0p-100f;   // float32(1e-30)
 constexpr float kMirrorEps = 0x1.12e0bep-30f;    // float32(1e-9)
 constexpr float kCoincident = 0x1.fff2e4p-1f;    // float32(0.9999)
 constexpr float kSafeDir = 0x1.79ca10p-67f;      // float32(1e-20)
-constexpr int kTc = 64;   // triangles per chunk (box-hierarchy leaf)
-constexpr int kFan = 8;   // leaves per level-1 node
+constexpr int kTc = 64;   // triangles per chunk (and per culling window)
 constexpr int kTriAttr = 30;
 constexpr int kSphAttr = 12;
 
@@ -169,51 +168,23 @@ __device__ __forceinline__ void slab_range(const float* box, const Ray& r, float
   tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
 }
 
-// Conservative ray/box test: can this ray improve best_t inside the box?
-__device__ __forceinline__ bool slab_test(const float* box, const Ray& r,
-                                          float idx_, float idy, float idz,
-                                          float best_t, float eps) {
-  float tmin, tmax;
-  slab_range(box, r, idx_, idy, idz, tmin, tmax);
-  return tmax >= fmaxf(tmin, eps) && tmin < best_t;
-}
-
 __device__ __forceinline__ float safe_dir(float d) {
   return fabsf(d) > kSafeDir ? d : kSafeDir;
 }
 
-// Nearest hit of one live ray. Returns best_t (+inf: miss) and the packed
-// index (triangles [0, T), spheres [T, T+S)). CULL walks the two-level box
-// hierarchy (box: [C, 8] leaves, box1: [ceil(C/8), 8] nodes).
-template <bool PACKED, bool CULL, bool SMEM = false>
+// Nearest hit of one live ray by a scan of every primitive. Returns best_t
+// (+inf: miss) and the packed index (triangles [0, T), spheres [T, T+S)).
+// The culled searches are stream_tri.cuh's, over a PackedSceneStream's
+// window boxes; they find the same winner.
+template <bool PACKED, bool SMEM = false>
 __device__ __forceinline__ void winner_search(const SceneView& s, const Ray& r,
-                                              float eps, const float* box,
-                                              const float* box1, float& best_t,
-                                              int& best_i) {
+                                              float eps, float& best_t, int& best_i) {
   best_t = kInf;
   best_i = 0;
   sphere_search<SMEM>(s, r, eps, best_t, best_i);
-  if (s.n_tri <= 0) return;
   const int tc = min(s.t_pad, kTc);
-  if (!CULL) {
-    for (int c0 = 0; c0 < s.n_tri; c0 += tc)
-      triangle_chunk<PACKED, SMEM>(s, r, eps, c0, tc, best_t, best_i);
-    return;
-  }
-  const float idx_ = 1.0f / safe_dir(r.dx);
-  const float idy = 1.0f / safe_dir(r.dy);
-  const float idz = 1.0f / safe_dir(r.dz);
-  const int n_tc = s.t_pad / tc;
-  const int n_l1 = (n_tc + kFan - 1) / kFan;
-  for (int node = 0; node < n_l1; ++node) {
-    if (!slab_test(box1 + 8 * node, r, idx_, idy, idz, best_t, eps)) continue;
-    const int leaves = min(kFan, n_tc - node * kFan);
-    for (int j = 0; j < leaves; ++j) {
-      const int c = node * kFan + j;
-      if (!slab_test(box + 8 * c, r, idx_, idy, idz, best_t, eps)) continue;
-      triangle_chunk<PACKED>(s, r, eps, c * tc, tc, best_t, best_i);
-    }
-  }
+  for (int c0 = 0; c0 < s.n_tri; c0 += tc)
+    triangle_chunk<PACKED, SMEM>(s, r, eps, c0, tc, best_t, best_i);
 }
 
 __device__ __forceinline__ void normalise3(float& x, float& y, float& z) {

@@ -3,7 +3,8 @@
 //   K7 fused_bounces_lane: nb bounces of one sample pass from uniform
 //      tables, optionally writing the path-replay residuals (each bounce's
 //      input state and winner record), the winner from the culled warp
-//      search (stream_tri.cuh culled_search_warp<false>);
+//      search with the unpacked winner (stream_tri.cuh
+//      culled_search_warp_near, K2's);
 //   K8 bounce_bwd_lane: the adjoint of one shading bounce, written by hand
 //      in reverse mode, at a saved input state and winner.
 //
@@ -50,7 +51,7 @@ __device__ __forceinline__ void fused_bounces_lane(
     const Ray r{st[0], st[1], st[2], st[3], st[4], st[5]};
     float t;
     int idx;
-    culled_search_warp<false>(s, w, r, live, eps, t, idx);
+    culled_search_warp_near(s, w, r, live, eps, t, idx);
     bool hit = false;
     if (live) {
       cnt += 1;

@@ -59,11 +59,11 @@
 // attribute row is one indexed load after the search, as in the resident
 // kernel (the TPU kernel's in-loop attribute capture is not carried over).
 //
-// culled_search_warp (K4's resident and replay modes, packed; K7,
-// unpacked): each lane walks the same hierarchy for its own ray, box by box
-// with __ldg and no block barrier, and the warp spreads each entered (ray,
-// window) pair's tests over its 32 lanes, as the stream search does over
-// the block.
+// culled_search_warp (K4's resident and replay modes, packed) and
+// culled_search_warp_near (K2 and K7, unpacked): each lane walks the same
+// hierarchy for its own ray, box by box with __ldg and no block barrier,
+// and the warp spreads each entered (ray, window) pair's tests over its 32
+// lanes, as the stream search does over the block.
 #pragma once
 
 #include "pt3_device.cuh"
@@ -309,23 +309,54 @@ __device__ __forceinline__ void stream_search(const SceneView& s, const StreamVi
   }
 }
 
-// The culled search of K4's resident and replay modes (PACKED) and of K7
-// (unpacked), its triangle tests compacted over the warp. Every lane of the
+// The warp tests the n <= 64 rows from c0 against ray q, two rows a lane
+// as three float4 __ldg each, and returns on every lane the chunk's winner
+// (ct: +inf on no hit; ci: its triangle): one warp minimum of the packed
+// (t_bits & ~63) | row (PACKED), or two: the minimum of t's bits (a valid t
+// is > eps > 0 or +inf, so its bits order as integers), then the lowest
+// row among the lanes that hold it (unpacked: the exact minimum, the lowest
+// row on ties).
+template <bool PACKED>
+__device__ __forceinline__ void warp_chunk_min(const float4* rows, int c0, int n,
+                                               const Ray& q, float eps, int lane, float& ct,
+                                               int& ci) {
+  const unsigned full = 0xFFFFFFFFu;
+  unsigned cp = 0x7FFFFFFFu;  // PACKED: (t_bits & ~63) | row; else t's bits
+  int row = kTc;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    if (j < n) {
+      const float4* p = rows + 3 * (c0 + j);
+      const float4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
+      const unsigned tb = __float_as_uint(
+          woop_hit_t(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y, d.z, d.w, q, eps));
+      if (PACKED) {
+        cp = min(cp, (tb & ~63u) | (unsigned)j);
+      } else if (tb < cp) {  // the lower row (h = 0) keeps a tie
+        cp = tb;
+        row = j;
+      }
+    }
+  }
+  const unsigned m = __reduce_min_sync(full, cp);
+  if (!PACKED) row = (int)__reduce_min_sync(full, cp == m ? (unsigned)row : kTc);
+  ct = __uint_as_float(PACKED ? m & ~63u : m);
+  ci = c0 + (PACKED ? (int)(m & 63u) : row);
+}
+
+// The culled search of K4's resident and replay modes, with the packed
+// winner, its triangle tests compacted over the warp. Every lane of the
 // warp must call it. Each `active` lane runs the sphere search, then walks
 // the level-1 boxes and, inside each one it enters, the window boxes in
-// order (window_enter<PACKED> against its own best_t, boxes read with
+// order (window_enter<true> against its own best_t, boxes read with
 // __ldg); per window the warp ballots the lanes that entered it and, for
-// each of them in turn, tests the window's chunks against that lane's ray
-// (shuffled to the warp), two rows a lane as three float4 __ldg each. A
-// chunk's winner is one warp minimum of the packed (t_bits & ~63) | row
-// (PACKED), or two: the minimum of t's bits (a valid t is > eps > 0 or
-// +inf, so its bits order as integers), then the lowest row among the lanes
-// that hold it (unpacked: the exact minimum, the lowest row on ties). The
-// lane applies its chunk minima in chunk order with the resident rule
-// (strict ct < best_t). Returns (best_t, best_i) as winner_search<PACKED,
-// false> does, bit for bit. A warp pays for the (ray, window) pairs its
-// rays need, not 64 rows a lane for every window any of its rays enters.
-template <bool PACKED>
+// each of them in turn, finds the window's chunk minima for that lane's ray
+// (shuffled to the warp; warp_chunk_min). The lane applies its chunk minima
+// in chunk order with the resident rule (strict ct < best_t). Returns
+// (best_t, best_i) as winner_search<true> does, bit for bit. A warp pays
+// for the (ray, window) pairs its rays need, not 64 rows a lane for every
+// window any of its rays enters.
 __device__ __forceinline__ void culled_search_warp(const SceneView& s, const StreamView& w,
                                                    const Ray& r, bool active, float eps,
                                                    float& best_t, int& best_i) {
@@ -342,12 +373,12 @@ __device__ __forceinline__ void culled_search_warp(const SceneView& s, const Str
   const float4* rows = reinterpret_cast<const float4*>(s.tri);
   for (int g = 0; g < w.n_groups; ++g) {
     const bool eg =
-        active && window_enter<PACKED>(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps);
+        active && window_enter<true>(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps);
     if (!__any_sync(full, eg)) continue;
     const int w1 = min((g + 1) * w.fan, w.n_windows);
     for (int wi = g * w.fan; wi < w1; ++wi) {
       unsigned voters = __ballot_sync(
-          full, eg && window_enter<PACKED>(w.wbox + 8 * wi, r, idx_, idy, idz, best_t, eps));
+          full, eg && window_enter<true>(w.wbox + 8 * wi, r, idx_, idy, idz, best_t, eps));
       const int base = wi * w.window;
       const int end = min(base + w.window, s.n_tri);
       for (; voters; voters &= voters - 1) {
@@ -356,31 +387,131 @@ __device__ __forceinline__ void culled_search_warp(const SceneView& s, const Str
                     __shfl_sync(full, r.oz, src), __shfl_sync(full, r.dx, src),
                     __shfl_sync(full, r.dy, src), __shfl_sync(full, r.dz, src)};
         for (int c0 = base; c0 < end; c0 += tc) {
-          const int n = min(tc, end - c0);
-          unsigned cp = 0x7FFFFFFFu;  // PACKED: (t_bits & ~63) | row; else t's bits
-          int row = kTc;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = lane + 32 * h;
-            if (j < n) {
-              const float4* p = rows + 3 * (c0 + j);
-              const float4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
-              const unsigned tb = __float_as_uint(woop_hit_t(
-                  a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y, d.z, d.w, q, eps));
-              if (PACKED) {
-                cp = min(cp, (tb & ~63u) | (unsigned)j);
-              } else if (tb < cp) {  // the lower row (h = 0) keeps a tie
-                cp = tb;
-                row = j;
-              }
-            }
-          }
-          const unsigned m = __reduce_min_sync(full, cp);
-          if (!PACKED) row = (int)__reduce_min_sync(full, cp == m ? (unsigned)row : kTc);
-          const float ct = __uint_as_float(PACKED ? m & ~63u : m);
+          float ct;
+          int ci;
+          warp_chunk_min<true>(rows, c0, min(tc, end - c0), q, eps, lane, ct, ci);
           if (lane == src && ct < best_t) {
             best_t = ct;
-            best_i = c0 + (PACKED ? (int)(m & 63u) : row);
+            best_i = ci;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The culled search of K2 and K7, with the unpacked winner:
+// culled_search_warp's walk (the level-1 boxes in order, each entered
+// (ray, window) pair's 64 tests spread over the warp), but inside a
+// level-1 box each lane scans its windows nearest entry first, dropping
+// those whose entry is no longer before its best_t: rays through a mesh
+// leave the windows behind their hit unscanned. In each round every lane
+// with a window left picks its nearest one; when at least
+// kThreadScanVoters lanes picked the first voter's window (coherent camera
+// rays mostly do), each of them scans that window for its own ray, one row
+// a step, and the warp spreads the remaining picked (ray, window) pairs one
+// by one. A chunk's minimum is taken when strictly nearer, or at the same t
+// with a lower triangle index while best_i is a triangle (spheres keep
+// their ties): the winner is the lowest index at the least t in any order,
+// that of winner_search<false>, bit for bit. A window is dropped only when
+// its widened box's entry is at or beyond best_t, and every hit inside
+// lies beyond the entry (the margin), so no window that holds a triangle
+// at t <= best_t is dropped. chip_smoke.py builds intersect.cu again with
+// other values of -DPT3_THREAD_SCAN_VOTERS (33: no per-lane scan) and
+// times them against this one on K2's launches.
+#ifndef PT3_THREAD_SCAN_VOTERS
+#define PT3_THREAD_SCAN_VOTERS 24
+#endif
+constexpr int kThreadScanVoters = PT3_THREAD_SCAN_VOTERS;
+
+__device__ __forceinline__ void culled_search_warp_near(const SceneView& s,
+                                                        const StreamView& w, const Ray& r,
+                                                        bool active, float eps, float& best_t,
+                                                        int& best_i) {
+  best_t = kInf;
+  best_i = 0;
+  if (active) sphere_search(s, r, eps, best_t, best_i);
+  if (s.n_tri <= 0) return;
+  const unsigned full = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const float idx_ = 1.0f / safe_dir(r.dx);
+  const float idy = 1.0f / safe_dir(r.dy);
+  const float idz = 1.0f / safe_dir(r.dz);
+  const int tc = min(s.t_pad, kTc);
+  const float4* rows = reinterpret_cast<const float4*>(s.tri);
+  for (int g = 0; g < w.n_groups; ++g) {
+    const bool eg =
+        active && window_enter<false>(w.wbox1 + 8 * g, r, idx_, idy, idz, best_t, eps);
+    if (!__any_sync(full, eg)) continue;
+    const int w0 = g * w.fan;
+    const int nw = min(w.fan, w.n_windows - w0);
+    unsigned todo = 0;  // this lane's windows of the group left to scan
+    if (eg)
+      for (int j = 0; j < nw; ++j)
+        if (window_enter<false>(w.wbox + 8 * (w0 + j), r, idx_, idy, idz, best_t, eps))
+          todo |= 1u << j;
+    for (;;) {
+      int pick = -1;
+      float nearest = kInf;
+      for (unsigned mm = todo; mm; mm &= mm - 1) {
+        const int j = __ffs(mm) - 1;
+        float tmin, tmax;
+        slab_range(w.wbox + 8 * (w0 + j), r, idx_, idy, idz, tmin, tmax);
+        if (!(tmin < best_t)) todo &= ~(1u << j);
+        else if (tmin < nearest) {
+          nearest = tmin;
+          pick = j;
+        }
+      }
+      unsigned voters = __ballot_sync(full, pick >= 0);
+      if (!voters) break;
+      if (pick >= 0) todo &= ~(1u << pick);
+      // a window picked by most of the warp is scanned by each of those
+      // lanes for its own ray (the rows are warp-uniform loads): 64 tests a
+      // lane, against about 2.8 a lane per ray spread over the warp
+      const int first = __shfl_sync(full, pick, __ffs(voters) - 1);
+      const unsigned same = __ballot_sync(full, pick == first);
+      if (__popc(same) >= kThreadScanVoters) {
+        voters &= ~same;
+        if ((same >> lane) & 1u) {
+          const int base = (w0 + first) * w.window;
+          const int end = min(base + w.window, s.n_tri);
+          for (int c0 = base; c0 < end; c0 += tc) {
+            const int c1 = min(c0 + tc, end);
+            float ct = kInf;
+            int ci = 0;
+            for (int j = c0; j < c1; ++j) {
+              const float4* p = rows + 3 * j;
+              const float4 a = __ldg(p), b = __ldg(p + 1), d = __ldg(p + 2);
+              const float t = woop_hit_t(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, d.x, d.y,
+                                         d.z, d.w, r, eps);
+              if (t < ct) {  // the lowest row keeps a tie
+                ct = t;
+                ci = j;
+              }
+            }
+            if (ct < best_t || (ct == best_t && best_i < s.n_tri && ci < best_i)) {
+              best_t = ct;
+              best_i = ci;
+            }
+          }
+        }
+      }
+      for (; voters; voters &= voters - 1) {
+        const int src = __ffs(voters) - 1;
+        const Ray q{__shfl_sync(full, r.ox, src), __shfl_sync(full, r.oy, src),
+                    __shfl_sync(full, r.oz, src), __shfl_sync(full, r.dx, src),
+                    __shfl_sync(full, r.dy, src), __shfl_sync(full, r.dz, src)};
+        const int base = (w0 + __shfl_sync(full, pick, src)) * w.window;
+        const int end = min(base + w.window, s.n_tri);
+        for (int c0 = base; c0 < end; c0 += tc) {
+          float ct;
+          int ci;
+          warp_chunk_min<false>(rows, c0, min(tc, end - c0), q, eps, lane, ct, ci);
+          if (lane == src &&
+              (ct < best_t || (ct == best_t && best_i < s.n_tri && ci < best_i))) {
+            best_t = ct;
+            best_i = ci;
           }
         }
       }

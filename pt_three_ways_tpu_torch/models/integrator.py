@@ -32,6 +32,7 @@ import torch
 from ..ops import rng
 from ..ops.camera import Camera, generate_rays
 from ..ops.intersect import Hits, intersect_scene
+from ..ops.intersect_kernel import PackedScene
 from ..ops.vecmath import (
     EPSILON as _VEPS,
     Onb,
@@ -146,11 +147,13 @@ class PathState(NamedTuple):
 
 
 def bounce(scene, state: PathState, u, v, p, eps: float, tri_chunk: int,
-           backend: str = "xla", kill_dead: bool = True) -> PathState:
+           backend: str = "xla", kill_dead: bool = True, packed=None) -> PathState:
     """One wavefront bounce: intersect all live paths, accumulate emission /
-    environment, sample continuation directions (dead lanes are masked)."""
+    environment, sample continuation directions (dead lanes are masked).
+    ``packed``: the scene's ``PackedScene`` for the kernel backend."""
     hits = intersect_scene(
-        scene, state.org, state.dirn, eps, tri_chunk, backend, live=state.alive
+        scene, state.org, state.dirn, eps, tri_chunk, backend, live=state.alive,
+        packed=packed,
     )
     return bounce_from_hits(scene, state, hits, u, v, p, kill_dead)
 
@@ -236,9 +239,10 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     dev = px.device
 
     backend = resolve_intersector(params, dev)
+    packed = PackedScene(scene) if backend == "kernel" else None  # K2's, once a pass
     cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
     org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend)
+    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=packed)
     mat0 = gather_materials(scene.materials, hits0.mat_id)
 
     miss_colour = scene.environment[:, None].expand(3, r0)
@@ -272,7 +276,7 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     for d in range(1, n_bounces + 1):
         bu = _bounce_uniforms(key, d, r0 * k, dev)
         state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
-                       kill_dead=params.kill_dead_paths)
+                       kill_dead=params.kill_dead_paths, packed=packed)
 
     path_mean = state.acc.reshape(3, r0, k).mean(dim=2)
     hit_colour = mat0.emission + path_mean
@@ -280,7 +284,7 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
 
 
 def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
-                        want_unif: bool = True):
+                        want_unif: bool = True, packed=None):
     """Camera stage + stratified K expansion for ONE sample pass.
 
     Returns (state_rows [10, R*K] = org3/dir3/beta3/alive1,
@@ -288,6 +292,8 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
              unif_rows [4*nb, R*K] (u, acos u, v, p) per depth) — on the same
     RNG streams as trace_pass, so the regenerating megakernel reproduces its
     estimator. ``want_unif=False`` (in-kernel RNG) skips the tables.
+    ``packed``: the scene's pack for K2 (built by ``intersect_scene`` when
+    None).
     """
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
@@ -298,7 +304,7 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
 
     cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
     org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend)
+    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=packed)
     mat0 = gather_materials(scene.materials, hits0.mat_id)
 
     miss_colour = scene.environment[:, None].expand(3, r0)
@@ -359,7 +365,8 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     launch's per-lane live-bounce counts (in unsorted lane order).
     ``packed``: a prebuilt ``PackedSceneFused`` for this scene (a
     ``PackedSceneStream`` for the in-kernel-RNG K4: its window boxes cull
-    the card's search, or feed K6 where the scene streams).
+    the card's search, or feed K6 where the scene streams); the camera
+    stages' K2 launches search it too.
     """
     from ..ops import kernel_rng
     from ..ops.megakernel import (
@@ -387,7 +394,7 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
         st_rows, base, unif_rows = _first_bounce_state(
             scene, camera, params, key, px, py, tri_chunk, "kernel",
-            want_unif=not use_krng,
+            want_unif=not use_krng, packed=packed,
         )
         base_sum = base_sum + base
         states.append(st_rows)
@@ -465,7 +472,7 @@ def trace_passes_compact(scene, camera, params: RenderParams, base_key, sample0:
     for s in range(n_passes):
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
         st_rows, base, unif_rows = _first_bounce_state(
-            scene, camera, params, key, px, py, tri_chunk, "kernel")
+            scene, camera, params, key, px, py, tri_chunk, "kernel", packed=packed)
         if nb == 0:
             total = total + base
             continue

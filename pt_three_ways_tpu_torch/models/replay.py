@@ -230,9 +230,10 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
 
     # camera + first hit + stratified K expansion: the streams and math of
     # integrator.trace_pass (zero-throughput kill on)
+    geo = packed if packed is not None else PackedSceneStream(scene)
     cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
     org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend)
+    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=geo)
     mat0 = gather_materials(scene.materials, hits0.mat_id)
     miss_colour = scene.environment[:, None].expand(3, r0)
     if params.preview:
@@ -258,7 +259,6 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     else:
         unifs = bounce_rows(key, nb, r0 * k, dev).reshape(nb, 4, r0 * k)
         m = scene.materials
-        geo = packed if packed is not None else PackedSceneStream(scene)
         acc = _Chain.apply(m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
                            scene.environment, state0_rows, unifs, scene, geo, nb, float(eps),
                            kernel_bwd)
@@ -422,12 +422,14 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
     k = params.first_bounce_samples
     r0 = px.shape[0]
 
+    geo = packed if packed is not None else PackedSceneStream(scene)
     base_sum = torch.zeros((3, r0), device=dev)
     states = []
     for s in range(n_passes):
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
         st_rows, base, _ = _first_bounce_state(scene, camera, params, key, px, py,
-                                               tri_chunk, "kernel", want_unif=False)
+                                               tri_chunk, "kernel", want_unif=False,
+                                               packed=geo)
         base_sum = base_sum + base
         states.append(st_rows)
     nrays = torch.tensor(n_passes * r0, dtype=torch.int64, device=dev)
@@ -448,7 +450,6 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
         diff = (m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
                 scene.environment, state0)
         eps = float(params.epsilon)
-        geo = packed if packed is not None else PackedSceneStream(scene)
         if torch.is_grad_enabled() and any(x.requires_grad for x in diff):
             acc, cnt = _RegenChain.apply(*diff, lane_ids, kw, sample0, order, inv, scene, geo,
                                          nb, n_passes, eps, kernel_bwd)

@@ -40,9 +40,9 @@ U = ctypes.c_uint
 
 # entry point -> argument types (all return int: the cudaError_t)
 _SIGNATURES = {
-    # tri, box, box1, sph, n_tri, n_sph, t_pad, n_box, org, dir, live,
-    # t_out, idx_out, n, eps, cull, stream
-    "pt3_intersect": [P, P, P, P, I, I, I, I, P, P, P, P, P, I, F, I, P],
+    # tri, sph, n_tri, n_sph, t_pad, wbox, wbox1, n_windows, n_groups,
+    # window, fan, org, dir, live, t_out, idx_out, n, eps, stream
+    "pt3_intersect": [P, P, I, I, I, P, P, I, I, I, I, P, P, P, P, P, I, F, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # state0, nexta, unif, acc, cnt, n, s_count, nb, eps, no_glossy, stream
     "pt3_regen_table": [P, P, P, P, I, I, I, F, F, F,
@@ -71,9 +71,9 @@ _SIGNATURES = {
                        P, P, I, P, P, P, P, P, P, P, P, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # tri_mat, sph_mat, n_mat, seed0 seed1 seed2, sample0, lane, resid, cnt,
-    # acc_bar, d_state0, partial, d_out, n, stream
+    # acc_bar, d_state0, partial, d_out, n, s_count, stream
     "pt3_regen_replay_bwd": [P, P, P, P, I, I, I, F, F, F, P, P, I, U, U, U, I,
-                             P, P, P, P, P, P, P, I, P],
+                             P, P, P, P, P, P, P, I, I, P],
 }
 
 

@@ -164,11 +164,12 @@ def _triangle_shade_info(orig, dirn, t, idx, woop, normals, mat_id):
 
 
 def intersect_scene(scene, orig, dirn, eps: float, tri_chunk: int = 1024,
-                    backend: str = "xla", live=None) -> Hits:
+                    backend: str = "xla", live=None, packed=None) -> Hits:
     """Nearest hit across spheres + triangles (src/dod/Scene.cpp:115-122).
 
     backend="kernel" takes the winner from kernel K2
-    (ops/intersect_kernel.intersect_packed); "xla" is the broadcast scan
+    (ops/intersect_kernel.intersect_packed) on ``packed``, the scene's
+    ``PackedScene`` (built here when None); "xla" is the broadcast scan
     above. ``live`` lanes that are False report a miss.
     """
     sph = scene.spheres
@@ -179,7 +180,8 @@ def intersect_scene(scene, orig, dirn, eps: float, tri_chunk: int = 1024,
         r = orig.shape[1]
         if live is None:
             live = torch.ones((r,), dtype=torch.bool, device=orig.device)
-        packed = PackedScene(scene)
+        if packed is None:
+            packed = PackedScene(scene)
         t, pidx = intersect_packed(packed, orig, dirn, eps, live=live)
         n_tri = scene.num_triangles
         tri_wins = pidx < n_tri

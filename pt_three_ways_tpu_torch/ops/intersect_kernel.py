@@ -12,14 +12,21 @@ nearer, so spheres win exact ties (the reference's nearerThan rule,
 src/dod/Scene.cpp:115-122). Dead lanes report a miss. Output: ``t`` (+inf
 on miss) and the packed index (triangles in [0, T), spheres in [T, T+S)).
 
-Design on the H100: one thread per ray. The scene tables stay in global
-memory and are read through the read-only path; at the scene sizes of the
-catalog they live in L1/L2, so the kernel is bound by FP32 operations (the
-per-pair tests), not by bytes: every ray reads 24 B and writes 8 B. Scenes
-with more than ``2 * 64`` triangles cull with the two-level box hierarchy
-(FAN=8 leaves per node) per ray, which is exact per ray and so gives the
-same winners as the TPU kernel's whole-tile test. The reciprocal keeps the
-``rcp * (2 - den * rcp)`` refinement of the TPU kernel after an IEEE divide.
+Design on the H100: one thread per ray, with one of two searches that the
+launch picks from the scene, as K4 picks its resident design. A scene of at
+most one 64-row chunk whose tables fit 48 KB (cornell) is staged in shared
+memory once per block and scanned per thread as warp-uniform broadcasts.
+Every other scene takes a culled warp search with the unpacked winner:
+each lane walks its ray's window boxes (``PackedScene.wbox`` / ``wbox1``:
+64-row windows widened by ``WBOX_MARGIN`` of the scene's scale, fan-16
+level-1 boxes, built once with the pack), inside a level-1 box nearest
+entry first; a window most of a warp's rays pick at once is scanned by each
+of them for its own ray, and the warp spreads every other (ray, window)
+pair's 64 tests over its 32 lanes (camera rays are coherent). Both designs
+are exact: the winners are the unculled scan's bit for bit (the lowest
+index at the least t). Bound: FP32 operations of the
+tests; a ray reads 25 B and writes 8 B. The reciprocal keeps the ``rcp * (2
+- den * rcp)`` refinement of the TPU kernel after an IEEE divide.
 
 The plain PyTorch version (``intersect_plain``) repeats the arithmetic on
 whole [*, R] tensors; the wrapper takes it only for CPU tensors.
@@ -39,9 +46,17 @@ from . import _cuda
 from .vecmath import fsqrt
 from .xla_cpu import fma
 
-TC = 64  # triangles per chunk == box-hierarchy leaf size
+TC = 64  # triangles per chunk (the winner search's tie unit)
 SC = 64  # spheres per chunk
-FAN = 8  # leaves per level-1 node
+# the culling windows of K2, K4 and K7: triangles per window (one chunk)
+# and windows per level-1 box (the window x fan sweep of chip_smoke.py
+# phase 8 on the H100, PERF.md)
+WINDOW = TC
+WINDOW_FAN = 16
+# The window boxes are widened by this fraction of the scene's scale (1 +
+# the largest coordinate of a vertex or a sphere's extent): 2^9 float32
+# ulps of that scale, far above the rounding of the slab and triangle tests
+WBOX_MARGIN = 2.0 ** -15
 
 _PARALLEL_EPS = 1e-12
 _INF = float("inf")
@@ -58,12 +73,35 @@ def _pad_rows(a: torch.Tensor, mult: int) -> torch.Tensor:
 class PackedScene:
     """Primitive tables of the winner search, on the scene's device.
 
-    ``tri_tab`` [Tpad, 12] Woop rows, ``box_tab`` [C, 8] per-chunk boxes
-    (lo3 hi3 pad2), ``box1_tab`` [ceil(C/FAN), 8] level-1 boxes, ``sph_tab``
-    [Spad, 8] (centre3, r^2, |c|^2, pad3) — the same tables, row for row,
-    as the JAX package's ``PackedScene``."""
+    ``tri_tab`` [Tpad, 12] Woop rows and ``sph_tab`` [Spad, 8] (centre3,
+    r^2, |c|^2, pad3): the same tables, row for row, as the JAX package's
+    ``PackedScene``. The culling hierarchy of the card's searches (K2, and
+    K4 and K7 on a ``PackedSceneStream``): the Morton-ordered rows cut into
+    ``n_windows`` windows of ``window`` triangles (a multiple of 64, so
+    window chunks start where the scan's do), one box per window, ``wbox``
+    [n_windows, 8] = lo3 hi3 pad2: the min/max of its vertices (the last
+    window padded with the last vertex) widened by ``wbox_margin`` on every
+    side, and one level-1 box per ``fan`` consecutive windows, ``wbox1``
+    [n_groups, 8]: the min/max of its windows' widened boxes. Built once
+    with the pack: a caller that holds a pack passes it down (the render,
+    the training chains), so no launch rebuilds them.
 
-    def __init__(self, scene):
+    The margin keeps the window skip exact under rounding: the point at a
+    hit's computed t lies within a few float32 ulps of the scene's scale
+    of its triangle, and the slab test's entry and exit times are off by as
+    little along each axis, so a box widened by ``WBOX_MARGIN`` of that
+    scale (hundreds of ulps) is entered before, and left after, every hit a
+    ray can take in it, one on a face or an edge shared with another window
+    included. A level-1 box contains its windows' boxes, and the slab test
+    rounds monotonically in the box's faces, so a ray that enters a window
+    box enters its level-1 box too: skipping a group is as exact as
+    skipping each of its windows."""
+
+    def __init__(self, scene, window: int = WINDOW, fan: int = WINDOW_FAN):
+        if window <= 0 or window % TC or window > 1024:
+            raise ValueError(f"window must be a multiple of {TC} in [64, 1024], got {window}")
+        if not 1 <= fan <= 32:
+            raise ValueError(f"fan must be in [1, 32], got {fan}")
         tri = scene.triangles
         sph = scene.spheres
         dev = scene.device
@@ -73,31 +111,7 @@ class PackedScene:
         tri_tab = tri.woop.reshape(self.n_tri, 12).to(f32)
         t_mult = TC if self.n_tri > TC else 8
         self.tri_tab = _pad_rows(tri_tab, t_mult).contiguous()
-
-        if self.n_tri:
-            verts = tri.verts.to(f32)
-            pad = self.tri_tab.shape[0] - self.n_tri
-            if pad:
-                verts = torch.cat([verts, verts[-1:, -1:, :].expand(pad, 3, 3)], dim=0)
-            chunk = min(TC, self.tri_tab.shape[0])
-            n_chunks = verts.shape[0] // chunk
-            v = verts.reshape(n_chunks, chunk * 3, 3)
-            lo = v.min(dim=1).values
-            hi = v.max(dim=1).values
-            zeros2 = torch.zeros((n_chunks, 2), dtype=f32, device=dev)
-            self.box_tab = torch.cat([lo, hi, zeros2], dim=1).contiguous()
-            n_l1 = -(-n_chunks // FAN)
-            pad1 = n_l1 * FAN - n_chunks
-            lo_p = torch.cat([lo, torch.full((pad1, 3), _INF, dtype=f32, device=dev)])
-            hi_p = torch.cat([hi, torch.full((pad1, 3), -_INF, dtype=f32, device=dev)])
-            lo1 = lo_p.reshape(n_l1, FAN, 3).min(dim=1).values
-            hi1 = hi_p.reshape(n_l1, FAN, 3).max(dim=1).values
-            self.box1_tab = torch.cat(
-                [lo1, hi1, torch.zeros((n_l1, 2), dtype=f32, device=dev)], dim=1
-            ).contiguous()
-        else:
-            self.box_tab = torch.zeros((1, 8), dtype=f32, device=dev)
-            self.box1_tab = torch.zeros((1, 8), dtype=f32, device=dev)
+        self._set_windows(scene, window, fan)
 
         if self.n_sph:
             sph_tab = torch.cat(
@@ -121,6 +135,39 @@ class PackedScene:
             bad[:, 4] = _INF
             sph_tab = torch.cat([sph_tab, bad], dim=0)
         self.sph_tab = sph_tab.contiguous()
+
+    def _set_windows(self, scene, window: int, fan: int):
+        dev = scene.device
+        f32 = torch.float32
+        self.window = int(window)
+        self.fan = int(fan)
+        n_win = max(-(-self.n_tri // window), 1)
+        self.n_windows = n_win
+        self.n_groups = -(-n_win // fan)
+        if self.n_tri:
+            verts = scene.triangles.verts.detach().to(f32)
+            pad = n_win * window - self.n_tri
+            if pad:
+                verts = torch.cat([verts, verts[-1:, -1:, :].expand(pad, 3, 3)], dim=0)
+            v = verts.reshape(n_win, window * 3, 3)
+            sph = scene.spheres
+            reach = sph.centre.detach().abs() + sph.radius_sq.detach().sqrt()[:, None]
+            scale = max(float(verts.abs().max()), float(reach.max()) if reach.numel() else 0.0)
+            self.wbox_margin = WBOX_MARGIN * (1.0 + scale)
+            lo = v.min(dim=1).values - self.wbox_margin
+            hi = v.max(dim=1).values + self.wbox_margin
+        else:
+            self.wbox_margin = 0.0
+            lo = torch.full((1, 3), _INF, dtype=f32, device=dev)
+            hi = torch.full((1, 3), -_INF, dtype=f32, device=dev)
+        zeros2 = lambda k: torch.zeros((k, 2), dtype=f32, device=dev)
+        self.wbox = torch.cat([lo, hi, zeros2(n_win)], dim=1).contiguous()
+        pad1 = self.n_groups * fan - n_win
+        lo_p = torch.cat([lo, lo[-1:].expand(pad1, 3)])
+        hi_p = torch.cat([hi, hi[-1:].expand(pad1, 3)])
+        self.wbox1 = torch.cat([lo_p.reshape(self.n_groups, fan, 3).min(dim=1).values,
+                                hi_p.reshape(self.n_groups, fan, 3).max(dim=1).values,
+                                zeros2(self.n_groups)], dim=1).contiguous()
 
     @property
     def t_pad(self) -> int:
@@ -235,17 +282,14 @@ def _intersect_cuda(packed: PackedScene, org, dirn, live, eps: float):
     dev = org.device
     org = org.to(torch.float32).contiguous()
     dirn = dirn.to(torch.float32).contiguous()
-    live_f = live.to(torch.float32).contiguous()
+    live = live.contiguous()  # bool: one byte a ray
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((n,), dtype=torch.int32, device=dev)
-    cull = int(packed.n_tri > 2 * TC)
-    lib = _cuda.lib()
-    err = lib.pt3_intersect(
-        packed.tri_tab.data_ptr(), packed.box_tab.data_ptr(),
-        packed.box1_tab.data_ptr(), packed.sph_tab.data_ptr(),
-        packed.n_tri, packed.n_sph, packed.t_pad, int(packed.box_tab.shape[0]),
-        org.data_ptr(), dirn.data_ptr(), live_f.data_ptr(),
-        t_out.data_ptr(), idx_out.data_ptr(), n, float(eps), cull,
+    err = _cuda.lib().pt3_intersect(
+        packed.tri_tab.data_ptr(), packed.sph_tab.data_ptr(), packed.n_tri, packed.n_sph,
+        packed.t_pad, packed.wbox.data_ptr(), packed.wbox1.data_ptr(), packed.n_windows,
+        packed.n_groups, packed.window, packed.fan, org.data_ptr(), dirn.data_ptr(),
+        live.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n, float(eps),
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_intersect")

@@ -110,8 +110,11 @@ import torch
 
 from . import _cuda
 from . import kernel_rng as kr
-from .intersect_kernel import (
+from .intersect_kernel import (  # noqa: F401 (WBOX_MARGIN: the tests read it here)
     TC,
+    WBOX_MARGIN,
+    WINDOW,
+    WINDOW_FAN,
     PackedScene,
     chunk_min_plain,
     sphere_search_plain,
@@ -125,11 +128,6 @@ BLOCK = 128  # lanes per CUDA block (and per tail-compaction tile)
 TRI_ATTR = 30  # woop 12, vertex normals 9, emission 3, diffuse 3, ior, refl, cone
 SPH_ATTR = 12  # centre 3, emission 3, diffuse 3, ior, refl, cone
 _M32 = 0xFFFFFFFF
-# triangles per K6 window (one 64-row chunk, 3 KB of Woop rows in shared
-# memory per block) and windows per level-1 box: the window/fan sweep of
-# chip_smoke.py phase 8 on the H100 (PERF.md)
-STREAM_WINDOW = 64
-STREAM_FAN = 16
 
 WOOP_ROW_BYTES = 48
 # A placeholder, not a crossover: the largest mesh on which K4's resident
@@ -140,11 +138,6 @@ WOOP_ROW_BYTES = 48
 # measured scene is faster streamed. Larger scenes take the stream mode
 # unmeasured (ROADMAP: find where K6 wins, or drop the render's stream route).
 RESIDENT_MAX_TRIANGLES = 3_973_120
-# K6's window boxes are widened by this fraction of the scene's scale (1 +
-# the largest coordinate of a vertex or a sphere's extent): 2^9 float32
-# ulps of that scale, far above the rounding of the slab and triangle
-# tests (PackedSceneStream)
-WBOX_MARGIN = 2.0 ** -15
 
 
 class PackedSceneFused(PackedScene):
@@ -163,8 +156,8 @@ class PackedSceneFused(PackedScene):
     geometry table (a training step's materials change, its geometry does
     not)."""
 
-    def __init__(self, scene):
-        super().__init__(scene)
+    def __init__(self, scene, window: int = WINDOW, fan: int = WINDOW_FAN):
+        super().__init__(scene, window, fan)
         dev = scene.device
         f32 = torch.float32
 
@@ -231,72 +224,20 @@ def scene_fits_resident(scene) -> bool:
 
 
 class PackedSceneStream(PackedSceneFused):
-    """PackedSceneFused + K6's window tables (the port of the JAX package's
-    ``PackedSceneStream``): the Morton-ordered Woop rows cut into
-    ``n_windows`` windows of ``window`` triangles (a multiple of 64, so
-    window chunks start where the resident scan's do), ``tri_win``
-    [n_windows * window, 12] with all-zero padding rows (rejected as
-    parallel), one box per window, ``wbox`` [n_windows, 8] = lo3 hi3 pad2:
-    the min/max of its vertices (the last window padded with the last
-    vertex, as the JAX package does) widened by ``wbox_margin`` on every
-    side, and one level-1 box per ``fan`` consecutive windows, ``wbox1``
-    [n_groups, 8]: the min/max of its windows' widened boxes. The winner's
-    attribute row stays one indexed load from ``tri_attr``: the TPU
-    kernel's 128-column table and in-loop attribute capture are not needed.
+    """PackedSceneFused + K6's window rows (the port of the JAX package's
+    ``PackedSceneStream``): ``tri_win`` [n_windows * window, 12], the
+    Morton-ordered Woop rows with all-zero padding rows (rejected as
+    parallel), read window by window beside the pack's window boxes
+    (``wbox``, ``wbox1``: ``PackedScene``; the same boxes cull K4's resident
+    and replay modes, K7 and K2). The winner's attribute row stays one
+    indexed load from ``tri_attr``: the TPU kernel's 128-column table and
+    in-loop attribute capture are not needed."""
 
-    The same boxes at ``window`` 64 are K4 replay's culling hierarchy (one
-    box per 64-row chunk, one level-1 box per ``fan`` chunks).
-
-    The margin keeps the window skip exact under rounding: the point at a
-    hit's computed t lies within a few float32 ulps of the scene's scale
-    of its triangle, and the slab test's entry and exit times are off by as
-    little along each axis, so a box widened by ``WBOX_MARGIN`` of that
-    scale (hundreds of ulps) is entered before, and left after, every hit a
-    ray can take in it, one on a face or an edge shared with another window
-    included. A level-1 box contains its windows' boxes, and the slab test
-    rounds monotonically in the box's faces, so a ray that enters a window
-    box enters its level-1 box too: skipping a group is as exact as
-    skipping each of its windows."""
-
-    def __init__(self, scene, window: int = STREAM_WINDOW, fan: int = STREAM_FAN):
-        super().__init__(scene)
-        if window <= 0 or window % TC or window > 1024:
-            raise ValueError(f"window must be a multiple of {TC} in [64, 1024], got {window}")
-        if not 1 <= fan <= 32:
-            raise ValueError(f"fan must be in [1, 32], got {fan}")
-        dev = scene.device
-        f32 = torch.float32
-        self.window = int(window)
-        self.fan = int(fan)
-        n_win = max(-(-self.n_tri // window), 1)
-        self.n_windows = n_win
-        self.n_groups = -(-n_win // fan)
-        self.tri_win = torch.zeros((n_win * window, 12), dtype=f32, device=dev)
+    def __init__(self, scene, window: int = WINDOW, fan: int = WINDOW_FAN):
+        super().__init__(scene, window, fan)
+        self.tri_win = torch.zeros((self.n_windows * self.window, 12), dtype=torch.float32,
+                                   device=scene.device)
         self.tri_win[:self.n_tri] = self.tri_tab[:self.n_tri]
-        if self.n_tri:
-            verts = scene.triangles.verts.to(f32)
-            pad = n_win * window - self.n_tri
-            if pad:
-                verts = torch.cat([verts, verts[-1:, -1:, :].expand(pad, 3, 3)], dim=0)
-            v = verts.reshape(n_win, window * 3, 3)
-            sph = scene.spheres
-            reach = sph.centre.detach().abs() + sph.radius_sq.detach().sqrt()[:, None]
-            scale = max(float(verts.abs().max()), float(reach.max()) if reach.numel() else 0.0)
-            self.wbox_margin = WBOX_MARGIN * (1.0 + scale)
-            lo = v.min(dim=1).values - self.wbox_margin
-            hi = v.max(dim=1).values + self.wbox_margin
-        else:
-            self.wbox_margin = 0.0
-            lo = torch.full((1, 3), math.inf, dtype=f32, device=dev)
-            hi = torch.full((1, 3), -math.inf, dtype=f32, device=dev)
-        zeros2 = lambda k: torch.zeros((k, 2), dtype=f32, device=dev)
-        self.wbox = torch.cat([lo, hi, zeros2(n_win)], dim=1).contiguous()
-        pad1 = self.n_groups * fan - n_win
-        lo_p = torch.cat([lo, lo[-1:].expand(pad1, 3)])
-        hi_p = torch.cat([hi, hi[-1:].expand(pad1, 3)])
-        self.wbox1 = torch.cat([lo_p.reshape(self.n_groups, fan, 3).min(dim=1).values,
-                                hi_p.reshape(self.n_groups, fan, 3).max(dim=1).values,
-                                zeros2(self.n_groups)], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -1097,14 +1038,14 @@ def _regen_replay_bwd_cuda(pk, lane_ids, resid, cnt, acc_bar, seeds, sample0, s_
     n = acc_bar.shape[1]
     dev = acc_bar.device
     n_col = 9 * pk.n_mat + 3
-    d_state0 = torch.zeros((s_count * 10, n), dtype=torch.float32, device=dev)
+    d_state0 = torch.empty((s_count * 10, n), dtype=torch.float32, device=dev)  # written whole
     partial = torch.empty((n_col, -(-n // BWD_BLOCK)), dtype=torch.float32, device=dev)
     d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
     err = _cuda.lib().pt3_regen_replay_bwd(
         *_scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
         seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(), resid.data_ptr(),
-        cnt.data_ptr(), acc_bar.data_ptr(), d_state0.data_ptr(), partial.data_ptr(),
-        d_out.data_ptr(), n, _cuda.stream_ptr(dev),
+        cnt.data_ptr(), acc_bar.data_ptr(), d_state0.data_ptr(),
+        partial.data_ptr(), d_out.data_ptr(), n, int(s_count), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_replay_bwd")
     regen_replay_bwd.launches += 1

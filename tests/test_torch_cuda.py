@@ -3,8 +3,9 @@
 Marked ``cuda``: each test skips, with its reason, where
 ``torch.cuda.is_available()`` is false (a CUDA kernel has no CPU mode). On a
 machine with a card: ``python -m pytest tests/test_torch_cuda.py -q``.
-Tolerances as in chip_smoke.py: K2 winner index on >= 99.9 % of rays and
-``t`` rtol 1e-5; K4/K5/K7 per-lane ``acc`` rtol 1e-4 / atol 1e-5 with equal
+Tolerances as in chip_smoke.py: K2 bit for bit (``t`` and the winner
+index) on cornell (the one-chunk scan), suzanne and suzanne-sub1 (the
+culled warp search), with partial warps and dead lanes; K4/K5/K7 per-lane ``acc`` rtol 1e-4 / atol 1e-5 with equal
 counts on >= 99 % of lanes; K8's input-state cotangents rtol 1e-3 / atol
 1e-5 of the largest on >= 99.9 % of lanes, its material and environment
 gradients within 1e-3 of the largest, and bit-identical on a second run.
@@ -21,7 +22,10 @@ bit-equal to K4 without it, and on >=
 and residual slots j < cnt (the same gate). K9: ``d_state0`` within 1e-5 of
 its largest on >= 99.9 % of lanes, material and environment gradients within
 1e-5 of the largest (the plain version sums in float64), bit-identical on a
-second run. K4's stream mode (K6) against the resident K4 bit for bit, with
+second run; the same with the lanes shuffled (counts that differ within
+each warp) and some counts set to 0, where d_state0 is the unshuffled run's
+bit for bit, permuted, and zero for the emptied lanes, and with a lane
+count that is not a multiple of K9's lane groups. K4's stream mode (K6) against the resident K4 bit for bit, with
 and without tail compaction and on rays aimed at the edges two windows
 share, and against its plain version on >= 99 % of
 lanes; K10 against its plain version: bit for bit (state, counts and the
@@ -116,9 +120,7 @@ def test_kernels_match_plain_versions(dev, name):
     live = state0[9] != 0
     t_k, i_k = ik.intersect_packed(pk, org, dirn, 1e-4, live=live)
     t_p, i_p = ik.intersect_plain(pk, org, dirn, live, 1e-4)
-    assert (i_k == i_p).float().mean().item() >= 0.999
-    m = (i_k == i_p) & torch.isfinite(t_p)
-    torch.testing.assert_close(t_k[m], t_p[m], rtol=1e-5, atol=1e-6)
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
     nexta = mk.next_alive_table(state0, 3)
     k5 = mk.fused_passes(pk, state0, unif, 1e-4, 3, 3)
     p5 = mk.fused_passes_plain(pk, state0, nexta, unif, 1e-4, 3, 3)
@@ -132,6 +134,38 @@ def test_kernels_match_plain_versions(dev, name):
     tail = mk.fused_passes_krng(pk, state0, lanes, (5, 6), 0, 1e-4, 3, 3, tail_frac=0.125)
     assert torch.equal(tail[1], k4[1])
     torch.testing.assert_close(tail[0], k4[0], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "suzanne-sub1"])
+def test_k2_matches_plain_bitwise(dev, name):
+    """K2 (the one-chunk scan on cornell, the culled warp search on the
+    meshes) against its plain version, bit for bit, on the camera rays and
+    the first bounce's rays of a 31^2 image (R not a multiple of 32: the
+    last warp partial) with a tenth of the lanes dead."""
+    params = RenderParams(width=31, height=31)
+    sb = SceneBuilder()
+    camera = create_scene(sb, name, params).to(dev)
+    scene = sb.build(device=dev)
+    n = 31 * 31
+    px = torch.arange(n, dtype=torch.int32, device=dev) % 31
+    py = torch.arange(n, dtype=torch.int32, device=dev) // 31
+    u = rng.uniforms(rng.stream_key(rng.base_key(3), rng.CAMERA_STREAM), (4, n), dev)
+    from pt_three_ways_tpu_torch.ops.camera import generate_rays
+
+    org0, dir0 = generate_rays(camera, px, py, u)
+    st, _, _ = integ._first_bounce_state(scene, camera, params, rng.base_key(3), px, py, 1024,
+                                         "kernel")
+    org = torch.cat([org0, st[0:3]], dim=1)[:, :2 * n - 5].contiguous()
+    dirn = torch.cat([dir0, st[3:6]], dim=1)[:, :2 * n - 5].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    live = torch.rand((org.shape[1],), generator=gen, device=dev) > 0.1
+    assert org.shape[1] % 32 and not live.all()
+    for pk in (ik.PackedScene(scene), mk.PackedSceneStream(scene)):
+        t_k, i_k = ik.intersect_packed(pk, org, dirn, 1e-4, live=live)
+        t_p, i_p = ik.intersect_plain(pk, org, dirn, live, 1e-4)
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+        assert torch.isinf(t_k[~live]).all() and (i_k[~live] == 0).all()
+        assert torch.isfinite(t_k).float().mean().item() > 0.3
 
 
 @pytest.mark.parametrize("name", ["cornell", "suzanne", "ce", "single-sphere",
@@ -228,6 +262,42 @@ def test_regen_replay_kernels_match_plain_versions(dev, name):
     o2 = mk.regen_replay_bwd(*b)
     op = mk.regen_replay_bwd_plain(pk, lanes, res, cnt, acc_bar, seeds, 0, s_count)
     assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+    scale = op[0].abs().max()
+    d0_ok = torch.all(torch.isclose(o1[0], op[0], rtol=0, atol=1e-5 * scale), dim=0)
+    assert d0_ok.float().mean().item() >= 0.999
+    for got, ref in zip(o1[1:], op[1:]):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-9
+
+
+def test_k9_unsorted_lanes_and_empty_lanes(dev):
+    """K9 on cornell (five materials) with its lanes shuffled and every
+    seventh lane's count set to 0 (and the last three lanes cut, so the lane
+    count is not a multiple of K9's groups): against its plain version at
+    the gates above, bit-identical on a second run, d_state0 the unshuffled
+    run's bit for bit and zero for the emptied lanes."""
+    scene, state0, _, lanes = _state("cornell", dev)
+    pk = mk.PackedSceneStream(scene)
+    nb, s_count = 3, 3
+    _, cnt, res = mk.fused_passes_krng(pk, state0, lanes, (5, 6), 0, 1e-4, nb, s_count,
+                                       replay=True)
+    n = cnt.shape[0] - 3
+    gen = torch.Generator(device=dev).manual_seed(2)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    cnt = cnt[:n].clone()
+    cnt[::7] = 0
+    acc_bar = torch.randn((3, n), generator=gen, device=dev)
+    res, lanes = res[:, :, :n], lanes[:n]
+    base = mk.regen_replay_bwd(pk, lanes, (5, 6), 0, res.contiguous(), cnt, acc_bar, s_count)
+    b = (pk, lanes[perm], (5, 6), 0, res[:, :, perm].contiguous(), cnt[perm],
+         acc_bar[:, perm].contiguous(), s_count)
+    assert any(len(set(c.tolist())) > 1 for c in b[5][:n // 32 * 32].reshape(-1, 32))
+    o1 = mk.regen_replay_bwd(*b)
+    o2 = mk.regen_replay_bwd(*b)
+    assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+    assert torch.equal(o1[0], base[0][:, perm])
+    assert not base[0][:, ::7].any()
+    seeds = kernel_rng.channel_seeds(5, 6)
+    op = mk.regen_replay_bwd_plain(pk, *b[1:2], b[4], b[5], b[6], seeds, 0, s_count)
     scale = op[0].abs().max()
     d0_ok = torch.all(torch.isclose(o1[0], op[0], rtol=0, atol=1e-5 * scale), dim=0)
     assert d0_ok.float().mean().item() >= 0.999

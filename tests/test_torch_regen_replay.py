@@ -211,7 +211,12 @@ def test_k4_replay_tail_compaction_matches_jax(regen, levels):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
-def test_k9_matches_jax_regen_replay_bwd(regen):
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_k9_matches_jax_regen_replay_bwd(regen, shuffled):
+    """``shuffled``: the port walks the lanes in a random order (the lane ids,
+    slots, counts and cotangents permuted alike), so that the counts within
+    each group of 32 lanes differ as in an unsorted chain; its d_state0 is
+    permuted back before the comparison."""
     acc_j, cnt_j, res_j, nit_j = regen["jax"]
     n = acc_j.shape[1]
     acc_bar = np.random.default_rng(SEED).normal(size=(3, n)).astype(np.float32)
@@ -223,9 +228,13 @@ def test_k9_matches_jax_regen_replay_bwd(regen):
     # the JAX slots in the port's layout (rows 0..12 of each RRES block)
     res = np.ascontiguousarray(res_j[:, :n].reshape(S * NB, RRES, n)[:, :13])
     pk = mk.PackedSceneFused(regen["st"])
+    perm = np.random.default_rng(SEED).permutation(n) if shuffled else np.arange(n)
+    if shuffled:
+        assert any(len(set(cnt_j[perm[i:i + 32]])) > 1 for i in range(0, n, 32))
     d0, dmat, denv = (x.numpy() for x in mk.regen_replay_bwd(
-        pk, regen["lanes"], regen["kw_t"], 0, torch.from_numpy(res),
-        torch.from_numpy(cnt_j), torch.from_numpy(acc_bar), S))
+        pk, regen["lanes"][perm], regen["kw_t"], 0, torch.from_numpy(res[:, :, perm]),
+        torch.from_numpy(cnt_j[perm]), torch.from_numpy(acc_bar[:, perm]), S))
+    d0[:, perm] = d0.copy()
     assert mk.regen_replay_bwd.launches == 0
     assert np.isfinite(d0).all() and np.isfinite(dmat).all()
     assert (d0.reshape(S, 10, n)[:, 9] == 0).all()

@@ -7,11 +7,13 @@ printing no result, when there is no CUDA device or the package is missing.
 Phases (one line each, any failure stops the run):
   1. card, versions, and the build of every CUDA kernel from csrc/ (nvcc,
      sm_90a, one process per source, all started together, with the older
-     K2, K4, K7 and K9 of PREV_COMMIT and this tree's sources again with a
-     flag (ALT_BUILDS: the culled build of megakernel.cu, where a one-chunk
-     scene takes the culled warp search; K2 with the per-lane scan from 8,
-     12, 16 voters or never)), with each kernel instance's registers and
-     spills (and the older K2's and K9's, K2's other builds');
+     K2, K4, K5, K7, K8 and K9 of PREV_COMMIT and this tree's sources again
+     with a flag (ALT_BUILDS: the culled build of megakernel.cu, where a
+     one-chunk scene takes the culled warp search; K2 with the per-lane scan
+     from 8, 12, 16 voters or never; K5 one lane a thread, and K5 counting
+     its table loads' sectors; K8 with its registers capped for 3 and 4
+     blocks an SM)), with each kernel instance's registers and spills (and
+     the older K5's and K8's, the other builds');
   2. each kernel's wrapper against the same wrapper with its plain PyTorch
      version in place of the launch, at 256^2 camera tiles: K2 (cornell,
      suzanne; bit for bit), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
@@ -38,7 +40,11 @@ Phases (one line each, any failure stops the run):
      bit for bit against the older K4 and, on cornell, the culled build
      (every launch of the call) and timed in turns with them, with its lane
      utilisation and the share of shading
-     events on glossy materials; and the card's camera stage against the
+     events on glossy materials; K5 bit for bit against its plain version,
+     the older K5 and its one-lane-a-thread build, timed in turns with them,
+     with the lane utilisation one lane a thread, the sectors a request of
+     its table loads (the counting builds), its issue floor beside its bound
+     and its registers; and the card's camera stage against the
      CPU's (whose rounding follows the JAX package's compiled CPU code) on
      every tile of the CLI-default render's first pass;
   6. the training path through make_sharded_train_step: three replay steps
@@ -51,7 +57,9 @@ Phases (one line each, any failure stops the run):
      without residuals) and K8 (each bounce, and twice for bitwise
      repeatability) against their plain versions on the first step's
      inputs, timed, K7 also bit for bit against the older K7 and timed in
-     turns with it; K2 on the first step's launch as in phase 5; the
+     turns with it, K8's cot_in bit for bit against the older K8's and its
+     other register caps', timed in turns with them (its kernels a call
+     from torch.profiler); K2 on the first step's launch as in phase 5; the
      geometry pack's rebuild against its material refresh; and the card's
      step against the CPU's on a 32^2 crop of cornell 512^2;
   7. the regenerating training path: three make_sharded_train_step steps
@@ -67,7 +75,7 @@ Phases (one line each, any failure stops the run):
      the older K4's replay (bit for bit, timed in turns; see PREV_COMMIT),
      its tail-fraction sweep, and K9 against its plain
      version and twice for bitwise repeatability, on the first step's
-     inputs, timed in turns with the older K9 (d_state0 bit-equal), both
+     inputs, timed in turns with the older K9 (every output bit-equal), both
      walks' lane utilisation and sectors per request from the counts, and
      two probes on both K9s (the lanes and their slots sorted by count; one
      material);
@@ -97,7 +105,9 @@ Phases (one line each, any failure stops the run):
      each bounce of its first pass (with and without the winner record),
      timed, with its bound, and the whole against
      trace_passes_fused in table mode (K5) on the same keys, with the ms per
-     pass of compaction, K5 and K4.
+     pass of compaction, K5 and K4; that K5 launch (the culled warp search)
+     bit for bit against its plain version, the older K5 and one lane a
+     thread, timed in turns with them, with its bound.
 The last two lines are the kernels JSON and the device JSON.
 
 ``--crossover NAMES`` builds, then prints only phase 8's crossover table for
@@ -108,6 +118,7 @@ range behind ``ops/megakernel.RESIDENT_MAX_TRIANGLES``) and the device line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -119,12 +130,13 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # The commit whose kernels the kernels line's prev_ms (K2: prev_kernel_ms,
 # the kernel alone, beside this K2's kernel_ms; its ms is through the
 # wrapper) times on the same inputs, in turns, and holds bit for bit
-# against this tree's: K2 (the per-thread scan, culled by FAN-8 chunk boxes
-# on meshes), K9 (one lane a thread, lanes in place) and K7 (its windows in
-# order), whose searches or walks this tree redesigned, and K4, which it did
-# not. Its csrc comes from --prev, from build/prev_csrc, or from `git
-# archive` when the checkout has that commit; without it prev_ms is null.
-PREV_COMMIT = "d1ba3fe"
+# against this tree's: K5 (one lane a thread, every triangle scanned from
+# global memory) and K8 (every input row of every lane, a second launch
+# for the sums), which this tree redesigned, and K2, K4, K7 and K9, which
+# it did not (K8's and K9's d_mat and d_env: K8 sums in another order).
+# Its csrc comes from --prev, from build/prev_csrc, or from `git archive`
+# when the checkout has that commit; without it prev_ms is null.
+PREV_COMMIT = "aeab046"
 PREV_CSRC = os.path.join(ROOT, "build", "prev_csrc")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP32
@@ -139,6 +151,12 @@ OPS_SPHERE = 23
 OPS_TRIANGLE = 49
 OPS_SLAB = 24
 OPS_SHADE = 200
+# the card's instruction issue rate (132 SMs x 4 schedulers x 32 lanes x
+# 1.98 GHz): under -fmad=false every product and sum is one instruction, so
+# a kernel's SASS instructions over this rate are a floor beside the bound;
+# SASS instructions of one triangle test in the one-chunk scan's loop
+ISSUE_PER_S = 33.5e12
+SASS_TRIANGLE = 74
 # the replay residual slot K4 writes and K9 reads per live bounce: org3
 # dir3 beta3, t, idx, sample, depth (float32)
 REPLAY_SLOT_BYTES = 13 * 4
@@ -210,9 +228,10 @@ def start_builds(jobs, nvcc, flags):
     return builds
 
 
-# the older kernels built beside this tree's: kernel -> its source
+# the older kernels built beside this tree's: kernel -> its source (the
+# older K5 is in the older K4's library, megakernel)
 PREV_SOURCES = {"K4": "megakernel", "K7": "fused_bounces", "K2": "intersect",
-                "K9": "regen_replay_bwd"}
+                "K9": "regen_replay_bwd", "K8": "bounce_bwd"}
 
 
 def prev_jobs(csrc):
@@ -233,6 +252,17 @@ ALT_BUILDS = {
     # lanes (33: never)
     **{f"voters{v}": ("intersect", [f"-DPT3_THREAD_SCAN_VOTERS={v}"], "pt3_intersect")
        for v in (8, 12, 16, 33)},
+    # K5 one lane a thread (its scene staged, its table loads before the
+    # search, no lane queue); the sectors its table loads touch, with and
+    # without the queue (pt3_k5_sector_counts)
+    "k5_lane_block": ("megakernel", ["-DPT3_K5_LANE_BLOCK"], "pt3_regen_table"),
+    "k5_sectors": ("megakernel", ["-DPT3_K5_COUNT_SECTORS"], "pt3_regen_table"),
+    "k5_sectors_lane_block": ("megakernel", ["-DPT3_K5_COUNT_SECTORS", "-DPT3_K5_LANE_BLOCK"],
+                              "pt3_regen_table"),
+    # K8 with its registers capped for 3 and 4 blocks of 256 an SM (the
+    # default: 2)
+    **{f"k8_blocks{b}": ("bounce_bwd", [f"-DPT3_K8_MIN_BLOCKS={b}"], "pt3_bounce_bwd")
+       for b in (3, 4)},
 }
 
 
@@ -260,14 +290,17 @@ def load_alt(builds):
         fn = getattr(handles[name], entry)
         fn.argtypes = _cuda._SIGNATURES[entry]
         fn.restype = ctypes.c_int
+        if "-DPT3_K5_COUNT_SECTORS" in flags:
+            handles[name].pt3_k5_sector_counts.argtypes = [ctypes.c_void_p]
+            handles[name].pt3_k5_sector_counts.restype = ctypes.c_int
     return handles, "\n".join(reports)
 
 
 def load_prev(builds):
-    """The older kernels' libraries by kernel (PREV_SOURCES), with their
-    ptxas reports. K4's and K7's entry points take this tree's arguments;
-    K2's takes the chunk boxes and a float live mask, K9's a zeroed
-    d_state0 and no s_count."""
+    """The older kernels' libraries by kernel (PREV_SOURCES; K5 in K4's),
+    with their ptxas reports. K2's, K4's, K7's and K9's entry points take
+    this tree's arguments; K5's takes no lane queue and no window boxes,
+    K8's no ticket and a [cols, ceil(n / 128)] partial table."""
     import ctypes
 
     from pt_three_ways_tpu_torch.ops import _cuda
@@ -279,12 +312,15 @@ def load_prev(builds):
             fail(f"the build of the older {os.path.basename(lib)} failed:\n{report}")
         reports.append(f"== {PREV_SOURCES[kernel]}.cu\n{report}")
         handles[kernel] = ctypes.CDLL(lib)
-    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    sigs = {"K4": ("pt3_regen_krng", _cuda._SIGNATURES["pt3_regen_krng"]),
-            "K7": ("pt3_fused_bounces", _cuda._SIGNATURES["pt3_fused_bounces"]),
-            "K2": ("pt3_intersect", [P, P, P, P, I, I, I, I, P, P, P, P, P, I, F, I, P]),
-            "K9": ("pt3_regen_replay_bwd", [P, P, P, P, I, I, I, F, F, F, P, P, I, U, U, U,
-                                            I, P, P, P, P, P, P, P, I, P])}
+    handles["K5"] = handles["K4"]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sig = lambda name: (name, _cuda._SIGNATURES[name])
+    sigs = {"K4": sig("pt3_regen_krng"), "K7": sig("pt3_fused_bounces"),
+            "K2": sig("pt3_intersect"), "K9": sig("pt3_regen_replay_bwd"),
+            "K5": ("pt3_regen_table", [P, P, P, P, I, I, I, F, F, F,
+                                       P, P, P, P, P, I, I, I, F, I, P]),
+            "K8": ("pt3_bounce_bwd", [P, P, P, P, I, I, I, F, F, F,
+                                      P, P, I, P, P, P, P, P, P, P, P, I, P])}
     for kernel, (name, argtypes) in sigs.items():
         fn = getattr(handles[kernel], name)
         fn.argtypes = argtypes
@@ -336,11 +372,10 @@ def prev_k7(prev, args):
 
 
 def chunk_boxes(scene, packed):
-    """The older K2's culling tables: one box per 64-row chunk of the
-    Morton-ordered triangles (``box_tab`` [C, 8]: lo3 hi3 pad2, the chunk's
-    vertices, the last chunk padded with the last vertex) and one per FAN = 8
-    chunks (``box1_tab``), as the older ``PackedScene`` built them (the JAX
-    package's tables)."""
+    """The culling tables of a per-thread scan over chunk boxes (the JAX
+    package's): one box per 64-row chunk of the Morton-ordered triangles
+    (``box_tab`` [C, 8]: lo3 hi3 pad2, the chunk's vertices, the last chunk
+    padded with the last vertex) and one per FAN = 8 chunks (``box1_tab``)."""
     import torch
 
     f32 = torch.float32
@@ -365,56 +400,57 @@ def chunk_boxes(scene, packed):
             torch.cat([lo1, hi1, zeros2(n_l1)], dim=1).contiguous())
 
 
-def prev_k2_launch(prev, boxes, a):
-    """The older K2 alone on the arguments (packed, org, dirn, live, eps) of
-    one ``ik._intersect_cuda`` call, inputs converted and outputs allocated
-    once: (a function that launches it, its outputs (t, idx))."""
+def prev_k5(prev, mk, args):
+    """The older K5 on the arguments (pk, state0, nexta, unif, eps, nb,
+    s_count) of one ``mk._regen_table_cuda`` call, but for the table, which
+    it reads row-major ([S*nb*4, N]): (acc, cnt)."""
     import torch
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    packed, org, dirn, live, eps = a
-    dev = org.device
-    org, dirn = org.float().contiguous(), dirn.float().contiguous()
-    live_f = live.float().contiguous()
-    n = org.shape[1]
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    box, box1 = boxes
-    args = (packed.tri_tab.data_ptr(), box.data_ptr(), box1.data_ptr(),
-            packed.sph_tab.data_ptr(), packed.n_tri, packed.n_sph, packed.t_pad,
-            int(box.shape[0]), org.data_ptr(), dirn.data_ptr(), live_f.data_ptr(),
-            t.data_ptr(), idx.data_ptr(), n, float(eps), int(packed.n_tri > 2 * 64),
-            _cuda.stream_ptr(dev))
-    return lambda: _cuda.check(prev["K2"].pt3_intersect(*args), "older pt3_intersect"), (t, idx)
+    pk, state0, nexta, unif, eps, nb, s_count = args
+    n = state0.shape[1]
+    acc = torch.empty((3, n), dtype=torch.float32, device=state0.device)
+    cnt = torch.empty((n,), dtype=torch.int32, device=state0.device)
+    err = prev["K5"].pt3_regen_table(
+        *mk._scene_ptrs(pk), state0.data_ptr(), nexta.data_ptr(), unif.data_ptr(),
+        acc.data_ptr(), cnt.data_ptr(), n, s_count, nb, float(eps), int(pk.no_glossy),
+        _cuda.stream_ptr(state0.device))
+    _cuda.check(err, "older pt3_regen_table")
+    return acc, cnt
+
+
+def prev_k8(prev, mk, args):
+    """The older K8 on the arguments (pk, state, t, idx, unif, cot_out) of
+    one ``mk._bounce_bwd_cuda`` call: (cot_in, d_mat, d_env)."""
+    import torch
+
+    from pt_three_ways_tpu_torch.ops import _cuda
+
+    pk, state, t, idx, unif, cot_out = args
+    n = state.shape[1]
+    dev = state.device
+    n_col = 9 * pk.n_mat + 3
+    cot_in = torch.empty((13, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_col, -(-n // 128)), dtype=torch.float32, device=dev)
+    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
+    err = prev["K8"].pt3_bounce_bwd(
+        *mk._scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
+        state.data_ptr(), t.data_ptr(), idx.data_ptr(), unif.data_ptr(), cot_out.data_ptr(),
+        cot_in.data_ptr(), partial.data_ptr(), d_out.data_ptr(), n, _cuda.stream_ptr(dev))
+    _cuda.check(err, "older pt3_bounce_bwd")
+    return cot_in, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
 
 
 def prev_k9(prev, mk, b9):
     """The older K9 on the arguments (pk, lane_ids, key_words, sample0,
-    resid, cnt, acc_bar, s_count) of one ``mk.regen_replay_bwd`` call:
+    resid, cnt, acc_bar, s_count) of one ``mk.regen_replay_bwd`` call (the
+    same entry point: the wrapper with the older library in place):
     (d_state0, d_mat, d_env)."""
-    import torch
-
     from pt_three_ways_tpu_torch.ops import _cuda
-    from pt_three_ways_tpu_torch.ops import kernel_rng as kr
 
-    pk, lane_ids, kw, sample0, resid, cnt, acc_bar, s_count = b9
-    lane_ids, cnt = lane_ids.to(torch.int32).contiguous(), cnt.to(torch.int32).contiguous()
-    resid, acc_bar = resid.float().contiguous(), acc_bar.float().contiguous()
-    n = acc_bar.shape[1]
-    dev = acc_bar.device
-    n_col = 9 * pk.n_mat + 3
-    seeds = kr.channel_seeds(int(kw[0]), int(kw[1]))
-    d_state0 = torch.zeros((s_count * 10, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_col, -(-n // 128)), dtype=torch.float32, device=dev)
-    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
-    err = prev["K9"].pt3_regen_replay_bwd(
-        *mk._scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
-        seeds[0], seeds[1], seeds[2], int(sample0), lane_ids.data_ptr(), resid.data_ptr(),
-        cnt.data_ptr(), acc_bar.data_ptr(), d_state0.data_ptr(), partial.data_ptr(),
-        d_out.data_ptr(), n, _cuda.stream_ptr(dev))
-    _cuda.check(err, "older pt3_regen_replay_bwd")
-    return d_state0, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
+    with swap_attr(_cuda, "_LIB", prev["K9"]):
+        return mk.regen_replay_bwd(*b9)
 
 
 def ptxas_table(report):
@@ -675,15 +711,19 @@ def main(argv=None) -> int:
     prev_lib, prev_report = load_prev(side[:-n_alt]) if prev else (None, "")
     alt_lib, alt_report = load_alt(side[-n_alt:])
     older = [r for r in ptxas_table(prev_report)
-             if r.startswith(("intersect.cu", "regen_replay_bwd.cu"))]
-    alt = [r for r in ptxas_table(alt_report) if not r.startswith("megakernel.cu")]
-    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K2, K4, K7 and K9 from {prev or 'nowhere: not built'}; "
+             if r.startswith(("megakernel.cu regen_table_kernel", "bounce_bwd.cu"))]
+    alt = [r for r in ptxas_table(alt_report)
+           if not r.startswith("megakernel.cu") or ("K5" in r and r.split(":")[0].endswith(",1>"))]
+    # registers and spills of each instance of this tree's build
+    regs = dict(r.split(": ", 1) for r in ptxas_table(report))
+    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K2, K4, K5, K7, K8 and K9 from "
+          f"{prev or 'nowhere: not built'}; "
           f"this tree's again with {', '.join(f for _, fl, _ in ALT_BUILDS.values() for f in fl)}"
           f"); ptxas (registers, spill bytes stored/loaded; megakernel.cu "
-          f"regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>, MODE 0 culled, 1 replay, 2 "
-          f"stream, 3 one chunk; intersect.cu intersect_kernel<FLAT>): "
-          + " | ".join(ptxas_table(report)) + " || the older K2 and K9: " + " | ".join(older)
-          + " || K2 with other voters: " + " | ".join(alt))
+          f"regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>, MODE 0 culled, 1 "
+          f"replay, 2 stream, 3 one chunk, TABLE 1: K5; intersect.cu intersect_kernel<FLAT>): "
+          + " | ".join(ptxas_table(report)) + " || the older K5 and K8: " + " | ".join(older)
+          + " || other builds (K2's voters, K5's, K8's caps): " + " | ".join(alt))
     _cuda.lib()
 
     # ---- helpers ---------------------------------------------------------
@@ -1001,7 +1041,7 @@ def main(argv=None) -> int:
         pk = mk.PackedSceneStream(scene)  # K4's culled search reads its window boxes
         px, py, state0, unif = first_bounce(scene, camera, params, S)
         if name == "cornell":
-            a = (pk, state0, unif, params.epsilon, nb, S)
+            a = (pk, state0, mk.lane_major_table(unif, nb, S), params.epsilon, nb, S)
             out_k = mk.fused_passes(*a)
             with plain("K5"):
                 out_p = mk.fused_passes(*a)
@@ -1253,7 +1293,7 @@ def main(argv=None) -> int:
         calls = captured[tag].get(what, {})
         return list(calls.values())[-1] if calls else None
 
-    def k2_check(a, boxes):
+    def k2_check(a):
         """This tree's K2 on one launch's arguments (packed, org, dirn, live,
         eps) against its plain version and the older K2: t and idx bit-equal
         (fails otherwise). Returns the plain version's (ms, t, idx)."""
@@ -1264,7 +1304,7 @@ def main(argv=None) -> int:
                                                              live, eps))
         same = torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
         if prev_lib is not None:
-            fp, (t_o, i_o) = prev_k2_launch(prev_lib, boxes, a)
+            fp, (t_o, i_o) = k2_launch(a, prev_lib["K2"])
             fp()
             torch.cuda.synchronize()
             same = same and torch.equal(t_k, t_o) and torch.equal(i_k, i_o)
@@ -1279,15 +1319,14 @@ def main(argv=None) -> int:
         older, the voter builds on a mesh, and back; 20 launches each:
         kernel_ms, prev_kernel_ms), this one also through its wrapper,
         intersect_packed (ms); the bound from this launch's data; the test
-        iterations a warp of the older per-thread scan and of this warp
-        search run. Records checks['K2'][tag] and prints one line."""
+        iterations a warp of a per-thread scan over FAN-8 chunk boxes and of
+        this warp search run. Records checks['K2'][tag] and prints one line."""
         packed, org, dirn, live, eps = a
-        boxes = chunk_boxes(scene, packed)
-        pms, t_p, i_p = k2_check(a, boxes)
+        pms, t_p, i_p = k2_check(a)
         flat = packed.n_tri <= ik.TC
         runs = {"this": k2_launch(a)[0]}
         if prev_lib is not None:
-            runs["older"] = prev_k2_launch(prev_lib, boxes, a)[0]
+            runs["older"] = k2_launch(a, prev_lib["K2"])[0]
         voters = ""
         if not flat:  # the per-lane scan's threshold (ALT_BUILDS), bit-equal
             for v in (k for k in ALT_BUILDS if k.startswith("voters")):
@@ -1310,9 +1349,10 @@ def main(argv=None) -> int:
                              packed.wbox1) + 8 * org.shape[1], ops)
         walk = ""
         if not flat:
-            lanes_o, warps_o, n_live = culled_walk_counts(ik, mk, *boxes, 8, packed, *a[1:])
+            lanes_o, warps_o, n_live = culled_walk_counts(ik, mk, *chunk_boxes(scene, packed), 8,
+                                                          packed, *a[1:])
             lanes_n = near_walk_count(ik, mk, packed, *a[1:])
-            walk = (f"; the older per-thread scan: lane utilisation "
+            walk = (f"; a per-thread scan over FAN-8 chunk boxes: lane utilisation "
                     f"{lanes_o / max(32 * warps_o, 1):.4f}, {lanes_o / n_live:.2f} chunks a live "
                     f"ray; this search: {lanes_n / n_live:.2f} windows a live ray, nearest first")
         checks["K2"][tag] = dict(launches=n_launches, max_abs_err=0.0, ms=ms_wrap,
@@ -1330,14 +1370,12 @@ def main(argv=None) -> int:
         """The render again, every K2 launch checked with k2_check; returns
         (launches checked, the first launch's arguments)."""
         orig = ik._intersect_cuda
-        boxes, seen = {}, []
+        seen = []
 
         def hook(*a):
             out = orig(*a)
-            if not seen:
-                boxes["b"] = chunk_boxes(scene, a[0])
             seen.append(a if not seen else None)
-            k2_check(a, boxes["b"])
+            k2_check(a)
             return out
 
         with swap_attr(ik, "_intersect_cuda", hook):
@@ -1385,6 +1423,61 @@ def main(argv=None) -> int:
         ms = {k: (sum(v) / len(v) if v else None) for k, v in ms.items()}
         return eq, ms["this"], ms["older"], ms["culled"]
 
+    def k5_turns(a, kw, out):
+        """The K5 wrapper call (a, kw), whose outputs were ``out``, on the
+        older K5 (PREV_COMMIT) and on the one-lane-a-thread build
+        (ALT_BUILDS k5_lane_block) in its place: acc and counts bit-equal
+        (fails otherwise); the call timed in turns (this, older, lane block,
+        lane block, older, this); the 32-B sectors per request of a table
+        load in the counting builds (lane queue, one lane a thread), whose
+        outputs must be equal too. Returns {"ms": {run: ms or None},
+        "sectors": {run: sectors a request}}."""
+        run = lambda: wrappers["K5"](*a, **kw)
+
+        # the older K5 reads the table row-major, [S*nb*4, N]: converted once
+        rows = a[2].permute(0, 2, 1).reshape(-1, a[2].shape[1]).contiguous()
+
+        def run_prev():
+            with swapped(mk, "_regen_table_cuda",
+                         lambda *x: prev_k5(prev_lib, mk, x[:3] + (rows,) + x[4:])):
+                return run()
+
+        def on_lib(lib):
+            def f():
+                with swapped(_cuda, "_LIB", lib):
+                    return run()
+            return f
+
+        runs = {"this": run, "older": run_prev if prev_lib is not None else None,
+                "lane block": on_lib(alt_lib["k5_lane_block"])}
+        for k in ("older", "lane block"):
+            if runs[k] is not None and not same_out(out, runs[k]()):
+                fail(f"K5 differs from the {k} K5 on the same call")
+        ms = {k: [] for k in runs}
+        order = [k for k in runs if runs[k] is not None]
+        for k in order + order[::-1]:
+            ms[k].append(events_ms(runs[k], 3))
+        sectors = {}
+        buf = (ctypes.c_ulonglong * 2)()
+        for name, label in (("k5_sectors", "queue"), ("k5_sectors_lane_block", "lane block")):
+            lib = alt_lib[name]
+            torch.cuda.synchronize()
+            _cuda.check(lib.pt3_k5_sector_counts(buf), "pt3_k5_sector_counts")  # zeroes
+            o = on_lib(lib)()
+            torch.cuda.synchronize()
+            _cuda.check(lib.pt3_k5_sector_counts(buf), "pt3_k5_sector_counts")
+            if not same_out(out, o):
+                fail(f"K5's counting build ({label}) differs from K5")
+            sectors[label] = buf[1] / max(buf[0], 1)
+        return {"ms": {k: (sum(v) / len(v) if v else None) for k, v in ms.items()},
+                "sectors": sectors}
+
+    def k5_regs():
+        """K5's instances' registers and spills (phase 1)."""
+        return "; ".join(f"{k.split(' ', 1)[1]}: {v}" for k, v in regs.items()
+                         if k.startswith("megakernel.cu regen_krng_kernel<")
+                         and k.endswith(",1>"))
+
     @contextlib.contextmanager
     def shading_events(total):
         """Counts the plain version's shading events into total: hits, hits
@@ -1426,8 +1519,32 @@ def main(argv=None) -> int:
                 pms, out_p = once_ms(lambda: wrappers[kernel](*a, **kw))
             frac, err = cmp_acc(kernel, out_k, out_p)
             extra = ""
+            hits = int(events[0].item())
             if kernel == "K5":
-                ms, prev_ms = events_ms(lambda: wrappers[kernel](*a, **kw), 3), None
+                if not same_out(out_k, out_p):
+                    fail(f"K5 on the {tag} render's main launch differs from its plain version")
+                k5 = k5_turns(a, kw, out_k)
+                ms, prev_ms = k5["ms"]["this"], k5["ms"]["older"]
+                # lane utilisation one lane a thread (the older K5), as K4's
+                cw = out_k[1][:out_k[1].shape[0] // 32 * 32].reshape(-1, 32).to(torch.int64)
+                util = cw.sum().item() / max(32 * cw.max(dim=1).values.sum().item(), 1)
+                # the issue floor: SASS instructions of the events over the
+                # card's issue rate (a triangle test's counted, the sphere
+                # test's and the shading's at their FP32 operations)
+                live = int(out_p[1].sum().item())
+                floor = ((live * (pk.n_tri * SASS_TRIANGLE + pk.n_sph * OPS_SPHERE)
+                          + hits * OPS_SHADE) / ISSUE_PER_S * 1e3
+                         if pk.n_windows == 1 else None)
+                extra = (f"; {k4_design(pk)} with the unpacked winner, lane queue: bit-equal to "
+                         f"its plain version True, to the older K5 "
+                         f"{prev_lib is not None or 'not built'}, to one lane a thread True; "
+                         f"in turns: this {ms:.3f} ms, the older K5 {fmt_ms(prev_ms)}, one lane "
+                         f"a thread (the scene staged) {k5['ms']['lane block']:.3f} ms; lane "
+                         f"utilisation one lane a thread {util:.4f}; 32-B sectors a request of "
+                         f"a table load: lane queue {k5['sectors']['queue']:.3f}, one lane a "
+                         f"thread {k5['sectors']['lane block']:.3f}; issue floor "
+                         + (f"{floor:.3f} ms" if floor is not None else "n/a (culled)")
+                         + f"; registers {k5_regs()}")
             else:
                 same_prev, ms, prev_ms, culled_ms = vs_prev_k4(a, kw)
                 if same_prev is False:
@@ -1439,7 +1556,7 @@ def main(argv=None) -> int:
                 # queue takes back what a warp would idle
                 cw = out_k[1][:out_k[1].shape[0] // 32 * 32].reshape(-1, 32).to(torch.int64)
                 util = cw.sum().item() / max(32 * cw.max(dim=1).values.sum().item(), 1)
-                hits, glossy, cone = (int(x) for x in events.tolist())
+                _, glossy, cone = (int(x) for x in events.tolist())
                 no_bits = pk.no_glossy and same_out(out_k, out_p)
                 extra = (f"; {k4_design(pk)}, "
                          f"bit-equal to the older K4 (acc, counts, continuation state of each "
@@ -1470,9 +1587,10 @@ def main(argv=None) -> int:
             n, s_count = state0.shape[1], state0.shape[0] // 10
             tail = kw.get("tail_frac", 0.0)
             checks[kernel][tag] = dict(launches=launches[tag][kernel], max_abs_err=err,
-                                       ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
-            if kernel == "K4":
-                checks[kernel][tag]["prev_ms"] = prev_ms
+                                       ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                                       prev_ms=prev_ms)
+            if kernel == "K5":
+                checks[kernel][tag]["issue_floor_ms"] = floor
             print(f"phase 5 {kernel} {tag} N={n} S={s_count} tail_frac={tail} "
                   f"no_glossy={pk.no_glossy}: lanes agree {frac:.6f} max|dacc| {err:.3e} "
                   f"kernel {ms:.3f} ms plain {pms:.1f} ms bound {b:.3f} ms ({by}) "
@@ -1725,10 +1843,32 @@ def main(argv=None) -> int:
     print(f"phase 6 geometry pack, suzanne ({tscene.num_triangles} triangles): {packs}")
     del kept7
 
-    # K8 against its plain version on each of the first step's calls
+    # K8 against its plain version on each of the first step's calls, and
+    # in turns with the older K8 (PREV_COMMIT) and this K8 built with other
+    # register caps (ALT_BUILDS k8_blocks*): cot_in bit-equal to theirs,
+    # d_mat and d_env within 1e-5 (relative to the largest) of the plain
+    # version's float64 sums and bit-identical on a second run
+    def k8_device_kernels(fn):
+        """Kernels one call of fn launches on the card (torch.profiler), or
+        the reason it could not tell."""
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        except Exception as exc:  # the profiler only reports here
+            return f"not measured ({type(exc).__name__})"
+        return f"{len(names)} ({', '.join(sorted(set(names)))})" if names else \
+            "not measured (no device events)"
+
     k8 = []
     for a, kw in tcapt["K8"]:
-        o1 = mk.bounce_bwd_step(*a, **kw)
+        kept8 = []
+        launch8 = mk._bounce_bwd_cuda
+        with swapped(mk, "_bounce_bwd_cuda", lambda *x: kept8.append(x) or launch8(*x)):
+            o1 = mk.bounce_bwd_step(*a, **kw)
         o2 = mk.bounce_bwd_step(*a, **kw)
         with plain("K8"):
             op = mk.bounce_bwd_step(*a, **kw)  # (the first call also warms torch.func up)
@@ -1742,12 +1882,42 @@ def main(argv=None) -> int:
         de = (o1[2] - op[2]).abs().max().item()
         gm = op[1].abs().max().item()
         ge = op[2].abs().max().item()
+        rel_m, rel_e = dm / max(gm, 1e-30), de / max(ge, 1e-30)
         finite = all(bool(torch.isfinite(x).all()) for x in o1)
-        if not (bitwise and finite and frac >= 0.999 and dm <= 1e-3 * gm + 1e-6
-                and de <= 1e-3 * ge + 1e-6):
+        if not (bitwise and finite and frac >= 0.999 and rel_m <= 1e-5 and rel_e <= 1e-5):
             fail(f"K8 disagrees with its plain version: bitwise {bitwise}, finite {finite}, "
                  f"lanes {frac}, d_mat {dm} of {gm}, d_env {de} of {ge}")
-        ms = events_ms(lambda: mk.bounce_bwd_step(*a, **kw), 5)
+        run8 = lambda: mk.bounce_bwd_step(*a, **kw)
+
+        def on_lib(lib):
+            def f():
+                with swapped(_cuda, "_LIB", lib):
+                    return run8()
+            return f
+
+        runs = {"this": run8, "older": None}
+        if prev_lib is not None:
+            runs["older"] = lambda: prev_k8(prev_lib, mk, kept8[0])
+        for b_ in (3, 4):
+            runs[f"{b_} blocks"] = on_lib(alt_lib[f"k8_blocks{b_}"])
+        vs = {}
+        for k, fn in runs.items():
+            if k == "this" or fn is None:
+                continue
+            o = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(o[0], o1[0]):
+                fail(f"K8's cot_in differs from the {k} K8's")
+            vs[k] = [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+                     for x, y in zip(o1[1:], o[1:])]
+            if k != "older" and not max(vs[k]) <= 1e-5:
+                fail(f"K8 built for {k} an SM: d_mat / d_env {vs[k]} from this K8's")
+        ms8 = {k: [] for k in runs}
+        order = [k for k in runs if runs[k] is not None]
+        for k in order + order[::-1]:
+            ms8[k].append(events_ms(runs[k], 5))
+        ms8 = {k: (sum(v) / len(v) if v else None) for k, v in ms8.items()}
+        ms = ms8["this"]
         pk8, state_in, t_in = a[0], a[1], a[2]
         alive = state_in[9] != 0
         hit = alive & torch.isfinite(t_in) & (t_in > 0)
@@ -1758,18 +1928,32 @@ def main(argv=None) -> int:
         b8, by8 = bound(n_dead * BWD_BYTES_DEAD + n_miss * BWD_BYTES_MISS
                         + n_hit * BWD_BYTES_HIT + nbytes(pk8.tri_attr, pk8.sph_attr)
                         + nbytes(*o1[1:]), ops)
-        k8.append(dict(ms=ms, plain_ms=pms, bound_ms=b8, bound_by=by8,
+        k8.append(dict(ms=ms, plain_ms=pms, bound_ms=b8, bound_by=by8, prev_ms=ms8["older"],
                        max_abs_err=max((o1[0] - op[0]).abs().max().item(), dm, de)))
+        launched = k8_device_kernels(run8) if len(k8) == 1 else None
         print(f"phase 6 K8 bounce {len(tcapt['K8']) - len(k8)} N={state_in.shape[1]} hit / "
-              f"live miss / dead lanes {n_hit} / {n_miss} / {n_dead}: bitwise repeat {bitwise}, cot lanes agree {frac:.6f} "
-              f"max|d| {(o1[0] - op[0]).abs().max().item():.3e} of {sc:.3e}, d_mat max|d| "
-              f"{dm:.3e} of {gm:.3e}, d_env {de:.3e} of {ge:.3e}; kernel {ms:.4f} ms plain "
-              f"{pms:.1f} ms bound {b8:.4f} ms ({by8})")
+              f"live miss / dead lanes {n_hit} / {n_miss} / {n_dead}: bitwise repeat {bitwise}, "
+              f"cot lanes agree {frac:.6f} max|d| {(o1[0] - op[0]).abs().max().item():.3e} of "
+              f"{sc:.3e}, d_mat max|d| {dm:.3e} of {gm:.3e} ({rel_m:.2e}), d_env {de:.3e} of "
+              f"{ge:.3e} ({rel_e:.2e}); cot_in bit-equal to "
+              + ", ".join(f"the {k} K8's (d_mat / d_env relative {v[0]:.2e} / {v[1]:.2e})"
+                          for k, v in vs.items())
+              + f"; in turns: this {ms:.4f} ms, the older K8 {fmt_ms(ms8['older'])}, "
+              + ", ".join(f"{k} an SM {v:.4f} ms" for k, v in ms8.items() if "blocks" in k)
+              + f"; plain {pms:.1f} ms bound {b8:.4f} ms ({by8})"
+              + (f"; kernels a call (torch.profiler): {launched}" if launched else ""),
+              flush=True)
+        del kept8, o1, o2, op
     mean = lambda key: sum(r[key] for r in k8) / len(k8)
     checks["K8"] = {"train": dict(
         launches=tlaunch["K8"], max_abs_err=max(r["max_abs_err"] for r in k8),
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-        bound_by=max(k8, key=lambda r: r["bound_ms"])["bound_by"])}
+        bound_by=max(k8, key=lambda r: r["bound_ms"])["bound_by"],
+        prev_ms=mean("prev_ms") if prev_lib is not None else None)}
+    print(f"phase 6 K8 mean of the {len(k8)} bounces: {mean('ms'):.4f} ms, the older K8 "
+          f"{fmt_ms(checks['K8']['train']['prev_ms'])}, bound {mean('bound_ms'):.4f} ms; "
+          f"registers {'; '.join(f'{k}: {v}' for k, v in regs.items() if 'bounce_bwd' in k)}",
+          flush=True)
     # K2: the first step's launch (every step's camera stage has the same
     # inputs: the same key, pixels and camera)
     k2_report(6, "train", tscene, tcapt["K2"][0][0], tlaunch["K2"], len(tcapt["K2"]))
@@ -2035,20 +2219,19 @@ def main(argv=None) -> int:
         fail(f"K9 disagrees with its plain version: bitwise {bitwise9}, finite {finite9}, "
              f"relative max|d| (d_state0, d_mat, d_env) {rel}")
     # in turns with the older K9 (PREV_COMMIT) on the same call (this, older,
-    # older, this): d_state0 bit-equal to the older K9's; d_mat and d_env are
-    # summed in another order, so their last bits may move
+    # older, this): d_state0, d_mat and d_env bit-equal to the older K9's
     run9 = lambda: mk.regen_replay_bwd(*b9)
     run9_prev = (lambda: prev_k9(prev_lib, mk, b9)) if prev_lib is not None else None
-    same_prev9, prev_rel9 = None, [None, None]
+    same_prev9 = None
     if run9_prev is not None:
         o6 = run9_prev()
         torch.cuda.synchronize()
-        same_prev9 = torch.equal(o1[0], o6[0])
+        same_prev9 = all(torch.equal(x, y) for x, y in zip(o1, o6))
         prev_rel9 = [((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
                      for x, y in zip(o1[1:], o6[1:])]
         del o6
         if not same_prev9:
-            fail("K9's d_state0 differs from the older K9's")
+            fail(f"K9 differs from the older K9 (d_mat / d_env relative {prev_rel9})")
     ms9 = {"this": [], "older": []}
     for k in ("this", "older", "older", "this"):
         if k == "this" or run9_prev is not None:
@@ -2096,19 +2279,18 @@ def main(argv=None) -> int:
     checks["K9"] = {"regen-train": dict(launches=rlaunch["K9"], max_abs_err=err9, ms=ms9,
                                         plain_ms=pms9, bound_ms=b9_, bound_by=by9,
                                         prev_ms=ms9_prev)}
-    rel_prev = ", ".join("n/a" if x is None else f"{x:.2e}" for x in prev_rel9)
     print(f"phase 7 K9 N={lanes4.shape[0]} S={sc4}: bitwise repeat {bitwise9}; max|d| "
           f"relative to the largest of the plain version (float64 adjoint and sums): "
           f"d_state0 {rel[0]:.2e} (of {scales[0]:.3e}), d_mat {rel[1]:.2e} (of "
           f"{scales[1]:.3e}), d_env {rel[2]:.2e} (of {scales[2]:.3e}); against the older K9: "
-          f"d_state0 bit-equal {same_prev9}, d_mat / d_env relative {rel_prev}; kernel "
+          f"d_state0, d_mat and d_env bit-equal {same_prev9}; kernel "
           f"{ms9:.3f} ms in turns with the older K9 {fmt_ms(ms9_prev)}, plain {pms9:.1f} ms, "
           f"bound {b9_:.3f} ms ({by9}); hit / live-miss slots {n_hit} / {slots - n_hit}")
     # K2: the first step's eight camera stages (the later steps repeat them)
     k2_runs = [tuple(x.to(dev) if torch.is_tensor(x) else x for x in a2)
                for a2 in rcapt["K2"]]
     for a2 in k2_runs[1:]:
-        k2_check(a2, chunk_boxes(tscene, a2[0]))
+        k2_check(a2)
     k2_report(7, "regen-train", tscene, k2_runs[0], rlaunch["K2"], len(k2_runs))
     del o1, out_k, res_k, b9, a4, rcapt, k2_runs
     torch.cuda.empty_cache()
@@ -2480,8 +2662,11 @@ def main(argv=None) -> int:
     pcount["compact"], _ = timed_call(lambda: trace_passes_compact(
         scene, camera, params, bkey, 0, 0, px, py, S4))
     tparams5 = params.replace(rng_mode="table")
-    pcount["K5"], (rad_5, cnt_5) = timed_call(lambda: trace_passes_fused(
-        scene, camera, tparams5, bkey, 0, 0, px, py, S4, with_lane_counts=True))
+    k5_calls = []
+    launch5 = mk._regen_table_cuda
+    with swap_attr(mk, "_regen_table_cuda", lambda *a: k5_calls.append(a) or launch5(*a)):
+        pcount["K5"], (rad_5, cnt_5) = timed_call(lambda: trace_passes_fused(
+            scene, camera, tparams5, bkey, 0, 0, px, py, S4, with_lane_counts=True))
     pcount["K4"], _ = timed_call(lambda: trace_passes_fused(
         scene, camera, params, bkey, 0, 0, px, py, S4))
     n_5 = S4 * px.shape[0] + int(cnt_5.sum().item())
@@ -2493,7 +2678,38 @@ def main(argv=None) -> int:
           f"equal; launches {launches['compact']}; ms per pass: compaction "
           f"{pcount['compact']:.1f} (first call {first_c:.1f}), K5 {pcount['K5']:.1f}, K4 "
           f"{pcount['K4']:.1f}", flush=True)
-    del rad_c, rad_5, cnt_5, scene
+    del rad_c, rad_5, cnt_5
+
+    # K5's culled warp search on that call (the table-mode run's launch):
+    # bit for bit against its plain version, the older K5 (which scans every
+    # triangle) and one lane a thread, timed in turns, with its bound
+    pk5, state5, _, unif5, eps5, nb5, sc5 = k5_calls[-1]
+    a5 = (pk5, state5, unif5, eps5, nb5, sc5)  # the wrapper's arguments
+    out_5 = wrappers["K5"](*a5)
+    with plain("K5"):
+        pms5, out_p5 = once_ms(lambda: wrappers["K5"](*a5))
+    if not same_out(out_5, out_p5):
+        fail("K5's culled warp search differs from its plain version on suzanne")
+    k5 = k5_turns(a5, {}, out_5)
+    search5 = [0]
+    with plain("K5"), counting_search(search5):
+        wrappers["K5"](*a5)
+    live5 = int(out_p5[1].sum().item())
+    b5, by5 = bound(nbytes(state5, a5[2], pk5.tri_tab, pk5.sph_tab, pk5.tri_attr, pk5.sph_attr,
+                           pk5.wbox, pk5.wbox1) + nbytes(*out_5),
+                    search5[0] + live5 * OPS_SHADE)
+    checks["K5"]["compact-table"] = dict(
+        launches=1, max_abs_err=0.0, ms=k5["ms"]["this"], plain_ms=pms5, bound_ms=b5,
+        bound_by=by5, prev_ms=k5["ms"]["older"])
+    print(f"phase 8 K5 suzanne 512^2 S={S4} N={state5.shape[1]} (table mode, culled warp "
+          f"search, lane queue): acc and counts bit-equal to its plain version, to the older K5 "
+          f"{prev_lib is not None or 'not built'} and to one lane a thread; in turns: this "
+          f"{k5['ms']['this']:.3f} ms, the older K5 (every triangle) "
+          f"{fmt_ms(k5['ms']['older'])}, one lane a thread {k5['ms']['lane block']:.3f} ms; "
+          f"32-B sectors a request of a table load: lane queue {k5['sectors']['queue']:.3f}, "
+          f"one lane a thread {k5['sectors']['lane block']:.3f}; plain {pms5:.1f} ms bound "
+          f"{b5:.3f} ms ({by5}); live bounces {live5}", flush=True)
+    del a5, out_5, out_p5, k5_calls, scene
 
     # one row per kernel: the numbers of the path that carries it (the
     # CLI-default cornell render for K2 and K4, square cornell for K5, the

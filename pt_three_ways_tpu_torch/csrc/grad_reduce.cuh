@@ -3,17 +3,18 @@
 // (regen_replay_bwd.cu). No float atomics: the same inputs give
 // bit-identical gradients on every run.
 //
-//   * warp_add_grads (K8, once a bounce; K9 at the end of its walk, and for
-//     a material that finds no accumulator of its thread): per warp, one
-//     butterfly shuffle sum per material present in the warp (materials
-//     visited in lane order, warp_add_mat) and one per environment channel
-//     (warp_add_env), which lane 0 adds into the warp's row of shared
-//     memory ([9 * n_mat + 3] floats: materials row-major, then the
-//     environment). Every lane of the warp must call them.
-//   * block_partials: a block's warp rows summed in warp order into column
-//     blockIdx.x of a [9 * n_mat + 3, blocks] partial table.
-//   * reduce_columns_kernel: one block per column sums its partials in a
-//     fixed thread-strided order and a fixed shared-memory tree.
+//   * warp_add_mat and warp_add_env (K8 each step; K9 at the end of its
+//     walk, and for a material that finds no accumulator of its thread):
+//     per warp, one butterfly shuffle sum per material present in the warp
+//     (materials visited in lane order) and one per environment channel,
+//     which lane 0 adds into the warp's row of shared memory ([9 * n_mat +
+//     3] floats: materials row-major, then the environment). Every lane of
+//     the warp must call them.
+//   * block_partials (K9): a block's warp rows summed in warp order into
+//     column blockIdx.x of a [9 * n_mat + 3, blocks] partial table.
+//   * reduce_columns_kernel (K9's second launch): one block per column sums
+//     its partials in a fixed thread-strided order and a fixed shared-memory
+//     tree. K8 sums its partials in its own last block (bounce_bwd.cu).
 #pragma once
 
 #include "replay.cuh"
@@ -55,11 +56,6 @@ __device__ __forceinline__ void warp_add_mat(int mat, const float* g9, float* ws
       if (wl == 0) ws[9 * m + k] = ws[9 * m + k] + v;
     }
   }
-}
-
-__device__ __forceinline__ void warp_add_grads(const BwdOut& o, float* ws, int n_mat) {
-  warp_add_env(o.g_env, ws, n_mat);
-  warp_add_mat(o.mat, o.g_mat, ws, n_mat);
 }
 
 __device__ __forceinline__ void block_partials(const float* smem, int n_warps, int n_col,

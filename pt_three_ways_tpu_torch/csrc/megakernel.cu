@@ -1,13 +1,27 @@
-// Kernels K5 (table uniforms) and K4 (in-kernel RNG): the regenerating
+// Kernels K4 (in-kernel RNG) and K5 (table uniforms): the regenerating
 // path-tracing megakernels.
 //
-// K5 replaces the JAX package's ops/pallas_megakernel.py _megakernel_regen /
-// _run_regen; K4 replaces _megakernel_regen_krng / _run_regen_krng (plain,
-// thresh, resume and replay modes). One thread per lane: the path state
-// lives in registers, a dead lane reloads the next alive sample's
-// first-bounce state from state0 [(s * 10 + r) * N + lane] and keeps tracing
-// until its samples are exhausted. The winner search and shading are
-// pt3_device.cuh's.
+// K4 replaces the JAX package's ops/pallas_megakernel.py
+// _megakernel_regen_krng / _run_regen_krng (plain, thresh, resume and replay
+// modes); K5 replaces _megakernel_regen / _run_regen. One thread per lane:
+// the path state lives in registers, a dead lane reloads the next alive
+// sample's first-bounce state from state0 [(s * 10 + r) * N + lane] and keeps
+// tracing until its samples are exhausted. The shading is pt3_device.cuh's.
+//
+// K5 is a case of K4's loop (template TABLE): a bounce's (u, acos u, v, p)
+// come from the threefry table, lane-major ([S*nb, N] float4, built so by
+// the camera stage), instead of K1's hash; the refill from the next-alive
+// table nexta [S+1, N] instead of the alive-mask words (so S is not capped
+// at 64); and the winner is the unpacked one (the exact minimum t, the
+// lowest index on ties), not K4's packed minimum. A bounce's
+// draws are one 16-byte load, issued before its winner search, whose
+// ~2,000 operations hide its latency. Its searches are K2's: a one-chunk
+// scene staged in shared memory and scanned per thread
+// (winner_search<false, true>), any other the culled warp search with the
+// unpacked winner over a PackedSceneStream's window boxes
+// (stream_tri.cuh culled_search_warp_near). It takes the lane queue
+// (below), and equals its plain version (every primitive scanned, one lane
+// a thread) bit for bit.
 //
 // K4's resident mode has one design per kind of scene, chosen by the
 // launch from the scene (flat_scene.cuh: flat_fits): FLAT, for a scene of at most one 64-row
@@ -79,8 +93,6 @@
 
 namespace {
 
-constexpr int kTableBlock = 128;
-
 struct Lane {
   float st[10];
   float acc[3];
@@ -108,68 +120,6 @@ __device__ __forceinline__ bool finish_search(const pt3::SceneView& s, Lane& L, 
   return hit;
 }
 
-// K5's winner search (unpacked) + environment on miss; returns hit (t, idx
-// valid).
-__device__ __forceinline__ bool intersect_step(const pt3::SceneView& s, Lane& L,
-                                               float eps, float& t, int& idx) {
-  L.cnt += 1;
-  const pt3::Ray r{L.st[0], L.st[1], L.st[2], L.st[3], L.st[4], L.st[5]};
-  pt3::winner_search<false>(s, r, eps, t, idx);
-  return finish_search(s, L, t);
-}
-
-// ---------------------------------------------------------------- K5 ----
-
-template <bool NO_GLOSSY>
-__global__ void __launch_bounds__(kTableBlock)
-regen_table_kernel(pt3::SceneView s, const float* __restrict__ state0,
-                   const int* __restrict__ nexta, const float* __restrict__ unif,
-                   float* __restrict__ acc_out, int* __restrict__ cnt_out, int n,
-                   int S, int nb, float eps) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  Lane L;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) L.st[r] = 0.0f;
-  L.acc[0] = L.acc[1] = L.acc[2] = 0.0f;
-  L.cnt = 0;
-  L.s_cur = 0;
-  L.d_cur = 0;
-  const int first = nexta[lane];
-  if (first < S) {
-    load_state(L.st, state0, first, lane, n);
-    L.s_cur = first;
-    L.d_cur = 1;
-  }
-  const int max_iter = S * (nb + 1);
-  for (int it = 0; L.st[9] != 0.0f && it < max_iter; ++it) {
-    float t;
-    int idx;
-    if (intersect_step(s, L, eps, t, idx)) {
-      const size_t row = (size_t)(L.s_cur * nb + (L.d_cur - 1)) * 4;
-      const float u = unif[row * n + lane];
-      const float au = unif[(row + 1) * n + lane];
-      const float v = unif[(row + 2) * n + lane];
-      const float p = unif[(row + 3) * n + lane];
-      pt3::shade<NO_GLOSSY>(s, L.st, L.acc, t, idx, u, au, v, p);
-      L.d_cur += 1;
-      if (L.d_cur > nb) L.st[9] = 0.0f;
-    }
-    if (L.st[9] == 0.0f) {
-      const int next = nexta[(size_t)(L.s_cur + 1) * n + lane];
-      if (next < S) {
-        load_state(L.st, state0, next, lane, n);
-        L.s_cur = next;
-        L.d_cur = 1;
-      }
-    }
-  }
-  acc_out[lane] = L.acc[0];
-  acc_out[n + lane] = L.acc[1];
-  acc_out[2 * n + lane] = L.acc[2];
-  cnt_out[lane] = L.cnt;
-}
-
 // ---------------------------------------------------------------- K4 ----
 
 struct KrngArgs {
@@ -190,7 +140,9 @@ struct KrngArgs {
   int rres_n;
   int n, S, nb, thresh;
   float eps;
-  pt3::StreamView w;  // window tables (STREAM), or the boxes of REPLAY's culled search
+  pt3::StreamView w;  // window tables (STREAM), or the boxes of the culled searches
+  const int* __restrict__ nexta;     // [S+1, N] next alive sample (TABLE)
+  const float4* __restrict__ unif;   // [S*nb, N] (u, acos u, v, p) (TABLE)
 };
 
 // First alive sample strictly after s_cur (>= 0 when first) over the two
@@ -224,35 +176,77 @@ struct KrngLane {
   int col;  // REPLAY: the lane's column of the residuals
 };
 
+// The lane's next alive sample (its first when `first`), from the mask
+// words or (TABLE) the next-alive table, and its first-bounce state.
+template <bool TABLE>
 __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
                                             int lane, bool first) {
-  const int s_next = next_alive(K.am_lo, K.am_hi, K.L.s_cur, a.S, first);
+  const int s_next =
+      TABLE ? a.nexta[(size_t)(first ? 0 : K.L.s_cur + 1) * a.n + lane]
+            : next_alive(K.am_lo, K.am_hi, K.L.s_cur, a.S, first);
   K.L.s_cur = s_next;
   if (s_next < a.S) {
     load_state(K.L.st, a.state0, s_next, lane, a.n);
     K.L.d_cur = 1;
-    K.sdt = pt3::sd_term(a.sample0, s_next, 1);
+    if (!TABLE) K.sdt = pt3::sd_term(a.sample0, s_next, 1);
   }
 }
 
-// Shading with the lane's K1 draws on a hit, then the refill of a lane
-// whose path ended.
-template <bool NO_GLOSSY, bool SMEM = false>
+#ifdef PT3_K5_COUNT_SECTORS
+// A counting build (chip_smoke.py ALT_BUILDS): the requests of a table
+// load and the 32-B sectors they touch, summed over the launch, for the
+// threads of the warp that issue it together.
+__device__ unsigned long long k5_sector_count[2];  // requests, sectors
+
+__device__ __forceinline__ void count_table_sectors(const float4* p) {
+  const unsigned act = __activemask();
+  const unsigned peers =
+      __match_any_sync(act, (unsigned long long)reinterpret_cast<uintptr_t>(p) >> 5);
+  const int wl = threadIdx.x & 31;
+  if (wl == __ffs(peers) - 1) atomicAdd(&k5_sector_count[1], 1ull);
+  if (wl == __ffs(act) - 1) atomicAdd(&k5_sector_count[0], 1ull);
+}
+#endif
+
+// TABLE: the (u, acos u, v, p) of the lane's current sample and depth, one
+// 16-byte load from the lane-major table ((s * nb + d - 1) * N + lane),
+// issued before the winner search so that it hides its latency. The
+// threads of a warp hold lanes scattered over the launch (the lane queue),
+// so each touches its own sector: one load a bounce, not four.
+__device__ __forceinline__ float4 table_draws(const KrngLane& K, const KrngArgs& a, int lane) {
+  const float4* p = a.unif + (size_t)(K.L.s_cur * a.nb + K.L.d_cur - 1) * a.n + lane;
+#ifdef PT3_K5_COUNT_SECTORS
+  count_table_sectors(p);
+#endif
+  return __ldg(p);
+}
+
+// Shading on a hit with the lane's draws (K1's hash, or TABLE's `tab`),
+// then the refill of a lane whose path ended.
+template <bool NO_GLOSSY, bool SMEM, bool TABLE>
 __device__ __forceinline__ void krng_shade_refill(const pt3::SceneView& s, KrngLane& K,
                                                   const KrngArgs& a, int lane, bool hit,
-                                                  float t, int idx) {
+                                                  float t, int idx, float4 tab) {
   if (hit) {
-    const uint32_t base = K.hlane + K.sdt;
-    const float u = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[0]));
-    const float v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
-    const float p = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[2]));
-    const float au = NO_GLOSSY ? u : pt3::acos01(u);
+    float u, au, v, p;
+    if constexpr (TABLE) {
+      u = tab.x;
+      au = tab.y;
+      v = tab.z;
+      p = tab.w;
+    } else {
+      const uint32_t base = K.hlane + K.sdt;
+      u = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[0]));
+      v = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[1]));
+      p = pt3::uniform_from_bits(pt3::fmix32(base + a.seed[2]));
+      au = NO_GLOSSY ? u : pt3::acos01(u);
+    }
     pt3::shade<NO_GLOSSY, SMEM>(s, K.L.st, K.L.acc, t, idx, u, au, v, p);
     K.L.d_cur += 1;
-    K.sdt += pt3::kInP2;
+    if (!TABLE) K.sdt += pt3::kInP2;
     if (K.L.d_cur > a.nb) K.L.st[9] = 0.0f;
   }
-  if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill(K, a, lane, false);
+  if (K.L.st[9] == 0.0f && K.L.s_cur < a.S) krng_refill<TABLE>(K, a, lane, false);
 }
 
 // K4's search modes (template MODE): CULLED, the culled warp search;
@@ -291,35 +285,43 @@ __device__ __forceinline__ void replay_slot_close(float* slot, const KrngLane& K
 }
 
 // One bounce of one lane with the per-thread scan of the scene in shared
-// memory (FLAT: s reads the staged tables).
-template <bool NO_GLOSSY>
+// memory (FLAT: s reads the staged tables; K4's packed winner, TABLE's
+// unpacked one).
+template <bool NO_GLOSSY, bool TABLE>
 __device__ __forceinline__ void krng_bounce_flat(const pt3::SceneView& s, KrngLane& K,
                                                  const KrngArgs& a, int lane) {
+  const float4 tab = TABLE ? table_draws(K, a, lane) : make_float4(0.f, 0.f, 0.f, 0.f);
   float t;
   int idx;
   K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
-  pt3::winner_search<true, true>(s, r, a.eps, t, idx);
+  pt3::winner_search<!TABLE, true>(s, r, a.eps, t, idx);
   const bool hit = finish_search(s, K.L, t);
-  krng_shade_refill<NO_GLOSSY, true>(s, K, a, lane, hit, t, idx);
+  krng_shade_refill<NO_GLOSSY, true, TABLE>(s, K, a, lane, hit, t, idx, tab);
 }
 
-// One bounce with the culled warp search (CULLED; SLOTS: REPLAY's residual
+// One bounce with the culled warp search (CULLED: K4's packed winner,
+// TABLE's unpacked one, culled_search_warp_near; SLOTS: REPLAY's residual
 // slot). Every lane of the warp calls it; only `active` ones write slots,
 // shade and refill.
-template <bool NO_GLOSSY, bool SLOTS>
+template <bool NO_GLOSSY, bool SLOTS, bool TABLE>
 __device__ __forceinline__ void krng_bounce_culled(const pt3::SceneView& s, KrngLane& K,
                                                    const KrngArgs& a, int lane, bool active) {
+  float4 tab = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (TABLE && active) tab = table_draws(K, a, lane);
   float* slot = (SLOTS && active) ? replay_slot_open(K, a) : nullptr;
   if (active) K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
   float t;
   int idx;
-  pt3::culled_search_warp(s, a.w, r, active, a.eps, t, idx);
+  if constexpr (TABLE)
+    pt3::culled_search_warp_near(s, a.w, r, active, a.eps, t, idx);
+  else
+    pt3::culled_search_warp(s, a.w, r, active, a.eps, t, idx);
   if (!active) return;
   const bool hit = finish_search(s, K.L, t);
   if (SLOTS) replay_slot_close(slot, K, a, hit, t, idx);
-  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
+  krng_shade_refill<NO_GLOSSY, false, TABLE>(s, K, a, lane, hit, t, idx, tab);
 }
 
 // One bounce with the streamed triangle search (K6). Every thread of the
@@ -338,28 +340,29 @@ __device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, Krng
   pt3::stream_search(s, a.w, smem, phase, r, active, a.eps, t, idx);
   if (!active) return;
   const bool hit = finish_search(s, K.L, t);
-  krng_shade_refill<NO_GLOSSY>(s, K, a, lane, hit, t, idx);
+  krng_shade_refill<NO_GLOSSY, false, false>(s, K, a, lane, hit, t, idx,
+                                             make_float4(0.f, 0.f, 0.f, 0.f));
 }
 
 // One bounce of every thread's lane in a loop that every thread of the
 // block (STREAM, THRESH) or warp (CULLED, REPLAY) runs; `active` lanes
 // trace.
-template <bool NO_GLOSSY, int MODE>
+template <bool NO_GLOSSY, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_bounce_all(const pt3::SceneView& s, KrngLane& K,
                                                 const KrngArgs& a, int lane, bool active,
                                                 unsigned char* smem, uint32_t& phase) {
   if constexpr (MODE == kStream)
     krng_bounce_stream<NO_GLOSSY>(s, K, a, lane, active, smem, phase);
   else if constexpr (MODE == kFlat) {
-    if (active) krng_bounce_flat<NO_GLOSSY>(s, K, a, lane);
+    if (active) krng_bounce_flat<NO_GLOSSY, TABLE>(s, K, a, lane);
   } else
-    krng_bounce_culled<NO_GLOSSY, MODE == kReplay>(s, K, a, lane, active);
+    krng_bounce_culled<NO_GLOSSY, MODE == kReplay, TABLE>(s, K, a, lane, active);
 }
 
 // A lane's state at the start of the launch: its first alive sample, or
 // (RESUME) the in-flight state of a compacted continuation, with (REPLAY)
 // its running sum and next slot.
-template <bool RESUME, int MODE>
+template <bool RESUME, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, int lane) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) K.L.st[r] = 0.0f;
@@ -368,9 +371,9 @@ __device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, i
   K.L.s_cur = 0;
   K.L.d_cur = 0;
   K.sdt = 0u;
-  K.hlane = (uint32_t)a.lane_ids[lane] * pt3::kInP1;
-  K.am_lo = (uint32_t)a.amask[lane];
-  K.am_hi = (uint32_t)a.amask[a.n + lane];
+  K.hlane = TABLE ? 0u : (uint32_t)a.lane_ids[lane] * pt3::kInP1;
+  K.am_lo = TABLE ? 0u : (uint32_t)a.amask[lane];
+  K.am_hi = TABLE ? 0u : (uint32_t)a.amask[a.n + lane];
   K.col = (MODE == kReplay && a.rcol != nullptr) ? a.rcol[lane] : lane;
   if (RESUME) {
 #pragma unroll
@@ -385,7 +388,7 @@ __device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, i
       K.L.cnt = a.cnt_in[lane];
     }
   } else {
-    krng_refill(K, a, lane, true);
+    krng_refill<TABLE>(K, a, lane, true);
   }
 }
 
@@ -405,7 +408,7 @@ __device__ __forceinline__ void krng_lane_store(const KrngLane& K, const KrngArg
 // is its own), so acc, cnt and the slots equal the one-lane-a-thread launch
 // bit for bit. Every thread of the warp runs the loop (CULLED's search and
 // the ballots take the full warp).
-template <bool NO_GLOSSY, bool RESUME, int MODE>
+template <bool NO_GLOSSY, bool RESUME, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const KrngArgs& a) {
   constexpr unsigned kFull = 0xFFFFFFFFu;
   const int wl = threadIdx.x & 31;
@@ -429,16 +432,16 @@ __device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const K
       if (((need >> wl) & 1u) && got < a.n) {
         lane = got;
         it = 0;
-        krng_lane_init<RESUME, MODE>(K, a, lane);
+        krng_lane_init<RESUME, MODE, TABLE>(K, a, lane);
       }
       more = base + __popc(need) < a.n;
     }
     if (!__any_sync(kFull, lane >= 0)) break;
     const bool active = lane >= 0 && K.L.st[9] != 0.0f && it < max_iter;
     if constexpr (MODE == kFlat) {
-      if (active) krng_bounce_flat<NO_GLOSSY>(s, K, a, lane);
+      if (active) krng_bounce_flat<NO_GLOSSY, TABLE>(s, K, a, lane);
     } else {
-      krng_bounce_culled<NO_GLOSSY, MODE == kReplay>(s, K, a, lane, active);
+      krng_bounce_culled<NO_GLOSSY, MODE == kReplay, TABLE>(s, K, a, lane, active);
     }
     if (active) ++it;
   }
@@ -447,7 +450,7 @@ __device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const K
 // STREAM, and every mode with tail compaction (THRESH): one lane a thread,
 // in a loop that every thread of the block runs (K6's votes and loads, and
 // THRESH's live count, take the whole block).
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const KrngArgs& a,
                                                 unsigned char* smem) {
   constexpr bool REPLAY = MODE == kReplay;
@@ -465,20 +468,20 @@ __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const K
     __syncthreads();
   }
   KrngLane K;
-  krng_lane_init<RESUME, MODE>(K, a, li);
+  krng_lane_init<RESUME, MODE, TABLE>(K, a, li);
   if (!valid) K.L.st[9] = 0.0f;  // a thread past n stays in the loop, never live
   const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
   if constexpr (!THRESH) {
     // a dead lane stays dead (the refill runs in the bounce that ends a
     // path), so the block runs while any of its lanes is alive
     for (int it = 0; it < max_iter && __syncthreads_or(valid && K.L.st[9] != 0.0f); ++it)
-      krng_bounce_all<NO_GLOSSY, MODE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
+      krng_bounce_all<NO_GLOSSY, MODE, TABLE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
                                        phase);
   } else {
     const int th = max(a.thresh, 1);
     int live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     for (int it = 0; live >= th && it < max_iter; ++it) {
-      krng_bounce_all<NO_GLOSSY, MODE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
+      krng_bounce_all<NO_GLOSSY, MODE, TABLE>(s, K, a, lane, valid && K.L.st[9] != 0.0f, smem,
                                        phase);
       live = __syncthreads_count(valid && K.L.st[9] != 0.0f);
     }
@@ -492,36 +495,49 @@ __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const K
   if (valid) krng_lane_store(K, a, lane);
 }
 
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+// Does this instance take the lane queue? Without tail compaction and
+// outside the stream mode. A build with -DPT3_K5_LANE_BLOCK (chip_smoke.py
+// ALT_BUILDS) runs K5 one lane a thread instead, its scene staged all the
+// same, so that the queue is timed against it on the same launches.
+template <bool THRESH, int MODE, bool TABLE>
+__host__ __device__ constexpr bool uses_queue() {
+#ifdef PT3_K5_LANE_BLOCK
+  if (TABLE) return false;
+#endif
+  return !THRESH && MODE != kStream;
+}
+
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE, bool TABLE>
 __device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s_in, const KrngArgs& a) {
   // STREAM: stream_layout; FLAT: pt3::flat_layout
   extern __shared__ __align__(16) unsigned char smem[];
   const pt3::SceneView s =
       MODE == kFlat ? pt3::flat_stage<true>(s_in, reinterpret_cast<float*>(smem)) : s_in;
-  if constexpr (!THRESH && MODE != kStream)
-    krng_lane_queue<NO_GLOSSY, RESUME, MODE>(s, a);
+  if constexpr (uses_queue<THRESH, MODE, TABLE>())
+    krng_lane_queue<NO_GLOSSY, RESUME, MODE, TABLE>(s, a);
   else
-    krng_lane_block<NO_GLOSSY, THRESH, RESUME, MODE>(s, a, smem);
+    krng_lane_block<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>(s, a, smem);
 }
 
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE, bool TABLE>
 __global__ void __launch_bounds__(kMaxBlock, MODE == kFlat ? 1 : kCappedMinBlocks)
     regen_krng_kernel(pt3::SceneView s, KrngArgs a) {
-  regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE>(s, a);
+  regen_krng_body<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>(s, a);
 }
 
-// One launch of a K4 instance; shared memory above the 48 KB default is
-// opted into first.
-template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE>
+// One launch of a K4 or K5 instance; shared memory above the 48 KB default
+// is opted into first.
+template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE, bool TABLE = false>
 cudaError_t launch_one(pt3::SceneView s, const KrngArgs& a, int grid, int block,
                        size_t smem, cudaStream_t st) {
-  void (*kern)(pt3::SceneView, KrngArgs) = regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE>;
+  void (*kern)(pt3::SceneView, KrngArgs) =
+      regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  if (!THRESH && MODE != kStream) {
+  if (uses_queue<THRESH, MODE, TABLE>()) {
     // the lane queue's persistent blocks: as many as fit the card at once
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -568,26 +584,58 @@ cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, int mode, bool thre
 
 }  // namespace
 
+// K5: the lane queue (next_lane: its head, 0 at launch) with the one-chunk
+// scan on a scene that flat_fits, else the culled warp search over the
+// window boxes (wbox, wbox1: a PackedSceneStream's); unif: [S*nb, N, 4]
+// floats, 16-byte aligned.
 extern "C" int pt3_regen_table(const float* tri, const float* sph,
                                const float* tri_attr, const float* sph_attr,
                                int n_tri, int n_sph, int t_pad, float env_r,
                                float env_g, float env_b, const float* state0,
                                const int* nexta, const float* unif, float* acc,
-                               int* cnt, int n, int S, int nb, float eps,
-                               int no_glossy, void* stream) {
+                               int* cnt, int* next_lane, const float* wbox,
+                               const float* wbox1, int n_windows, int n_groups, int window,
+                               int fan, int n, int S, int nb, float eps, int no_glossy,
+                               void* stream) {
   pt3::SceneView s{tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad,
                    {env_r, env_g, env_b}};
   if (n <= 0) return (int)cudaGetLastError();
-  const int grid = (n + kTableBlock - 1) / kTableBlock;
+  const bool flat = pt3::flat_fits(n_tri, n_sph);
+  if (next_lane == nullptr || S <= 0 || nb <= 0 || reinterpret_cast<uintptr_t>(unif) % 16 ||
+      (!flat && (wbox == nullptr || wbox1 == nullptr || n_windows <= 0 || window <= 0 ||
+                 window % pt3::kTc != 0 || fan < 1 || fan > 32 ||
+                 n_groups != (n_windows + fan - 1) / fan ||
+                 (size_t)n_windows * window < (size_t)n_tri)))
+    return (int)cudaErrorInvalidValue;
+  KrngArgs a{{0u, 0u, 0u}, 0, nullptr, nullptr, state0, nullptr, acc, cnt, nullptr, nullptr,
+             nullptr, nullptr, nullptr, next_lane, 0, n, S, nb, 0, eps,
+             {nullptr, wbox, wbox1, n_windows, n_groups, window, fan}, nexta,
+             reinterpret_cast<const float4*>(unif)};
+  const int block = kMaxBlock;
+  const int grid = (n + block - 1) / block;
+  const size_t smem = flat ? pt3::flat_layout(n_tri, n_sph).total * sizeof(float) : 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (no_glossy)
-    regen_table_kernel<true><<<grid, kTableBlock, 0, st>>>(s, state0, nexta, unif,
-                                                          acc, cnt, n, S, nb, eps);
+  cudaError_t e;
+  if (flat)
+    e = no_glossy ? launch_one<true, false, false, kFlat, true>(s, a, grid, block, smem, st)
+                  : launch_one<false, false, false, kFlat, true>(s, a, grid, block, smem, st);
   else
-    regen_table_kernel<false><<<grid, kTableBlock, 0, st>>>(s, state0, nexta, unif,
-                                                           acc, cnt, n, S, nb, eps);
+    e = no_glossy ? launch_one<true, false, false, kCulled, true>(s, a, grid, block, smem, st)
+                  : launch_one<false, false, false, kCulled, true>(s, a, grid, block, smem, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#ifdef PT3_K5_COUNT_SECTORS
+// The counting build's totals since the last call (requests, sectors), into
+// out[2] on the host; zeroes them.
+extern "C" int pt3_k5_sector_counts(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k5_sector_count, 2 * sizeof(unsigned long long));
+  const unsigned long long zero[2] = {0ull, 0ull};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k5_sector_count, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const float* tri_attr, const float* sph_attr,
@@ -631,7 +679,8 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
              acc, cnt, resid_out, rresid, rcol, acc_in, cnt_in, next_lane, rres_n, n, S, nb,
              thresh, eps,
              {reinterpret_cast<const float4*>(tri_win), wbox, wbox1, n_windows, n_groups,
-              window, fan}};
+              window, fan},
+             nullptr, nullptr};
   const int grid = (n + block - 1) / block;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e =

@@ -215,15 +215,19 @@ def _bounce_uniforms(key, d: int, n: int, device):
     return rng.uniforms(rng.fold_in(bkey, d), (3, n), device)
 
 
-def bounce_rows(key, nb: int, n: int, device) -> torch.Tensor:
+def bounce_rows(key, nb: int, n: int, device, lane_major: bool = False) -> torch.Tensor:
     """[4*nb, N] uniform table of the table-driven kernels: rows (u, acos u,
     v, p) for depths 1..nb, on the scan's streams (acos precomputed outside
-    the kernels)."""
+    the kernels). ``lane_major``: the same values as [nb, N, 4], a lane's
+    four draws of a depth side by side (K5's table: one 16-byte read a
+    bounce)."""
     rows = []
     for d in range(1, nb + 1):
         bu = _bounce_uniforms(key, d, n, device)
         acos_u = facos(torch.clamp(bu[0], 0.0, 1.0))
-        rows.append(torch.stack([bu[0], acos_u, bu[1], bu[2]]))
+        rows.append(torch.stack([bu[0], acos_u, bu[1], bu[2]], dim=-1 if lane_major else 0))
+    if lane_major:
+        return torch.stack(rows) if rows else torch.zeros((0, n, 4), device=device)
     return torch.cat(rows, dim=0) if rows else torch.zeros((0, n), device=device)
 
 
@@ -363,18 +367,13 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     permuted back, which is bit-exact because per-lane results do not
     depend on a lane's position. ``with_lane_counts`` also returns this
     launch's per-lane live-bounce counts (in unsorted lane order).
-    ``packed``: a prebuilt ``PackedSceneFused`` for this scene (a
-    ``PackedSceneStream`` for the in-kernel-RNG K4: its window boxes cull
-    the card's search, or feed K6 where the scene streams); the camera
-    stages' K2 launches search it too.
+    ``packed``: a prebuilt ``PackedSceneStream`` for this scene (its window
+    boxes cull K4's and K5's searches on the card, or feed K6 where the
+    scene streams; the plain versions also take a ``PackedSceneFused``);
+    the camera stages' K2 launches search it too.
     """
     from ..ops import kernel_rng
-    from ..ops.megakernel import (
-        PackedSceneFused,
-        PackedSceneStream,
-        fused_passes,
-        fused_passes_krng,
-    )
+    from ..ops.megakernel import PackedSceneStream, fused_passes, fused_passes_krng
 
     dev = px.device
     if resolve_intersector(params, dev) != "kernel" or params.preview:
@@ -385,20 +384,21 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     use_krng = resolve_rng_mode(params) == "kernel" and nb > 0
     stream = use_krng and uses_stream(params, scene, dev)
 
-    if packed is None:
-        packed = PackedSceneStream(scene) if use_krng else PackedSceneFused(scene)
+    if packed is None:  # K4 and K5 cull their searches by its window boxes
+        packed = PackedSceneStream(scene)
 
     base_sum = torch.zeros((3, r0), device=dev)
     states, unifs = [], []
     for s in range(n_passes):
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
-        st_rows, base, unif_rows = _first_bounce_state(
+        st_rows, base, _ = _first_bounce_state(
             scene, camera, params, key, px, py, tri_chunk, "kernel",
-            want_unif=not use_krng, packed=packed,
+            want_unif=False, packed=packed,
         )
         base_sum = base_sum + base
         states.append(st_rows)
-        unifs.append(unif_rows)
+        if not use_krng:  # K5's table, lane-major [nb, N, 4]
+            unifs.append(bounce_rows(key, nb, r0 * k, dev, lane_major=True))
 
     lane_counts = torch.zeros((r0 * k,), dtype=torch.int32, device=dev)
     if nb == 0:
@@ -406,7 +406,7 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     else:
         state0 = torch.cat(states, dim=0)  # [S*10, N]
         del states
-        unif = None if use_krng else torch.cat(unifs, dim=0)  # [S*nb*4, N]
+        unif = None if use_krng else torch.cat(unifs, dim=0)  # [S*nb, N, 4]
         del unifs
         if use_krng:
             lane_ids = lane_ids_for(px, py, params.width, k)

@@ -11,7 +11,7 @@ On a CUDA device the main path is the regenerating megakernel
 (``make_pass_fn`` -> integrator.trace_passes_fused), with the first pass
 group doubling as the autotune probe (``autotune_decisions``); the scene is
 packed with its window boxes (ops/megakernel.PackedSceneStream), which cull
-K4's search on the card, and a scene above the resident range takes K4's
+K4's and K5's searches on the card, and a scene above the resident range takes K4's
 stream mode (integrator.uses_stream). On the CPU
 the default is the scan wavefront (integrator.trace_pass), one pass per
 group, tiled exactly like the JAX package's CPU branch so the same keys
@@ -260,7 +260,7 @@ def render(
     cur_params = params
     packed = None
     if regen:
-        # K4's culled search (and K6) read the window boxes; K5 ignores them
+        # K4's and K5's culled searches (and K6) read the window boxes
         packed = PackedSceneStream(scene)
 
     def get_fn(n):

@@ -44,9 +44,10 @@ _SIGNATURES = {
     # window, fan, org, dir, live, t_out, idx_out, n, eps, stream
     "pt3_intersect": [P, P, I, I, I, P, P, I, I, I, I, P, P, P, P, P, I, F, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
-    # state0, nexta, unif, acc, cnt, n, s_count, nb, eps, no_glossy, stream
+    # state0, nexta, unif, acc, cnt, next_lane, wbox, wbox1, n_windows,
+    # n_groups, window, fan, n, s_count, nb, eps, no_glossy, stream
     "pt3_regen_table": [P, P, P, P, I, I, I, F, F, F,
-                        P, P, P, P, P, I, I, I, F, I, P],
+                        P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # seed0 seed1 seed2, sample0, lane, amask, state0, resid_in, acc, cnt,
     # resid_out, replay_resid, replay_col, acc_in, cnt_in, next_lane,
@@ -66,9 +67,9 @@ _SIGNATURES = {
                           P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # tri_mat, sph_mat, n_mat, state, ts, idxs, unif, cot_out, cot_in,
-    # partial, d_out, n, stream
+    # partial, d_out, ticket, n, stream
     "pt3_bounce_bwd": [P, P, P, P, I, I, I, F, F, F,
-                       P, P, I, P, P, P, P, P, P, P, P, I, P],
+                       P, P, I, P, P, P, P, P, P, P, P, P, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # tri_mat, sph_mat, n_mat, seed0 seed1 seed2, sample0, lane, resid, cnt,
     # acc_bar, d_state0, partial, d_out, n, s_count, stream

@@ -7,17 +7,21 @@ K5 and K4 trace S sample passes per lane in one launch. A lane is a fixed
 sample's first-bounce state (computed by the camera stage,
 models/integrator._first_bounce_state) and keeps tracing, so occupancy stays
 high and one launch replaces S * depth per-bounce launches. Per bounce:
-nearest hit (the winner search of kernel K2, without culling), environment
-on miss, winner attributes, emission, Fresnel-or-fixed reflectivity event,
-cone or cosine-hemisphere continuation, zero-throughput kill, depth cutoff
-``d > nb`` (reference: src/dod/Scene.cpp:124-179, src/oo/Material.cpp).
+nearest hit (the winner search of kernel K2), environment on miss, winner
+attributes, emission, Fresnel-or-fixed reflectivity event, cone or
+cosine-hemisphere continuation, zero-throughput kill, depth cutoff ``d >
+nb`` (reference: src/dod/Scene.cpp:124-179, src/oo/Material.cpp).
 
 K5 ``fused_passes`` replaces ``_megakernel_regen`` / ``_run_regen`` /
 ``fused_passes`` of the JAX package's ``ops/pallas_megakernel.py``: the
 bounce uniforms (u, acos u, v, p) come from precomputed threefry tables
-``[S*nb*4, N]`` and a next-alive table ``[S+1, N]`` drives the refill, so it
+(``[S*nb, N, 4]``, lane-major: the JAX package's ``[S*nb*4, N]`` rows
+regrouped) and a next-alive table ``[S+1, N]`` drives the refill, so it
 is bit-compatible with the scan wavefront's streams. The table row of a
-(sample, depth) event is a direct index.
+(sample, depth) event is a direct index. On the card it is a case of K4's
+lane-queue loop with K2's searches (the unpacked winner: a one-chunk scene
+staged in shared memory, any other culled by a ``PackedSceneStream``'s
+window boxes, which it needs), and equals its plain version bit for bit.
 
 K4 ``fused_passes_krng`` replaces ``_megakernel_regen_krng`` /
 ``_run_regen_krng`` / ``fused_passes_krng``: uniforms are hashed in the
@@ -62,16 +66,16 @@ K10 ``bounce_step`` replaces ``_bounce_kernel`` / ``_run_bounce`` /
 Design on the H100 (``csrc/megakernel.cu``): one thread per lane, the path
 state in registers, the scene and attribute tables in global memory behind
 the read-only cache (``[T, 30]`` and ``[S, 12]`` float32 rows: a winner's
-attributes are one indexed row load), or, for K4 on a one-chunk scene, in
-shared memory. A refill is one strided load of the sample's ten state rows
-``state0[(s*10 + r)*N + lane]``. The kernels are bound by FP32 operations
-in the per-bounce winner search; the bytes they must move (state tables
-in, radiance and counts out) are small next to that. Without tail
-compaction K4's threads take their lanes from a queue (persistent blocks;
-a thread whose lane is exhausted takes the next lane of the launch), so a
-warp does not idle behind its longest lane; with tail compaction, and in
-the stream mode, the loop is block-synchronous (``__syncthreads_count`` of
-the live lanes).
+attributes are one indexed row load), or, for K4 and K5 on a one-chunk
+scene, in shared memory. A refill is one strided load of the sample's ten
+state rows ``state0[(s*10 + r)*N + lane]``. The kernels are bound by FP32
+operations in the per-bounce winner search; the bytes they must move
+(state tables in, radiance and counts out) are small next to that. Without
+tail compaction K4's and K5's threads take their lanes from a queue
+(persistent blocks; a thread whose lane is exhausted takes the next lane of
+the launch), so a warp does not idle behind its longest lane; with tail
+compaction, and in the stream mode, the loop is block-synchronous
+(``__syncthreads_count`` of the live lanes).
 
 K7 ``fused_bounces`` replaces ``_megakernel`` / ``_run_fused`` /
 ``fused_bounces``: the ``nb`` bounces of ONE sample pass per lane with table
@@ -82,8 +86,11 @@ replays (``csrc/fused_bounces.cu``). K8 ``bounce_bwd_step`` replaces
 ``bounce_bwd_step``: the VJP of one replayed bounce. The JAX kernel's body
 is ``jax.vjp`` of the bounce; the CUDA kernel's is the same derivative
 written by hand in reverse mode (``csrc/replay.cuh``), and its material
-gradient is summed over lanes without float atomics, in a fixed order
-(``csrc/bounce_bwd.cu``, ``csrc/grad_reduce.cuh``). Its plain version is
+gradient is summed over lanes without float atomics, in a fixed order, in
+one launch (``csrc/bounce_bwd.cu``, ``csrc/grad_reduce.cuh``): a persistent grid
+whose last block to finish sums the blocks' partials. A lane reads by class
+(dead: its alive row, winner t, beta and cotangents, staged ahead in shared
+memory; a hit also the rest of its input). Its plain version is
 ``torch.func.vjp`` of the same function with the same guards.
 
 K9 ``regen_replay_bwd`` replaces ``_regen_replay_bwd_kernel`` /
@@ -201,6 +208,9 @@ class PackedSceneFused(PackedScene):
         else:
             self.sph_attr = torch.zeros((1, SPH_ATTR), dtype=f32, device=dev)
         self.environment = environment.detach().to(f32)
+        # the launches pass the environment by value: read once here, not
+        # (with a device-to-host copy and its wait) at every launch
+        self.env_host = tuple(float(x) for x in self.environment.tolist())
 
     def with_materials(self, materials, environment):
         """This pack for ``materials`` and ``environment``: the geometry
@@ -478,7 +488,7 @@ def _bounce_common(pk, st, acc, cnt, active, packed_winner, eps, stream=False):
 def fused_passes_plain(pk: PackedSceneFused, state0, nexta, unif, eps: float,
                        nb: int, s_count: int):
     """Plain version of K5. state0 [S*10, N], nexta [S+1, N] int, unif
-    [S*nb*4, N] rows (u, acos u, v, p) per (sample, depth). Returns
+    [S*nb, N, 4]: a lane's (u, acos u, v, p) per (sample, depth). Returns
     (acc [3, N], cnt [N] int32)."""
     n = state0.shape[1]
     dev = state0.device
@@ -507,9 +517,9 @@ def fused_passes_plain(pk: PackedSceneFused, state0, nexta, unif, eps: float,
         if not bool(active.any()):
             break
         t, idx, hit = _bounce_common(pk, st, acc, cnt, active, False, eps)
-        row = ((torch.clamp(s_cur, 0, s_count - 1) * nb
-                + torch.clamp(d_cur - 1, 0, max(nb - 1, 0))) * 4)
-        u, au, v, p = (unif[row + k, lanes] for k in range(4))
+        row = (torch.clamp(s_cur, 0, s_count - 1) * nb
+               + torch.clamp(d_cur - 1, 0, max(nb - 1, 0)))
+        u, au, v, p = unif[row, lanes].T
         _shade_plain(pk, st, acc, t, idx, hit, u, au, v, p, pk.no_glossy)
         d_cur = torch.where(hit, d_cur + 1, d_cur)
         st[9] = torch.where(d_cur > nb, torch.zeros_like(st[9]), st[9])
@@ -921,21 +931,25 @@ def _scene_ptrs(pk: PackedSceneFused):
     if pk.tri_tab.data_ptr() % 16 or pk.sph_tab.data_ptr() % 16:
         raise ValueError("the kernels read Woop and sphere rows as float4: the tables "
                          "must be 16-byte aligned")
-    env = pk.environment.tolist()
+    env = pk.env_host
     return (pk.tri_tab.data_ptr(), pk.sph_tab.data_ptr(), pk.tri_attr.data_ptr(),
-            pk.sph_attr.data_ptr(), pk.n_tri, pk.n_sph, pk.t_pad,
-            float(env[0]), float(env[1]), float(env[2]))
+            pk.sph_attr.data_ptr(), pk.n_tri, pk.n_sph, pk.t_pad, env[0], env[1], env[2])
 
 
 def _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count):
+    if not isinstance(pk, PackedSceneStream):
+        raise ValueError("K5 on the card takes a PackedSceneStream: its culled search "
+                         "reads the window boxes")
     n = state0.shape[1]
     dev = state0.device
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    next_lane = torch.zeros((1,), dtype=torch.int32, device=dev)  # the lane queue's head
     err = _cuda.lib().pt3_regen_table(
         *_scene_ptrs(pk), state0.data_ptr(), nexta.data_ptr(), unif.data_ptr(),
-        acc.data_ptr(), cnt.data_ptr(), n, s_count, nb, float(eps),
-        int(pk.no_glossy), _cuda.stream_ptr(dev),
+        acc.data_ptr(), cnt.data_ptr(), next_lane.data_ptr(), pk.wbox.data_ptr(),
+        pk.wbox1.data_ptr(), pk.n_windows, pk.n_groups, pk.window, pk.fan, n, s_count, nb,
+        float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_table")
     fused_passes.launches += 1
@@ -1013,7 +1027,9 @@ def _bounce_step_cuda(pk, state, unif, eps, with_hit):
     return (out, cnt, *hit) if with_hit else (out, cnt)
 
 
-BWD_BLOCK = 128  # lanes per K8 / K9 block (kBlock in bounce_bwd.cu, regen_replay_bwd.cu)
+BWD_BLOCK = 128  # lanes per K9 block (kBlock in regen_replay_bwd.cu)
+K8_BLOCK = 256  # lanes per K8 block (kBlock in bounce_bwd.cu)
+_K8_TICKETS = {}  # device -> K8's ticket counter (0 between launches: each resets it)
 
 
 def _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out):
@@ -1021,13 +1037,17 @@ def _bounce_bwd_cuda(pk, state, t, idx, unif, cot_out):
     dev = state.device
     n_col = 9 * pk.n_mat + 3
     cot_in = torch.empty((13, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_col, -(-n // BWD_BLOCK)), dtype=torch.float32, device=dev)
+    # a row a block of the persistent grid (at most one a K8_BLOCK lanes)
+    partial = torch.empty((-(-n // K8_BLOCK), n_col), dtype=torch.float32, device=dev)
     d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
+    ticket = _K8_TICKETS.get(dev)
+    if ticket is None:
+        ticket = _K8_TICKETS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = _cuda.lib().pt3_bounce_bwd(
         *_scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
         state.data_ptr(), t.data_ptr(), idx.data_ptr(), unif.data_ptr(),
         cot_out.data_ptr(), cot_in.data_ptr(), partial.data_ptr(), d_out.data_ptr(),
-        n, _cuda.stream_ptr(dev),
+        ticket.data_ptr(), n, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_bounce_bwd")
     bounce_bwd_step.launches += 1
@@ -1078,14 +1098,27 @@ def next_alive_table(state0: torch.Tensor, s_count: int) -> torch.Tensor:
     return torch.stack(rows).contiguous()
 
 
+def lane_major_table(unif_rows: torch.Tensor, nb: int, s_count: int) -> torch.Tensor:
+    """A row-major uniform table [S*nb*4, N] (rows u, acos u, v, p per
+    sample and depth: the JAX package's layout, and ``bounce_rows``'s) as
+    K5 takes it, [S*nb, N, 4]."""
+    n = unif_rows.shape[1]
+    return unif_rows.reshape(s_count * nb, 4, n).transpose(1, 2).contiguous()
+
+
 def fused_passes(pk: PackedSceneFused, state0: torch.Tensor, unif: torch.Tensor,
                  eps: float, nb: int, s_count: int):
     """K5: S regenerating passes with table uniforms. state0 [S*10, N] rows
-    (org3 dir3 beta3 alive1) per sample; unif [S*nb*4, N]. Returns (acc
-    [3, N] summed over samples, live-bounce counts [N] int32)."""
+    (org3 dir3 beta3 alive1) per sample; unif [S*nb, N, 4]: each lane's
+    (u, acos u, v, p) per (sample, depth), lane-major so that a bounce reads
+    its four draws at once (``integrator.bounce_rows(lane_major=True)``;
+    ``lane_major_table`` converts the row-major table). Returns (acc [3, N]
+    summed over samples, live-bounce counts [N] int32). On the card ``pk``
+    is a ``PackedSceneStream`` (the culled search reads its window boxes);
+    the plain version takes either pack and scans every triangle."""
     n = state0.shape[1]
-    if state0.shape[0] != 10 * s_count or unif.shape != (4 * nb * s_count, n):
-        raise ValueError("fused_passes: state0/unif shapes do not match S, nb")
+    if state0.shape[0] != 10 * s_count or unif.shape != (nb * s_count, n, 4):
+        raise ValueError("fused_passes: state0 [S*10, N], unif [S*nb, N, 4]")
     state0 = state0.to(torch.float32).contiguous()
     unif = unif.to(torch.float32).contiguous()
     nexta = next_alive_table(state0, s_count)
@@ -1286,7 +1319,9 @@ def fused_bounces(pk: PackedSceneFused, org: torch.Tensor, dirn: torch.Tensor,
 
 fused_bounces.launches = 0
 
-# the kernel's shared memory holds 4 warps x (9 * n_mat + 3) floats (48 KB)
+# K9's shared memory holds 4 warps x (9 * n_mat + 3) floats beside its slot
+# stages and accumulators, K8's 8 warps': 340 materials keep both within a
+# block's 227 KB
 MAX_BWD_MATERIALS = 340
 
 

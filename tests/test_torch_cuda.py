@@ -31,7 +31,13 @@ share, and against its plain version on >= 99 % of
 lanes; K10 against its plain version: bit for bit (state, counts and the
 winner record) on a scene without glossy materials, else the same counts,
 winners on >= 99.9 % of lanes and states per lane (rtol 1e-4 / atol 1e-5)
-on >= 99 % (the cone sample's sinf/cosf round unlike torch.sin/cos).
+on >= 99 % (the cone sample's sinf/cosf round unlike torch.sin/cos). K5
+(the lane queue; the one-chunk scan, or the culled warp search with the
+unpacked winner) bit for bit against its plain version with the cone angles
+zeroed, with partial warps, dead first samples and S = 1, 8 and 70; K8 on
+warps all hit, all dead and mixed, with the scene's materials and with 40,
+bit-identical on a second run, its cot_in at the gates above, d_mat and
+d_env within 1e-5 of the largest of the float64 sums.
 """
 
 import numpy as np
@@ -122,8 +128,9 @@ def test_kernels_match_plain_versions(dev, name):
     t_p, i_p = ik.intersect_plain(pk, org, dirn, live, 1e-4)
     assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
     nexta = mk.next_alive_table(state0, 3)
-    k5 = mk.fused_passes(pk, state0, unif, 1e-4, 3, 3)
-    p5 = mk.fused_passes_plain(pk, state0, nexta, unif, 1e-4, 3, 3)
+    table = mk.lane_major_table(unif, 3, 3)
+    k5 = mk.fused_passes(pk, state0, table, 1e-4, 3, 3)
+    p5 = mk.fused_passes_plain(pk, state0, nexta, table, 1e-4, 3, 3)
     assert _lanes_agree(k5, p5) >= 0.99
     seeds = kernel_rng.channel_seeds(5, 6)
     amask = mk.alive_mask_words(state0, 3)
@@ -471,3 +478,101 @@ def test_culled_k7_matches_plain_bitwise(dev, name):
     assert all(torch.equal(x, y) for x, y in zip(mk.fused_bounces(ps, *a, 1e-4, nb), plain))
     with pytest.raises(ValueError):
         mk.fused_bounces(mk.PackedSceneFused(scene), *a, 1e-4, nb)
+
+
+def _table_inputs(name, dev, s_count, w=8):
+    """K5's inputs with the awkward lanes: the camera stage's first-bounce
+    state and uniform tables for ``s_count`` samples on a w x w frame (4
+    lanes a pixel), cut to a lane count that is not a multiple of the block
+    (partial warps), every third lane's first sample and every seventh
+    lane's every sample dead."""
+    scene, state0, unif, _ = _state(name, dev, w=w, s_count=s_count)
+    n = state0.shape[1] - 37
+    state0, unif = state0[:, :n].clone(), unif[:, :n].contiguous()
+    state0[9, ::3] = 0.0
+    state0[9::10, ::7] = 0.0
+    return scene, state0.contiguous(), unif
+
+
+@pytest.mark.parametrize("s_count", [1, 8, 70])
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_k5_matches_plain_bitwise(dev, name, s_count):
+    """K5 (the lane queue; the one-chunk scan on cornell, the culled warp
+    search with the unpacked winner on suzanne): acc and counts bit-equal to
+    ``fused_passes_plain`` with the cone angles zeroed, with partial warps,
+    lanes whose first samples are dead, and S = 1, 8 and 70 (the
+    next-alive table takes any S, beyond K4's 64); a ``PackedSceneFused``
+    raises (its culled search reads a ``PackedSceneStream``'s boxes)."""
+    nb = 3
+    scene, state0, unif = _table_inputs(name, dev, s_count)
+    unif = mk.lane_major_table(unif, nb, s_count)
+    ps = mk.PackedSceneStream(_no_glossy(scene))
+    kern = mk.fused_passes(ps, state0, unif, 1e-4, nb, s_count)
+    plain = mk.fused_passes_plain(ps, state0, mk.next_alive_table(state0, s_count), unif, 1e-4,
+                                  nb, s_count)
+    assert int(kern[1].sum()) > 0 and int((kern[1] == 0).sum()) > 0
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
+    with pytest.raises(ValueError):
+        mk.fused_passes(mk.PackedSceneFused(scene), state0, unif, 1e-4, nb, s_count)
+
+
+def _many_materials(scene, pk, n_mat=40, seed=5):
+    """``pk`` with its primitives spread over ``n_mat`` materials (the
+    scene's repeated), each primitive's at random."""
+    gen = torch.Generator().manual_seed(seed)
+    m = scene.materials
+    reps = -(-n_mat // m.emission.shape[0])
+    mats = type(m)(*(torch.cat([f.cpu()] * reps)[:n_mat] for f in m))
+    pk.tri_mat = torch.randint(0, n_mat, pk.tri_mat.shape, generator=gen,
+                               dtype=torch.int32).to(pk.tri_mat.device)
+    pk.sph_mat = torch.randint(0, n_mat, pk.sph_mat.shape, generator=gen,
+                               dtype=torch.int32).to(pk.sph_mat.device)
+    return pk.with_materials(type(m)(*(f.to(pk.tri_mat.device) for f in mats)),
+                             scene.environment)
+
+
+@pytest.mark.parametrize("many", [False, True])
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_k8_lane_classes_match_plain(dev, name, many):
+    """K8 on lanes arranged in warps all hit, all dead and mixed (the camera
+    stage's first-bounce states, then three warps of hit lanes, three of
+    dead ones and the rest as they come), a lane count that is not a
+    multiple of 128, with the scene's materials or 40 (more than a warp's
+    lanes): bit-identical on a second run, cot_in within today's gates of
+    ``bounce_bwd_plain`` (rtol 1e-3 / atol 1e-5 of the largest on >= 99.9 %
+    of lanes), d_mat and d_env within 1e-5 of the largest of its float64
+    sums."""
+    scene, state0, unif, _ = _state(name, dev, w=24, s_count=1)
+    pk = mk.PackedSceneStream(scene)
+    if many:
+        pk = _many_materials(scene, pk)
+    live = state0[9] != 0
+    t, idx = ik.intersect_packed(pk, state0[0:3].contiguous(), state0[3:6].contiguous(), 1e-4,
+                                 live=live)
+    hit = live & torch.isfinite(t)
+    hits = torch.nonzero(hit).flatten()
+    rest = torch.nonzero(~hit).flatten()
+    assert hits.numel() >= 96 + 200
+    order = torch.cat([hits[:96], rest[:96], hits[96:], rest[96:]])
+    n = order.numel() - 21
+    order = order[:n]
+    state = torch.cat([state0[:10], torch.rand((3, state0.shape[1]), device=dev)])[:, order]
+    state[9, 96:192] = 0.0  # three warps of dead lanes
+    gen = torch.Generator(device=dev).manual_seed(1)
+    args = (pk, state.contiguous(), t[order].contiguous(), idx[order].contiguous(),
+            unif[0:4, order].contiguous(),
+            torch.randn((13, n), generator=gen, device=dev))
+    o1 = mk.bounce_bwd_step(*args)
+    o2 = mk.bounce_bwd_step(*args)
+    op = mk.bounce_bwd_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+    assert pk.n_mat == (40 if many else scene.materials.emission.shape[0])
+    scale = op[0].abs().max()
+    lanes = torch.all(torch.isclose(o1[0], op[0], rtol=1e-3, atol=1e-5 * scale), dim=0)
+    assert lanes.float().mean().item() >= 0.999
+    assert torch.equal(o1[0][:, 96:192], torch.cat([args[5][:9, 96:192],
+                                                    torch.zeros((1, 96), device=dev),
+                                                    args[5][10:, 96:192]]))
+    for got, ref in zip(o1[1:], op[1:]):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert int((op[1].abs().sum(dim=1) > 0).sum()) > (10 if many else 0)

@@ -1,6 +1,7 @@
 """Kernel K5's plain version (ops/megakernel.fused_passes on CPU tensors)
 against the JAX package's ``fused_passes`` in Pallas interpret mode, on the
-same first-bounce state and uniform tables.
+same first-bounce state and uniform tables (the JAX rows [S*nb*4, N]
+regrouped lane-major for the port, ``megakernel.lane_major_table``).
 
 The camera stage feeding both (integrator._first_bounce_state) is checked
 against the JAX package's compiled one: origins, throughputs, liveness and
@@ -105,8 +106,9 @@ def test_k5_plain_matches_jax_interpret(name):
     assert pk_t.no_glossy == (name == "suzanne")
     acc_j, cnt_j = fp_j(PFj(sj), sj.environment, jnp.asarray(state0), jnp.asarray(unif),
                         1e-4, NB, S, interpret=True)
-    acc_t, cnt_t = mk.fused_passes(pk_t, torch.from_numpy(state0), torch.from_numpy(unif),
-                                   1e-4, NB, S)
+    acc_t, cnt_t = mk.fused_passes(pk_t, torch.from_numpy(state0),
+                                   mk.lane_major_table(torch.from_numpy(unif), NB, S), 1e-4, NB,
+                                   S)
     assert mk.fused_passes.launches == 0
     assert_lanes_agree(acc_t.numpy(), cnt_t.numpy(), np.asarray(acc_j), np.asarray(cnt_j))
     assert cnt_t.sum() > 0
@@ -122,3 +124,59 @@ def test_next_alive_table():
     )
     words = mk.alive_mask_words(state0, 3)
     np.testing.assert_array_equal(words.numpy(), [[5, 6, 0, 0], [0, 0, 0, 0]])
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_k5_plain_on_stream_pack_matches_fused_pack_and_jax(name):
+    """Table mode takes a ``PackedSceneStream`` (the card's K5 culls its
+    search by the pack's window boxes): on the CPU the plain version gives
+    the ``PackedSceneFused`` run's acc and counts bit for bit, and agrees
+    with the JAX kernel in interpret mode as above."""
+    sj, st, state0, unif = first_bounce_tables(name)
+    acc_j, cnt_j = fp_j(PFj(sj), sj.environment, jnp.asarray(state0), jnp.asarray(unif),
+                        1e-4, NB, S, interpret=True)
+    table = mk.lane_major_table(torch.from_numpy(unif), NB, S)
+    runs = [mk.fused_passes(pack(st), torch.from_numpy(state0), table, 1e-4, NB, S)
+            for pack in (mk.PackedSceneFused, mk.PackedSceneStream)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert_lanes_agree(runs[1][0].numpy(), runs[1][1].numpy(), np.asarray(acc_j),
+                       np.asarray(cnt_j))
+
+
+def test_trace_passes_fused_table_mode_builds_stream_pack(monkeypatch):
+    """``trace_passes_fused`` in table mode packs the scene with its window
+    boxes (a ``PackedSceneStream``, which the card's K5 needs), and its
+    radiance equals the same call on a ``PackedSceneFused``."""
+    from pt_three_ways_tpu_torch.models import integrator as integ
+
+    params = RPt(width=8, height=8, first_bounce_u_samples=2, first_bounce_v_samples=2,
+                 max_depth=NB + 1, rng_mode="table", intersector="kernel")
+    sb = SBt()
+    camera = create_t(sb, "suzanne", params)
+    scene = sb.build()
+    px = torch.arange(64, dtype=torch.int32) % 8
+    py = torch.arange(64, dtype=torch.int32) // 8
+    packs = []
+    fp = mk.fused_passes
+    monkeypatch.setattr(mk, "fused_passes", lambda pk, *a: packs.append(type(pk)) or fp(pk, *a))
+    key = rt.base_key(3)
+    rad = integ.trace_passes_fused(scene, camera, params, key, 0, 0, px, py, S)
+    ref = integ.trace_passes_fused(scene, camera, params, key, 0, 0, px, py, S,
+                                   packed=mk.PackedSceneFused(scene))
+    assert packs == [mk.PackedSceneStream, mk.PackedSceneFused]
+    assert torch.equal(rad, ref) and float(rad.sum()) > 0
+
+
+def test_lane_major_table_matches_bounce_rows():
+    """K5's lane-major table holds the row-major table's values: the camera
+    stage's ``bounce_rows(lane_major=True)`` equals ``lane_major_table`` of
+    its rows, which ``fused_passes_plain`` reads lane by lane as the rows
+    were read."""
+    from pt_three_ways_tpu_torch.models import integrator as integ
+
+    key = rt.base_key(9)
+    rows = integ.bounce_rows(key, NB, 40, "cpu")
+    lm = integ.bounce_rows(key, NB, 40, "cpu", lane_major=True)
+    assert lm.shape == (NB, 40, 4)
+    assert torch.equal(lm, mk.lane_major_table(rows, NB, 1))
+    assert torch.equal(lm[1, 7], rows[4:8, 7])

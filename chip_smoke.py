@@ -7,13 +7,14 @@ printing no result, when there is no CUDA device or the package is missing.
 Phases (one line each, any failure stops the run):
   1. card, versions, and the build of every CUDA kernel from csrc/ (nvcc,
      sm_90a, one process per source, all started together, with the older
-     K2, K4, K5, K7, K8 and K9 of PREV_COMMIT and this tree's sources again
-     with a flag (ALT_BUILDS: the culled build of megakernel.cu, where a
-     one-chunk scene takes the culled warp search; K2 with the per-lane scan
-     from 8, 12, 16 voters or never; K5 one lane a thread, and K5 counting
-     its table loads' sectors; K8 with its registers capped for 3 and 4
-     blocks an SM)), with each kernel instance's registers and spills (and
-     the older K5's and K8's, the other builds');
+     K2, K4, K5, K7, K8, K9 and K10 of PREV_COMMIT and this tree's sources
+     again with a flag (ALT_BUILDS: the culled build of megakernel.cu, where
+     a one-chunk scene takes the culled warp search; K2 with the per-lane
+     scan from 8, 12, 16 voters or never; K5 one lane a thread, and K5
+     counting its table loads' sectors; K8 with its registers capped for 3
+     and 4 blocks an SM; K10 with the culled warp search on one-chunk
+     scenes)), with each kernel instance's registers and spills (and the
+     older K10's, the other builds');
   2. each kernel's wrapper against the same wrapper with its plain PyTorch
      version in place of the launch, at 256^2 camera tiles: K2 (cornell,
      suzanne; bit for bit), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
@@ -100,14 +101,20 @@ Phases (one line each, any failure stops the run):
      against its plain version (K6's occupancy counted from it), against
      the older K4's stream mode (bit for bit, timed in turns), timed, with
      its bound, and the window x fan sweep;
-     trace_passes_compact on suzanne 512^2 (S=4; counters set
-     to 0 just before, read just after), K10 against its plain version on
-     each bounce of its first pass (with and without the winner record),
-     timed, with its bound, and the whole against
-     trace_passes_fused in table mode (K5) on the same keys, with the ms per
-     pass of compaction, K5 and K4; that K5 launch (the culled warp search)
-     bit for bit against its plain version, the older K5 and one lane a
-     thread, timed in turns with them, with its bound.
+     trace_passes_compact on cornell 256^2 (S=1: K10's one-chunk scan) and
+     on suzanne 512^2 (S=4: its culled warp search), the counters set to 0
+     just before each run and read just after; K10 against its plain
+     version on each bounce of the first pass (with and without the winner
+     record; bit for bit, on cornell's glossy materials cnt, t and idx bit
+     for bit and every lane's state within rtol 1e-4 / atol 1e-5), against
+     the older K10 and, on cornell, its culled build (bit for bit), timed in
+     turns with them,
+     with its live lanes, wholly dead warps, bound and registers; each run
+     against trace_passes_fused in table mode (K5) on the same keys, with
+     the ms per pass of compaction, K5 and K4 on suzanne; that K5 launch
+     (the culled warp search) bit for bit against its plain version, the
+     older K5 and one lane a thread, timed in turns with them, with its
+     bound.
 The last two lines are the kernels JSON and the device JSON.
 
 ``--crossover NAMES`` builds, then prints only phase 8's crossover table for
@@ -130,13 +137,12 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # The commit whose kernels the kernels line's prev_ms (K2: prev_kernel_ms,
 # the kernel alone, beside this K2's kernel_ms; its ms is through the
 # wrapper) times on the same inputs, in turns, and holds bit for bit
-# against this tree's: K5 (one lane a thread, every triangle scanned from
-# global memory) and K8 (every input row of every lane, a second launch
-# for the sums), which this tree redesigned, and K2, K4, K7 and K9, which
-# it did not (K8's and K9's d_mat and d_env: K8 sums in another order).
-# Its csrc comes from --prev, from build/prev_csrc, or from `git archive`
-# when the checkout has that commit; without it prev_ms is null.
-PREV_COMMIT = "aeab046"
+# against this tree's: K10 (one lane a thread, every triangle scanned from
+# global memory, dead lanes on the general path), which this tree
+# redesigned, and K2, K4, K5, K7, K8 and K9, which it did not. Its csrc
+# comes from --prev, from build/prev_csrc, or from `git archive` when the
+# checkout has that commit; without it prev_ms is null.
+PREV_COMMIT = "75208f8"
 PREV_CSRC = os.path.join(ROOT, "build", "prev_csrc")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and FP32
@@ -231,7 +237,7 @@ def start_builds(jobs, nvcc, flags):
 # the older kernels built beside this tree's: kernel -> its source (the
 # older K5 is in the older K4's library, megakernel)
 PREV_SOURCES = {"K4": "megakernel", "K7": "fused_bounces", "K2": "intersect",
-                "K9": "regen_replay_bwd", "K8": "bounce_bwd"}
+                "K9": "regen_replay_bwd", "K8": "bounce_bwd", "K10": "bounce_step"}
 
 
 def prev_jobs(csrc):
@@ -263,6 +269,9 @@ ALT_BUILDS = {
     # default: 2)
     **{f"k8_blocks{b}": ("bounce_bwd", [f"-DPT3_K8_MIN_BLOCKS={b}"], "pt3_bounce_bwd")
        for b in (3, 4)},
+    # K10: a scene of one chunk takes the culled warp search, as K4's
+    # "culled"
+    "k10_culled": ("bounce_step", ["-DPT3_K4_ONE_CHUNK_CULLED"], "pt3_bounce_step"),
 }
 
 
@@ -298,9 +307,8 @@ def load_alt(builds):
 
 def load_prev(builds):
     """The older kernels' libraries by kernel (PREV_SOURCES; K5 in K4's),
-    with their ptxas reports. K2's, K4's, K7's and K9's entry points take
-    this tree's arguments; K5's takes no lane queue and no window boxes,
-    K8's no ticket and a [cols, ceil(n / 128)] partial table."""
+    with their ptxas reports. Every entry point takes this tree's arguments
+    but K10's, which takes no window boxes."""
     import ctypes
 
     from pt_three_ways_tpu_torch.ops import _cuda
@@ -317,10 +325,9 @@ def load_prev(builds):
     sig = lambda name: (name, _cuda._SIGNATURES[name])
     sigs = {"K4": sig("pt3_regen_krng"), "K7": sig("pt3_fused_bounces"),
             "K2": sig("pt3_intersect"), "K9": sig("pt3_regen_replay_bwd"),
-            "K5": ("pt3_regen_table", [P, P, P, P, I, I, I, F, F, F,
-                                       P, P, P, P, P, I, I, I, F, I, P]),
-            "K8": ("pt3_bounce_bwd", [P, P, P, P, I, I, I, F, F, F,
-                                      P, P, I, P, P, P, P, P, P, P, P, I, P])}
+            "K5": sig("pt3_regen_table"), "K8": sig("pt3_bounce_bwd"),
+            "K10": ("pt3_bounce_step", [P, P, P, P, I, I, I, F, F, F,
+                                        P, P, P, P, P, P, I, F, I, P])}
     for kernel, (name, argtypes) in sigs.items():
         fn = getattr(handles[kernel], name)
         fn.argtypes = argtypes
@@ -400,46 +407,25 @@ def chunk_boxes(scene, packed):
             torch.cat([lo1, hi1, zeros2(n_l1)], dim=1).contiguous())
 
 
-def prev_k5(prev, mk, args):
-    """The older K5 on the arguments (pk, state0, nexta, unif, eps, nb,
-    s_count) of one ``mk._regen_table_cuda`` call, but for the table, which
-    it reads row-major ([S*nb*4, N]): (acc, cnt)."""
+def prev_k10(prev, mk, args):
+    """The older K10 on the arguments (pk, state, unif, eps, with_hit) of one
+    ``mk._bounce_step_cuda`` call: what that call returns."""
     import torch
 
     from pt_three_ways_tpu_torch.ops import _cuda
 
-    pk, state0, nexta, unif, eps, nb, s_count = args
-    n = state0.shape[1]
-    acc = torch.empty((3, n), dtype=torch.float32, device=state0.device)
-    cnt = torch.empty((n,), dtype=torch.int32, device=state0.device)
-    err = prev["K5"].pt3_regen_table(
-        *mk._scene_ptrs(pk), state0.data_ptr(), nexta.data_ptr(), unif.data_ptr(),
-        acc.data_ptr(), cnt.data_ptr(), n, s_count, nb, float(eps), int(pk.no_glossy),
-        _cuda.stream_ptr(state0.device))
-    _cuda.check(err, "older pt3_regen_table")
-    return acc, cnt
-
-
-def prev_k8(prev, mk, args):
-    """The older K8 on the arguments (pk, state, t, idx, unif, cot_out) of
-    one ``mk._bounce_bwd_cuda`` call: (cot_in, d_mat, d_env)."""
-    import torch
-
-    from pt_three_ways_tpu_torch.ops import _cuda
-
-    pk, state, t, idx, unif, cot_out = args
+    pk, state, unif, eps, with_hit = args
     n = state.shape[1]
     dev = state.device
-    n_col = 9 * pk.n_mat + 3
-    cot_in = torch.empty((13, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((n_col, -(-n // 128)), dtype=torch.float32, device=dev)
-    d_out = torch.empty((n_col,), dtype=torch.float32, device=dev)
-    err = prev["K8"].pt3_bounce_bwd(
-        *mk._scene_ptrs(pk), pk.tri_mat.data_ptr(), pk.sph_mat.data_ptr(), pk.n_mat,
-        state.data_ptr(), t.data_ptr(), idx.data_ptr(), unif.data_ptr(), cot_out.data_ptr(),
-        cot_in.data_ptr(), partial.data_ptr(), d_out.data_ptr(), n, _cuda.stream_ptr(dev))
-    _cuda.check(err, "older pt3_bounce_bwd")
-    return cot_in, d_out[:-3].reshape(pk.n_mat, 9), d_out[-3:]
+    out = torch.empty((13, n), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    hit = ((torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev)) if with_hit else (None, None))
+    err = prev["K10"].pt3_bounce_step(
+        *mk._scene_ptrs(pk), state.data_ptr(), unif.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+        *(_cuda.ptr(h) for h in hit), n, float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev))
+    _cuda.check(err, "older pt3_bounce_step")
+    return (out, cnt, *hit) if with_hit else (out, cnt)
 
 
 def prev_k9(prev, mk, b9):
@@ -710,20 +696,20 @@ def main(argv=None) -> int:
     n_alt = len(ALT_BUILDS)
     prev_lib, prev_report = load_prev(side[:-n_alt]) if prev else (None, "")
     alt_lib, alt_report = load_alt(side[-n_alt:])
-    older = [r for r in ptxas_table(prev_report)
-             if r.startswith(("megakernel.cu regen_table_kernel", "bounce_bwd.cu"))]
+    older = [r for r in ptxas_table(prev_report) if r.startswith("bounce_step.cu")]
     alt = [r for r in ptxas_table(alt_report)
            if not r.startswith("megakernel.cu") or ("K5" in r and r.split(":")[0].endswith(",1>"))]
     # registers and spills of each instance of this tree's build
     regs = dict(r.split(": ", 1) for r in ptxas_table(report))
-    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K2, K4, K5, K7, K8 and K9 from "
+    print(f"phase 1 build: {time.time() - t0:.1f} s (the older K2, K4, K5, K7, K8, K9 and K10 from "
           f"{prev or 'nowhere: not built'}; "
           f"this tree's again with {', '.join(f for _, fl, _ in ALT_BUILDS.values() for f in fl)}"
           f"); ptxas (registers, spill bytes stored/loaded; megakernel.cu "
           f"regen_krng_kernel<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>, MODE 0 culled, 1 "
-          f"replay, 2 stream, 3 one chunk, TABLE 1: K5; intersect.cu intersect_kernel<FLAT>): "
-          + " | ".join(ptxas_table(report)) + " || the older K5 and K8: " + " | ".join(older)
-          + " || other builds (K2's voters, K5's, K8's caps): " + " | ".join(alt))
+          f"replay, 2 stream, 3 one chunk, TABLE 1: K5; intersect.cu intersect_kernel<FLAT>; "
+          f"bounce_step.cu bounce_step_kernel<NO_GLOSSY, WITH_HIT, FLAT>): "
+          + " | ".join(ptxas_table(report)) + " || the older K10: " + " | ".join(older)
+          + " || other builds (K2's voters, K5's, K8's caps, K10's culled): " + " | ".join(alt))
     _cuda.lib()
 
     # ---- helpers ---------------------------------------------------------
@@ -1434,21 +1420,13 @@ def main(argv=None) -> int:
         "sectors": {run: sectors a request}}."""
         run = lambda: wrappers["K5"](*a, **kw)
 
-        # the older K5 reads the table row-major, [S*nb*4, N]: converted once
-        rows = a[2].permute(0, 2, 1).reshape(-1, a[2].shape[1]).contiguous()
-
-        def run_prev():
-            with swapped(mk, "_regen_table_cuda",
-                         lambda *x: prev_k5(prev_lib, mk, x[:3] + (rows,) + x[4:])):
-                return run()
-
         def on_lib(lib):
             def f():
                 with swapped(_cuda, "_LIB", lib):
                     return run()
             return f
 
-        runs = {"this": run, "older": run_prev if prev_lib is not None else None,
+        runs = {"this": run, "older": on_lib(prev_lib["K5"]) if prev_lib is not None else None,
                 "lane block": on_lib(alt_lib["k5_lane_block"])}
         for k in ("older", "lane block"):
             if runs[k] is not None and not same_out(out, runs[k]()):
@@ -1525,7 +1503,7 @@ def main(argv=None) -> int:
                     fail(f"K5 on the {tag} render's main launch differs from its plain version")
                 k5 = k5_turns(a, kw, out_k)
                 ms, prev_ms = k5["ms"]["this"], k5["ms"]["older"]
-                # lane utilisation one lane a thread (the older K5), as K4's
+                # lane utilisation one lane a thread (the lane-block build), as K4's
                 cw = out_k[1][:out_k[1].shape[0] // 32 * 32].reshape(-1, 32).to(torch.int64)
                 util = cw.sum().item() / max(32 * cw.max(dim=1).values.sum().item(), 1)
                 # the issue floor: SASS instructions of the events over the
@@ -1865,10 +1843,7 @@ def main(argv=None) -> int:
 
     k8 = []
     for a, kw in tcapt["K8"]:
-        kept8 = []
-        launch8 = mk._bounce_bwd_cuda
-        with swapped(mk, "_bounce_bwd_cuda", lambda *x: kept8.append(x) or launch8(*x)):
-            o1 = mk.bounce_bwd_step(*a, **kw)
+        o1 = mk.bounce_bwd_step(*a, **kw)
         o2 = mk.bounce_bwd_step(*a, **kw)
         with plain("K8"):
             op = mk.bounce_bwd_step(*a, **kw)  # (the first call also warms torch.func up)
@@ -1897,7 +1872,7 @@ def main(argv=None) -> int:
 
         runs = {"this": run8, "older": None}
         if prev_lib is not None:
-            runs["older"] = lambda: prev_k8(prev_lib, mk, kept8[0])
+            runs["older"] = on_lib(prev_lib["K8"])
         for b_ in (3, 4):
             runs[f"{b_} blocks"] = on_lib(alt_lib[f"k8_blocks{b_}"])
         vs = {}
@@ -1943,7 +1918,7 @@ def main(argv=None) -> int:
               + f"; plain {pms:.1f} ms bound {b8:.4f} ms ({by8})"
               + (f"; kernels a call (torch.profiler): {launched}" if launched else ""),
               flush=True)
-        del kept8, o1, o2, op
+        del o1, o2, op
     mean = lambda key: sum(r[key] for r in k8) / len(k8)
     checks["K8"] = {"train": dict(
         launches=tlaunch["K8"], max_abs_err=max(r["max_abs_err"] for r in k8),
@@ -2581,70 +2556,147 @@ def main(argv=None) -> int:
     del k4_calls, main6, ps, ref, sscene
     torch.cuda.empty_cache()
 
-    # (5) compaction (S=4) on suzanne 512^2, the launch counters set to 0
-    # just before and read just after; the first pass's K10 arguments kept
+    # (5) compaction (S=4) on suzanne 512^2 and (S=1) on cornell 256^2, the
+    # launch counters set to 0 just before each run and read just after; the
+    # first pass's K10 arguments kept
+    k10_regs = {k.split(" ", 1)[1]: v for k, v in regs.items()
+                if k.startswith("bounce_step.cu ")}
+
+    def compact_run(tag, scene, camera, params, n_passes):
+        px_, py_ = pixel_grid(params.width, params.height)
+        calls = []
+        orig = mk._bounce_step_cuda
+
+        def hook(*a):
+            if len(calls) < params.max_depth - 1:
+                calls.append(a)
+            return orig(*a)
+
+        with swap_attr(mk, "_bounce_step_cuda", hook):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = trace_passes_compact(scene, camera, params, rng.base_key(params.seed), 0, 0,
+                                       px_, py_, n_passes, with_ray_count=True)
+            torch.cuda.synchronize()
+            first = (time.time() - t0) * 1e3 / n_passes
+            launches[tag] = read_counts()
+        if launches[tag]["K10"] != n_passes * (params.max_depth - 1):
+            fail(f"compaction launches {launches[tag]}")
+        return out, first, calls
+
+    def swapped_call(lib, fn):
+        with swapped(_cuda, "_LIB", lib):
+            return fn()
+
+    def k10_bounces(tag, calls):
+        """K10 on each bounce of a compaction pass (the permuted state, live
+        lanes first; the dead tail's warps wholly dead), with and without the
+        winner record: against its plain version (bit for bit; with glossy
+        materials cnt, t and idx bit for bit and every lane's state within
+        rtol 1e-4 / atol 1e-5), the older K10 and, on a one-chunk scene, the
+        culled build (ALT_BUILDS k10_culled; bit for bit); timed in turns
+        (this, older, culled, and back), with the bound. Returns one row a
+        bounce."""
+        rows = []
+        for d, (pk, state, un, eps, _) in enumerate(calls, start=1):
+            flat = pk.n_tri <= ik.TC  # K10's design as k4_design's
+            runs = {"this": lambda h: mk._bounce_step_cuda(pk, state, un, eps, h),
+                    "older": ((lambda h: prev_k10(prev_lib, mk, (pk, state, un, eps, h)))
+                              if prev_lib is not None else None),
+                    "culled": ((lambda h: swapped_call(
+                        alt_lib["k10_culled"],
+                        lambda: mk._bounce_step_cuda(pk, state, un, eps, h))) if flat else None)}
+            for with_hit in (False, True):
+                o_k = mk.bounce_step(pk, state, un, eps, with_hit=with_hit)
+                with plain("K10"):
+                    pms, o_p = once_ms(lambda: mk.bounce_step(pk, state, un, eps,
+                                                              with_hit=with_hit))
+                torch.cuda.synchronize()
+                if pk.no_glossy:
+                    same = same_out(o_k, o_p)
+                else:
+                    same = (same_out(o_k[1:], o_p[1:])
+                            and torch.allclose(o_k[0], o_p[0], rtol=1e-4, atol=1e-5))
+                if not same:
+                    fail(f"K10 ({tag}, bounce {d}, with_hit={with_hit}) disagrees with its "
+                         f"plain version: max|d| {(o_k[0] - o_p[0]).abs().max().item()}")
+                for name, fn in runs.items():
+                    if name != "this" and fn is not None and not same_out(o_k, fn(with_hit)):
+                        fail(f"K10 ({tag}, bounce {d}, with_hit={with_hit}) differs from the "
+                             f"{name} K10")
+                if not with_hit:
+                    pms10 = pms
+            ms = {k: [] for k, fn in runs.items() if fn is not None}
+            for k in list(ms) + list(ms)[::-1]:
+                ms[k].append(events_ms(lambda: runs[k](False), 10))
+            ms = {k: sum(v) / len(v) for k, v in ms.items()}
+            msh = events_ms(lambda: runs["this"](True), 10)
+            live = state[9] != 0
+            n10, n_live = state.shape[1], int(live.sum().item())
+            warps = -(-n10 // 32)
+            pad = torch.zeros((warps * 32 - n10,), dtype=torch.bool, device=dev)
+            dead_warps = warps - int(torch.cat([live, pad]).reshape(-1, 32).any(dim=1)
+                                     .sum().item())
+            hits = int(torch.isfinite(o_p[2]).sum().item())
+            ops = search_ops(pk, state[0:3], state[3:6], live, o_p[2], eps) + hits * OPS_SHADE
+            # a live lane reads its state and uniforms, a dead one its state;
+            # each writes its state and count; the scene's tables once
+            b, by = bound(4 * (n_live * (17 + 14) + (n10 - n_live) * (13 + 14))
+                          + nbytes(pk.tri_tab, pk.sph_tab, pk.tri_attr, pk.sph_attr)
+                          + (0 if flat else nbytes(pk.wbox, pk.wbox1)), ops)
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(o_k, o_p))
+            rows.append(dict(ms=ms["this"], plain_ms=pms10, bound_ms=b, bound_by=by,
+                             max_abs_err=err, prev_ms=ms.get("older")))
+            reg = "; ".join(f"{k}: {v}" for k, v in k10_regs.items()
+                            if k.endswith(f",{int(flat)}>"))
+            print(f"phase 8 K10 {tag} pass 0 bounce {d} ({n10} lanes, {n_live} live first, "
+                  f"{n10 - n_live} dead copied through, {dead_warps} of {warps} warps wholly "
+                  f"dead, {hits} hits; {k4_design(pk)}): "
+                  f"{'bit-equal' if pk.no_glossy else 'cnt, t and idx bit-equal, every state within rtol 1e-4 / atol 1e-5'} "
+                  f"to its plain version, bit-equal to the older K10 "
+                  f"{prev_lib is not None or 'not built'}{' and the culled build' if flat else ''}, "
+                  f"with and without the winner record; in turns: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f"; this with the record {msh:.4f} ms; plain {pms10:.1f} ms; bound "
+                  f"{b:.4f} ms ({by}); registers (bounce_step_kernel<NO_GLOSSY, WITH_HIT, "
+                  f"FLAT>) {reg}", flush=True)
+        mean = lambda key: sum(r[key] for r in rows) / len(rows)
+        out = dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=mean("ms"),
+                   plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                   bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                   prev_ms=mean("prev_ms") if prev_lib is not None else None)
+        print(f"phase 8 K10 {tag} mean of the {len(rows)} bounces: this {out['ms']:.4f} ms, "
+              f"the older K10 {fmt_ms(out['prev_ms'])}, bound {out['bound_ms']:.4f} ms",
+              flush=True)
+        return out
+
+    scene, camera, params = build_scene("cornell", 256, 256)
+    (rad_cc, n_cc), first_cc, calls = compact_run("compact-cornell", scene, camera, params, 1)
+    checks["K10"] = {"compact-cornell": dict(launches=launches["compact-cornell"]["K10"],
+                                             **k10_bounces("cornell 256^2 S=1", calls))}
+    del calls
+    rad_5c, cnt_5c = trace_passes_fused(scene, camera, params.replace(rng_mode="table"),
+                                        rng.base_key(params.seed), 0, 0,
+                                        *pixel_grid(256, 256), 1, with_lane_counts=True)
+    n_5c = pixel_grid(256, 256)[0].shape[0] + int(cnt_5c.sum().item())
+    if not (torch.allclose(rad_cc, rad_5c, rtol=3e-4, atol=3e-4) and int(n_cc) == n_5c):
+        fail(f"cornell compaction vs K5: max|d| {(rad_cc - rad_5c).abs().max().item()}, "
+             f"rays {int(n_cc)} vs {n_5c}")
+    print(f"phase 8 compaction cornell 256^2 K=16 depth 5 S=1: radiance within rtol/atol "
+          f"3e-4 of K5's (max|d| {(rad_cc - rad_5c).abs().max().item():.3e}), rays {int(n_cc)} "
+          f"equal; launches {launches['compact-cornell']}; first call {first_cc:.1f} ms",
+          flush=True)
+    del rad_cc, rad_5c, cnt_5c
+
     scene, camera, params = build_scene("suzanne", 512, 512)
     px, py = pixel_grid(512, 512)
     bkey = rng.base_key(params.seed)
     S4 = 4
-    k10_calls = []
-    k10_orig = mk._bounce_step_cuda
-
-    def k10_hook(*a):
-        if len(k10_calls) < params.max_depth - 1:
-            k10_calls.append(a)
-        return k10_orig(*a)
-
-    mk._bounce_step_cuda = k10_hook
-    try:
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        rad_c, n_c = trace_passes_compact(scene, camera, params, bkey, 0, 0, px, py, S4,
-                                          with_ray_count=True)
-        torch.cuda.synchronize()
-        first_c = (time.time() - t0) * 1e3 / S4
-        launches["compact"] = read_counts()
-    finally:
-        mk._bounce_step_cuda = k10_orig
-    if launches["compact"]["K10"] != S4 * (params.max_depth - 1):
-        fail(f"compaction launches {launches['compact']}")
-
-    # K10 against its plain version on each bounce of the first pass (the
-    # permuted state, live lanes first; dead lanes copied through), with and
-    # without the winner record: bitwise; timed, with the bound
-    k10 = []
-    for d, (pk, state, un, eps, _) in enumerate(k10_calls, start=1):
-        for with_hit in (False, True):
-            o_k = mk.bounce_step(pk, state, un, eps, with_hit=with_hit)
-            with plain("K10"):
-                pms, o_p = once_ms(lambda: mk.bounce_step(pk, state, un, eps, with_hit=with_hit))
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(o_k, o_p)):
-                fail(f"K10 (bounce {d}, with_hit={with_hit}) disagrees with its plain "
-                     f"version: max|d| {(o_k[0] - o_p[0]).abs().max().item()}")
-            if not with_hit:
-                pms10 = pms
-        ms = events_ms(lambda: mk.bounce_step(pk, state, un, eps), 10)
-        msh = events_ms(lambda: mk.bounce_step(pk, state, un, eps, with_hit=True), 10)
-        live = state[9] != 0
-        n10, n_live = state.shape[1], int(live.sum().item())
-        hits = int(torch.isfinite(o_p[2]).sum().item())
-        ops = search_ops(pk, state[0:3], state[3:6], live, o_p[2], eps) + hits * OPS_SHADE
-        b, by = bound(n10 * 4 * (17 + 14) + nbytes(pk.tri_tab, pk.sph_tab, pk.tri_attr,
-                                                   pk.sph_attr), ops)
-        k10.append(dict(ms=ms, plain_ms=pms10, bound_ms=b, bound_by=by, max_abs_err=max(
-            (x.float() - y.float()).abs().max().item() for x, y in zip(o_k, o_p))))
-        print(f"phase 8 K10 compaction pass 0 bounce {d} ({n10} lanes, {n_live} live first, "
-              f"{n10 - n_live} dead copied through, {hits} hits): bitwise equal to its plain "
-              f"version with and without the winner record; kernel {ms:.4f} ms ({msh:.4f} "
-              f"with the record) plain {pms10:.1f} ms bound {b:.4f} ms ({by})", flush=True)
-    del k10_calls, o_k, o_p, state, un
-    mean = lambda key: sum(r[key] for r in k10) / len(k10)
-    checks["K10"] = {"compact": dict(
-        launches=launches["compact"]["K10"], max_abs_err=max(r["max_abs_err"] for r in k10),
-        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-        bound_by=max(k10, key=lambda r: r["bound_ms"])["bound_by"])}
+    (rad_c, n_c), first_c, calls = compact_run("compact", scene, camera, params, S4)
+    checks["K10"]["compact"] = dict(launches=launches["compact"]["K10"],
+                                    **k10_bounces("suzanne 512^2 S=4", calls))
+    del calls
     torch.cuda.empty_cache()
 
     # compaction against the table-mode K5 on the same keys; ms per pass of
@@ -2681,8 +2733,8 @@ def main(argv=None) -> int:
     del rad_c, rad_5, cnt_5
 
     # K5's culled warp search on that call (the table-mode run's launch):
-    # bit for bit against its plain version, the older K5 (which scans every
-    # triangle) and one lane a thread, timed in turns, with its bound
+    # bit for bit against its plain version, the older K5 and one lane a
+    # thread, timed in turns, with its bound
     pk5, state5, _, unif5, eps5, nb5, sc5 = k5_calls[-1]
     a5 = (pk5, state5, unif5, eps5, nb5, sc5)  # the wrapper's arguments
     out_5 = wrappers["K5"](*a5)
@@ -2704,7 +2756,7 @@ def main(argv=None) -> int:
     print(f"phase 8 K5 suzanne 512^2 S={S4} N={state5.shape[1]} (table mode, culled warp "
           f"search, lane queue): acc and counts bit-equal to its plain version, to the older K5 "
           f"{prev_lib is not None or 'not built'} and to one lane a thread; in turns: this "
-          f"{k5['ms']['this']:.3f} ms, the older K5 (every triangle) "
+          f"{k5['ms']['this']:.3f} ms, the older K5 "
           f"{fmt_ms(k5['ms']['older'])}, one lane a thread {k5['ms']['lane block']:.3f} ms; "
           f"32-B sectors a request of a table load: lane queue {k5['sectors']['queue']:.3f}, "
           f"one lane a thread {k5['sectors']['lane block']:.3f}; plain {pms5:.1f} ms bound "

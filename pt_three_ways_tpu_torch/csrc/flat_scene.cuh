@@ -28,9 +28,9 @@ __host__ __device__ inline FlatLayout flat_layout(int n_tri, int n_sph) {
 
 // The one-chunk design takes a scene of at most one chunk whose tables fit
 // the default 48 KB of shared memory; K2 and K4 decide alike. Built with
-// -DPT3_K4_ONE_CHUNK_CULLED (chip_smoke.py's second build of
-// megakernel.cu), such a scene takes the culled warp search instead, so
-// that the two designs are timed on the same launches.
+// -DPT3_K4_ONE_CHUNK_CULLED (chip_smoke.py's second builds of
+// megakernel.cu and bounce_step.cu), such a scene takes the culled warp
+// search instead, so that the two designs are timed on the same launches.
 inline bool flat_fits(int n_tri, int n_sph) {
 #ifdef PT3_K4_ONE_CHUNK_CULLED
   (void)n_tri;

@@ -56,9 +56,10 @@ _SIGNATURES = {
     "pt3_regen_krng": [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
                        P, P, P, P, P, P, P, P, P, P, P, P, I,
                        P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
-    # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
-    # state_in, unif, state_out, cnt, t_out, idx_out, n, eps, no_glossy, stream
-    "pt3_bounce_step": [P, P, P, P, I, I, I, F, F, F,
+    # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b, wbox,
+    # wbox1, n_windows, n_groups, window, fan, state_in, unif, state_out,
+    # cnt, t_out, idx_out, n, eps, no_glossy, stream
+    "pt3_bounce_step": [P, P, P, P, I, I, I, F, F, F, P, P, I, I, I, I,
                         P, P, P, P, P, P, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # org, dir, beta, alive, unif, acc, cnt, states, ts, idxs, wbox, wbox1,

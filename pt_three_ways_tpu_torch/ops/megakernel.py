@@ -61,7 +61,10 @@ K10 ``bounce_step`` replaces ``_bounce_kernel`` / ``_run_bounce`` /
 ``bounce_step``: one bounce of the compacting wavefront
 (models/integrator.trace_passes_compact) on a [13, N] state whose rows
 10..12 carry the radiance, with the unpacked winner and table uniforms
-(``csrc/bounce_step.cu``).
+(``csrc/bounce_step.cu``). Its searches are K2's (the one-chunk scan from
+shared memory, or the culled warp search over any pack's window boxes), and
+a wholly dead warp, as every warp past the compacted live prefix is, skips
+the search and copies its columns through.
 
 Design on the H100 (``csrc/megakernel.cu``): one thread per lane, the path
 state in registers, the scene and attribute tables in global memory behind
@@ -1019,7 +1022,8 @@ def _bounce_step_cuda(pk, state, unif, eps, with_hit):
     hit = ((torch.empty((n,), dtype=torch.float32, device=dev),
             torch.empty((n,), dtype=torch.int32, device=dev)) if with_hit else (None, None))
     err = _cuda.lib().pt3_bounce_step(
-        *_scene_ptrs(pk), state.data_ptr(), unif.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+        *_scene_ptrs(pk), pk.wbox.data_ptr(), pk.wbox1.data_ptr(), pk.n_windows, pk.n_groups,
+        pk.window, pk.fan, state.data_ptr(), unif.data_ptr(), out.data_ptr(), cnt.data_ptr(),
         *(_cuda.ptr(h) for h in hit), n, float(eps), int(pk.no_glossy), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_bounce_step")

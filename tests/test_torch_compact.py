@@ -16,6 +16,12 @@
     tests/test_megakernel.py ``test_compact_passes_match_pass_sum``) and
     against the table-mode K5 (``trace_passes_fused``, the same estimator):
     rtol / atol 3e-4, and equal ray counts with K5.
+  * K10's plain version is invariant under the lanes' order: on a stable
+    partition of a cornell and a suzanne state (live lanes first, as
+    ``trace_passes_compact`` builds it), two bounces scattered back equal
+    the run on the unpartitioned state bit for bit (state, counts and the
+    winner record). The card's K10 relies on it: its wholly dead warps skip
+    the search, which only a packed state gives it.
   * Against the JAX package's ``trace_passes_compact``
     (``pallas-interpret``): the same near-tie flips (in its camera stage and
     its K10) change whole paths, here 3 of 256 pixels and 6 of 9,262 rays;
@@ -28,6 +34,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pt_three_ways_tpu.models.catalog import create_scene as create_j
@@ -41,6 +48,7 @@ from pt_three_ways_tpu.utils.render_params import RenderParams as RPj
 from pt_three_ways_tpu_torch.models import integrator as integ
 from pt_three_ways_tpu_torch.models.catalog import create_scene as create_t
 from pt_three_ways_tpu_torch.models.scene import SceneBuilder as SBt
+from pt_three_ways_tpu_torch.models.scene import auto_epsilon
 from pt_three_ways_tpu_torch.ops import megakernel as mk
 from pt_three_ways_tpu_torch.ops import rng as rt
 from pt_three_ways_tpu_torch.utils.render_params import RenderParams as RPt
@@ -103,6 +111,34 @@ def test_bounce_step_plain_matches_jax():
         np.testing.assert_array_equal(out2.numpy(), out_t)
         np.testing.assert_array_equal(cnt2.numpy(), cnt_t)
         state = np.array(out_j)
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne"])
+def test_bounce_step_plain_is_lane_order_invariant(name):
+    bt = SBt()
+    params = RPt(**KW, intersector="kernel")
+    cam = create_t(bt, name, params)
+    scene = bt.build()
+    px, py = (torch.from_numpy(a) for a in _pixels())
+    key = rt.fold_in(rt.fold_in(rt.base_key(7), 0), 0)
+    rows, _, unif = integ._first_bounce_state(scene, cam, params, key, px, py, 1024, "kernel")
+    n = rows.shape[1]
+    acc = torch.from_numpy(np.random.default_rng(5).uniform(0.0, 1.0, (3, n)).astype(np.float32))
+    state = torch.cat([rows, acc])
+    state[9, ::3] = 0.0
+    pk = mk.PackedSceneFused(scene)
+    eps = auto_epsilon(scene, cam)
+    for d in range(2):
+        un = unif[4 * d:4 * d + 4]
+        whole = mk.bounce_step_plain(pk, state, un, eps, with_hit=True)
+        perm = torch.argsort((state[9] == 0.0).to(torch.int32), stable=True)
+        assert 0 < int(whole[1].sum()) < n
+        part = mk.bounce_step_plain(pk, state[:, perm], un[:, perm], eps, with_hit=True)
+        for x, y in zip(whole, part):
+            back = torch.empty_like(y)
+            back[..., perm] = y
+            assert torch.equal(x, back)
+        state = whole[0]
 
 
 def test_compact_matches_jax_compact():

@@ -31,7 +31,10 @@ share, and against its plain version on >= 99 % of
 lanes; K10 against its plain version: bit for bit (state, counts and the
 winner record) on a scene without glossy materials, else the same counts,
 winners on >= 99.9 % of lanes and states per lane (rtol 1e-4 / atol 1e-5)
-on >= 99 % (the cone sample's sinf/cosf round unlike torch.sin/cos). K5
+on >= 99 % (the cone sample's sinf/cosf round unlike torch.sin/cos); and
+bit for bit with the cone angles zeroed on compacted states (live lanes
+first, N not a multiple of 32), every lane dead and every lane live, on
+cornell, suzanne and suzanne-sub1. K5
 (the lane queue; the one-chunk scan, or the culled warp search with the
 unpacked winner) bit for bit against its plain version with the cone angles
 zeroed, with partial warps, dead first samples and S = 1, 8 and 70; K8 on
@@ -420,6 +423,46 @@ def test_bounce_step_matches_plain_version(dev, name):
 def _no_glossy(scene):
     m = scene.materials
     return scene._replace(materials=m._replace(cone_angle=torch.zeros_like(m.cone_angle)))
+
+
+def _live_first(state):
+    """The stable partition of trace_passes_compact: live lanes first."""
+    return state[:, torch.argsort((state[9] == 0.0).to(torch.int32), stable=True)]
+
+
+@pytest.mark.parametrize("layout", ["compacted", "all-dead", "all-live"])
+@pytest.mark.parametrize("n_cut", [37, 36])
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "suzanne-sub1"])
+def test_k10_compacted_state_matches_plain_bitwise(dev, name, n_cut, layout):
+    """K10 on the states of the compacting wavefront (live lanes first, a
+    dead tail whose wholly dead warps skip the search) with the cone angles
+    zeroed: state, counts, t and idx bit-equal to ``bounce_step_plain``, with
+    and without the record, over three bounces, on the one-chunk scan
+    (cornell) and the culled warp search (suzanne; suzanne-sub1, several
+    windows and level-1 boxes); N is not a multiple of 32 or 128 (odd, and
+    a multiple of 4); every lane dead; every lane live."""
+    scene, state0, unif, _ = _state(name, dev, s_count=1)
+    n = state0.shape[1] - n_cut
+    pk = mk.PackedSceneFused(_no_glossy(scene))
+    acc = torch.from_numpy(np.random.default_rng(2).uniform(size=(3, n)).astype(np.float32))
+    state = torch.cat([state0[:, :n], acc.to(dev)])
+    unif = unif[:, :n]
+    if layout == "all-dead":
+        state[9] = 0.0
+    if layout == "all-live":
+        keep = state[9] != 0.0
+        state, unif = state[:, keep], unif[:, keep]
+    n_live = int((state[9] != 0).sum())
+    assert n % 32 and (layout == "all-dead") == (n_live == 0)
+    assert layout != "all-live" or n_live == state.shape[1]
+    for d in range(3):
+        state = _live_first(state).contiguous()
+        un = unif[4 * d:4 * d + 4].contiguous()
+        k10 = mk.bounce_step(pk, state, un, 1e-4, with_hit=True)
+        p10 = mk.bounce_step_plain(pk, state, un, 1e-4, with_hit=True)
+        assert all(torch.equal(x, y) for x, y in zip(k10, p10))
+        assert all(torch.equal(x, y) for x, y in zip(mk.bounce_step(pk, state, un, 1e-4), k10))
+        state = k10[0]
 
 
 @pytest.mark.parametrize("tail_frac", [0.0, 0.125])

@@ -114,7 +114,24 @@ Phases (one line each, any failure stops the run):
      the ms per pass of compaction, K5 and K4 on suzanne; that K5 launch
      (the culled warp search) bit for bit against its plain version, the
      older K5 and one lane a thread, timed in turns with them, with its
-     bound.
+     bound;
+  9. the other ways, smallpt, remat and the merge: cornell at the CLI
+     default (1920x1080, K=16, depth 5) with 1 spp through render() three
+     ways, fused="off" dod, oo and fp, each within 2e-5 of dod per pixel,
+     with its wall, peak memory and K2's launches and summed ms, K2 bit for
+     bit against its plain version and the older K2 on the first launch of
+     each way's first tile-pass and on a bounce launch with dead lanes (oo's
+     and fp's first launches timed as in phase 5); smallpt at 1920x1080, 4
+     spp, 40 bounces (finite, in [0, 1]), its _intersect on 2048 rays
+     against a float64 oracle on the card, and a 64x48 render on the card
+     against the CPU's; the fused="off" train step on suzanne 512^2 (K=16,
+     depth 5) as dod, dod with remat and oo, and dod and oo with each
+     material row's gradient summed over the lanes in float64, with its time
+     and peak memory: remat within 1e-5 of dod's gradient norm, oo within
+     1e-5 of dod with the sums in float64, and in float32 within 1e-5 plus
+     the two ways' own rounding (each way's float32 sums against its float64
+     sums); two CLI runs of --way oo (256^2, 2 spp, seeds 1 and 2)
+     merged by raw_to_png, its PNG equal to to_srgb8() of the merge.
 The last two lines are the kernels JSON and the device JSON.
 
 ``--crossover NAMES`` builds, then prints only phase 8's crossover table for
@@ -650,8 +667,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--until", type=int, default=8,
-                    help="stop after this phase (default: all eight)")
+    ap.add_argument("--until", type=int, default=9,
+                    help="stop after this phase (default: all nine)")
     ap.add_argument("--crossover", help="after the build, only phase 8's crossover table on "
                                         "these scenes (comma-separated catalog names, "
                                         "name@16:9 for a 16:9 frame), e.g. "
@@ -2762,6 +2779,245 @@ def main(argv=None) -> int:
           f"one lane a thread {k5['sectors']['lane block']:.3f}; plain {pms5:.1f} ms bound "
           f"{b5:.3f} ms ({by5}); live bounces {live5}", flush=True)
     del a5, out_5, out_p5, k5_calls, scene
+
+    # ---- phase 9: the other ways, smallpt, remat, the CLI and the merge ---
+    if args.until >= 9:
+        t9 = time.time()
+        torch.cuda.empty_cache()
+        from pt_three_ways_tpu_torch import cli as port_cli
+        from pt_three_ways_tpu_torch.models import smallpt as sp
+        from pt_three_ways_tpu_torch.utils.framebuffer import ArrayOutput, merge, srgb8
+        from pt_three_ways_tpu_torch.utils.png import read_png
+
+        # (a) the ways through render() at the CLI default, 1 spp (phase 9
+        # keeps the whole run within about a minute of phases 1-8): K2 on
+        # the camera rays and on every substratum and bounce of oo and fp
+        wparams = RenderParams(samples_per_pixel=1, seed=1, fused="off")
+        sb = SceneBuilder()
+        wcam = create_scene(sb, "cornell", wparams)
+        wscene = sb.build()
+        wparams = wparams.replace(epsilon=auto_epsilon(wscene, wcam))
+        k_sub, nb9 = wparams.first_bounce_samples, wparams.max_depth - 1
+        images, first = {}, {}
+        for way in ("dod", "oo", "fp"):
+            per_pass = 1 + (nb9 if way == "dod" else k_sub * nb9)
+            calls, spans9 = [], []
+            launch = ik._intersect_cuda
+
+            def k2_hook(*a, calls=calls, spans9=spans9, per_pass=per_pass, launch=launch):
+                if len(calls) < per_pass:  # the first tile-pass's launches
+                    calls.append(a)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = launch(*a)
+                e1.record()
+                spans9.append((e0, e1))
+                return out
+
+            ik._intersect_cuda = k2_hook
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.time()
+                out = render(wscene, wcam, wparams, way=way, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                counts9 = read_counts()
+            finally:
+                ik._intersect_cuda = launch
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            k2_ms = sum(a.elapsed_time(b) for a, b in spans9)
+            img = out.mean()
+            images[way] = img
+            if not (img.shape == (wparams.height, wparams.width, 3)
+                    and bool(np.isfinite(img).all())):
+                fail(f"the {way} render is not finite or has the wrong shape")
+            if counts9["K2"] <= 0:
+                fail(f"K2 was not launched by the {way} render")
+            dead = next((a for a in calls[1:] if not bool(a[3].all())), None)
+            if dead is None:
+                fail(f"no launch of the {way} render's first tile-pass has dead lanes")
+            k2_check(dead)  # bit for bit against its plain version and the older K2
+            if way == "dod":
+                k2_check(calls[0])  # oo's and fp's first launches: k2_report below
+            n_dead = int((~dead[3]).sum().item())
+            first[way] = (calls[0], counts9["K2"])
+            samples = out.total_samples()
+            err = float(np.abs(img - images["dod"]).max())
+            if err > 2e-5:
+                fail(f"the {way} render differs from the dod scan wavefront by {err:.3e}")
+            print(f"phase 9 render {way} cornell {wparams.width}x{wparams.height} K={k_sub} "
+                  f"depth {wparams.max_depth} spp {wparams.samples_per_pixel} (fused='off'): "
+                  f"{wall:.3f} s, samples/ms "
+                  f"{samples / (wall * 1000.0):.2f}, peak device memory {peak:.2f} GiB, "
+                  f"launches {counts9}, K2 {k2_ms:.3f} ms summed over its launches, CUDA events "
+                  f"around each ({k2_ms / counts9['K2']:.4f} ms a launch; {calls[0][1].shape[1]} "
+                  f"rays a camera launch, {calls[1][1].shape[1]} a bounce launch), "
+                  f"mean {float(img.mean()):.5f}, max|image - dod| {err:.3e}; K2 bit-equal to "
+                  f"its plain version on a bounce launch with {n_dead} dead lanes", flush=True)
+        del calls
+        for way in ("oo", "fp"):
+            a9, n9 = first[way]
+            k2_report(9, way, wscene, a9, n9, 2)
+        del first, images
+
+        # (b) smallpt on the card
+        t0 = time.time()
+        simg = sp.render_smallpt(1920, 1080, 4, seed=1, max_bounces=40, device="cuda")
+        swall = time.time() - t0
+        if not (simg.shape == (1080, 1920, 3) and np.isfinite(simg).all()
+                and (simg >= 0).all() and (simg <= 1).all()):
+            fail("the smallpt render is not finite in [0, 1]")
+        write_png(os.path.join(OUT_DIR, "chip_smoke_smallpt.png"), srgb8(simg))
+        r9 = np.random.default_rng(1234)
+        o9 = torch.tensor(r9.uniform(0, 100, (3, 2048)), dtype=torch.float32, device=dev)
+        d9 = torch.tensor(r9.normal(size=(3, 2048)), dtype=torch.float64, device=dev)
+        d9 = (d9 / d9.norm(dim=0)).float()
+        t_c, i_c = sp._intersect(sp.smallpt_scene(device=dev), o9, d9)
+        sc = sp.smallpt_scene(torch.float64, dev)
+        op = sc.centre[:, :, None] - o9.double()[None]
+        b9 = (op * d9.double()[None]).sum(1)
+        r2 = torch.tensor([s[0] ** 2 for s in sp._SPHERES], dtype=torch.float64, device=dev)
+        det = b9 * b9 - (op * op).sum(1) + r2[:, None]
+        sq = torch.sqrt(torch.clamp(det, min=0))
+        tt = torch.where(b9 - sq > sp.EPS, b9 - sq, b9 + sq)
+        tt = torch.where((det >= 0) & (tt > sp.EPS), tt, torch.full_like(tt, float("inf")))
+        best, idx9 = tt.min(dim=0)
+        hit = torch.isfinite(best)
+        idx_ok = (i_c[hit].long() == idx9[hit]).double().mean().item()
+        terr = (t_c[hit].double() - best[hit]).abs()
+        t_mean, t_p995 = terr.mean().item(), torch.quantile(terr, 0.995).item()
+        if not (idx_ok > 0.999 and t_mean < 0.02 and t_p995 < 0.05):
+            fail(f"smallpt _intersect on the card against the float64 oracle: index "
+                 f"{idx_ok}, mean |dt| {t_mean}, 99.5th percentile {t_p995}")
+        small_c = sp.render_smallpt(64, 48, 4, seed=1, device="cuda")
+        small_h = sp.render_smallpt(64, 48, 4, seed=1, device="cpu")
+        close = float(np.all(np.abs(small_c - small_h) <= 1e-5, axis=2).mean())
+        sdiff = float(np.abs(small_c - small_h).max())
+        rel = abs(small_c.mean() - small_h.mean()) / small_h.mean()
+        if rel > 1e-3:
+            fail(f"smallpt 64x48: the card's image mean differs from the CPU's by {rel:.3e}")
+        print(f"phase 9 smallpt 1920x1080 spp 4 (one a subpixel), 40 bounces: {swall:.3f} s, "
+              f"samples/ms {1920 * 1080 * 4 / (swall * 1000.0):.2f}, mean {simg.mean():.5f}; "
+              f"_intersect on 2048 rays against a float64 oracle on the card: index agree "
+              f"{idx_ok:.4f}, mean |dt| {t_mean:.3e}, 99.5th percentile {t_p995:.3e}; 64x48 "
+              f"card vs CPU: pixels within 1e-5 {close:.4f}, max|d| {sdiff:.3e}, image means "
+              f"{small_c.mean():.6f} / {small_h.mean():.6f} (rel {rel:.2e})", flush=True)
+        del simg
+
+        # (c) the fused="off" train step: dod, dod with remat, oo, and dod and
+        # oo again with each material row's gradient summed in float64
+        tparams9 = RenderParams(width=512, height=512, max_depth=5, seed=1)
+        sb = SceneBuilder()
+        tcam9 = create_scene(sb, "suzanne", tparams9)
+        tscene9 = sb.build()
+        tparams9 = tparams9.replace(epsilon=auto_epsilon(tscene9, tcam9))
+        tpx9, tpy9 = pixel_grid(512, 512)
+        target9 = torch.full((tpx9.shape[0], 3), 0.25, device=dev)
+        grads9 = {}
+        grads_of = train._grads
+        gather32 = integ.gather_materials
+
+        def gather64(table, mat_id):
+            """The same float32 values, gathered from a float64 copy of the
+            table: the backward then sums each row's gradient over the lanes
+            in float64 and rounds it once (the forward is unchanged)."""
+            g = gather32(type(table)(*(m.double() for m in table)), mat_id)
+            return integ.GatheredMat(*(f.float() for f in g))
+
+        def rel_to(tag, ref):
+            return [float((g - g0).norm() / torch.clamp(g0.norm(), min=1e-30))
+                    for g, g0 in zip(grads9[tag], grads9[ref])]
+
+        for tag, way, remat, f64 in (("dod", "dod", False, False),
+                                     ("dod remat", "dod", True, False),
+                                     ("oo", "oo", False, False),
+                                     ("dod f64 sums", "dod", False, True),
+                                     ("oo f64 sums", "oo", False, True)):
+            step9 = make_sharded_train_step(tscene9, tparams9.replace(remat=remat), way=way,
+                                            learning_rate=0.05, fused="off")
+            st0 = TrainState(tscene9.materials, tcam9, 0)
+            if remat:  # torch.utils.checkpoint's one-time set-up (seconds), on 256 pixels
+                step9(st0, rng.base_key(7), tpx9[:256], tpy9[:256], target9[:256])
+            ik.intersect_packed.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            got = []
+            e0.record()
+            with swapped(train, "_grads", lambda loss, leaves: got.append(
+                    grads_of(loss, leaves)) or got[-1]), \
+                    swapped(integ, "gather_materials", gather64 if f64 else gather32):
+                loss9, _ = step9(st0, rng.base_key(7), tpx9, tpy9, target9)
+            e1.record()
+            torch.cuda.synchronize()
+            ms9 = e0.elapsed_time(e1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            grads9[tag] = [g.double() for g in got[0]]
+            if not all(bool(torch.isfinite(g).all()) for g in grads9[tag]):
+                fail(f"train step {tag}: a gradient is not finite")
+            ref = "dod f64 sums" if tag == "oo f64 sums" else "dod"
+            print(f"phase 9 train step {tag} (fused='off') suzanne 512^2 K=16 depth 5: loss "
+                  f"{float(loss9):.6e}, {ms9:.1f} ms, peak device memory {peak:.2f} GiB "
+                  f"({peak - held:.2f} above the {held:.2f} held before the step), K2 "
+                  f"launches {ik.intersect_packed.launches}; gradients against {ref}'s, "
+                  "|d| / |g|: " + ", ".join(
+                      f"{n} {r:.2e}" for n, r in zip(tscene9.materials._fields,
+                                                     rel_to(tag, ref))), flush=True)
+        # A material row's gradient is a float32 sum over ~4 M lanes a
+        # bounce, in another order in each way. Its rounding is what each
+        # way's float32 sums differ from its own float64 sums by; with the
+        # sums in float64 the ways agree to 1e-5 of the norm, and in float32
+        # they may differ by no more than 1e-5 plus the two ways' rounding.
+        names9 = tscene9.materials._fields
+        gates9 = [("dod remat", "dod", [1e-5] * len(names9)),
+                  ("oo f64 sums", "dod f64 sums", [1e-5] * len(names9)),
+                  ("oo", "dod", [1e-5 + a + b for a, b in zip(rel_to("dod", "dod f64 sums"),
+                                                             rel_to("oo", "oo f64 sums"))])]
+        for tag, ref, lims in gates9:
+            for name, r, lim in zip(names9, rel_to(tag, ref), lims):
+                if r > lim:
+                    fail(f"train step {tag}: the {name} gradient differs from {ref}'s by "
+                         f"{r:.3e} of its norm (limit {lim:.3e})")
+        print("phase 9 train step float32 rounding of the lane sums, |float32 - float64 "
+              "sums| / |g|: dod " + ", ".join(
+                  f"{n} {r:.2e}" for n, r in zip(names9, rel_to("dod", "dod f64 sums")))
+              + "; oo " + ", ".join(
+                  f"{n} {r:.2e}" for n, r in zip(names9, rel_to("oo", "oo f64 sums")))
+              + "; oo against dod within " + ", ".join(
+                  f"{n} {lim:.2e}" for n, lim in zip(names9, gates9[2][2])), flush=True)
+        del grads9, step9
+
+        # (d) two CLI runs of the oo way, merged by raw_to_png
+        import io
+
+        raws, lines9 = [], []
+        for seed in (1, 2):
+            raws.append(os.path.join(raw_dir, f"oo_{seed}.raw"))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = port_cli.main(["-w", "256", "-h", "256", "--spp", "2", "--seed", str(seed),
+                                    "--way", "oo", "--save-every", "0", "--raw", raws[-1]])
+            if rc != 0:
+                fail(f"the CLI (--way oo, seed {seed}) exited {rc}")
+            lines9.append(" / ".join(buf.getvalue().splitlines()))
+        merged = os.path.join(OUT_DIR, "chip_smoke_oo_merged.png")
+        proc = subprocess.run([sys.executable, "-m", "pt_three_ways_tpu_torch.raw_to_png",
+                               merged, *raws], capture_output=True, text=True, timeout=120,
+                              cwd=ROOT)
+        if proc.returncode != 0:
+            fail(f"raw_to_png exited {proc.returncode}: {proc.stderr[-500:]}")
+        want = merge([ArrayOutput.load(r) for r in raws]).to_srgb8()
+        if not np.array_equal(read_png(merged), want):
+            fail("raw_to_png's PNG differs from to_srgb8() of the merge")
+        print(f"phase 9 CLI --way oo 256^2 spp 2, seeds 1 and 2: {' | '.join(lines9)}; "
+              f"raw_to_png: {' / '.join(proc.stdout.splitlines())}; its PNG equals "
+              f"to_srgb8() of the merge", flush=True)
+        print(f"phase 9: {time.time() - t9:.1f} s", flush=True)
 
     # one row per kernel: the numbers of the path that carries it (the
     # CLI-default cornell render for K2 and K4, square cornell for K5, the

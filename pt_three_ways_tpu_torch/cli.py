@@ -3,6 +3,9 @@ src/main/main.cpp:370-473).
 
 The same flags, defaults and output lines as the JAX package's CLI, plus
 ``--device {cuda,cpu}`` (default ``cuda``; a CUDA run without a card fails).
+Every way (dod/wavefront, oo/megakernel, fp/functional) and ``--scene
+smallpt`` run on either device; ``--dtype float64`` runs on the CPU only.
+``--devices`` above 1 is not ported yet.
 Tuning (rng mode, passes per launch, feedback sort, tail compaction) is the
 runtime autotune's job on the card (models/render.autotune_decisions).
 ``-h`` means HEIGHT like the reference; use --help for help.
@@ -17,10 +20,6 @@ import argparse
 import random
 import sys
 import time
-
-WAYS = ("dod", "wavefront")
-_NOT_PORTED_WAYS = ("oo", "megakernel", "fp", "functional")
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -43,11 +42,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview", action="store_true", help="super quick preview")
     p.add_argument("--save-every", type=int, default=30,
                    help="periodically save (every secs), 0 to disable")
-    p.add_argument("--way", default="dod", help="which way: dod/wavefront")
+    p.add_argument("--way", default="dod",
+                   help="which way: dod/wavefront (default), oo/megakernel, fp/functional")
     p.add_argument("--scene", default="cornell", help="which scene to render")
     p.add_argument("--raw", action="store_true", help="output in raw form")
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"],
-                   help="compute dtype (float64 is not ported yet)")
+                   help="compute dtype (float64 only with --device cpu)")
     p.add_argument("--epsilon", type=float, default=None,
                    help="geometric epsilon (default: derived from scene scale "
                         "— models/scene.auto_epsilon)")
@@ -71,20 +71,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
 
-    if args.way in _NOT_PORTED_WAYS:
-        print(f"way {args.way} is not yet ported", file=sys.stderr)
-        return 1
+    from .models.ways import WAYS
+
     if args.way not in WAYS:
         print(f"Unknown way {args.way}", file=sys.stderr)
-        return 1
-    if args.scene == "smallpt":
-        print("scene smallpt is not yet ported", file=sys.stderr)
         return 1
     if args.devices > 1:
         print("--devices > 1 is not yet ported", file=sys.stderr)
         return 1
-    if args.dtype == "float64":
-        print("--dtype float64 is not yet ported", file=sys.stderr)
+    if args.dtype == "float64" and args.device != "cpu":
+        print("--dtype float64 runs on the CPU only: add --device cpu", file=sys.stderr)
         return 1
 
     import torch
@@ -98,6 +94,25 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     seed = args.seed if args.seed != 0 else random.SystemRandom().randrange(1, 2**31)
+
+    if args.scene == "smallpt":
+        # the smallpt sidecar has its own camera and film (models/smallpt.py;
+        # reference src/smallpt/smallpt.cpp)
+        from .models.smallpt import render_smallpt
+        from .utils.framebuffer import srgb8
+
+        start = time.time()
+        img = render_smallpt(args.width, args.height, args.spp, seed=seed, device=device)
+        elapsed = time.time() - start
+        if args.raw:
+            ArrayOutput.from_mean(img, args.spp).save(args.output)
+        else:
+            write_png(args.output, srgb8(img))
+        total = args.width * args.height * args.spp
+        print(f"Took {elapsed:.3f}s")
+        print(f"Total samples: {total}")
+        print(f"Samples/ms: {total / (elapsed * 1000.0):.2f}")
+        return 0
     params = RenderParams(
         width=args.width,
         height=args.height,
@@ -121,9 +136,10 @@ def main(argv=None) -> int:
         return 1
     print(stats.report())
 
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
     builder = SceneBuilder()
-    camera = create_scene(builder, args.scene, params)
-    scene = builder.build(torch.float32)
+    camera = create_scene(builder, args.scene, params, dtype)
+    scene = builder.build(dtype)
     if args.epsilon is None and hint_key(args.scene) not in EPSILON_HINT:
         params = params.replace(epsilon=auto_epsilon(scene, camera))
 

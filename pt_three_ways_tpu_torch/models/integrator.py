@@ -14,7 +14,9 @@ JAX package's ``models/integrator.py``:
   * emission added per shading event; hard depth cutoff returning black.
 
 Three paths: ``trace_pass`` (one sample pass, one bounce per loop step —
-the path the CPU render and the golden images use), ``trace_passes_fused``
+the path the CPU render and the golden images use; it runs in the camera's
+dtype, float32 or, on the CPU, float64, and with ``params.remat`` recomputes
+each bounce in the backward), ``trace_passes_fused``
 (the camera stage for S passes, then ONE regenerating megakernel launch:
 kernel K5 with table uniforms or K4 with in-kernel RNG, in stream mode for
 scenes above the resident range, ``uses_stream``) and
@@ -191,12 +193,13 @@ def bounce_from_hits(scene, state: PathState, hits: Hits, u, v, p,
     )
 
 
-def _first_bounce_uniforms(params, key, r0, device):
+def _first_bounce_uniforms(params, key, r0, device, dtype=torch.float32):
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
-    fb_u = rng.uniforms(rng.stream_key(key, rng.FIRST_BOUNCE_STREAM), (3, r0, k), device)
-    ar = torch.arange(k, dtype=torch.float32, device=device)
+    fb_u = rng.uniforms(rng.stream_key(key, rng.FIRST_BOUNCE_STREAM), (3, r0, k), device,
+                        dtype)
+    ar = torch.arange(k, dtype=dtype, device=device)
     iu = torch.div(ar, nv, rounding_mode="floor").reshape(1, k)
     iv = torch.remainder(ar, nv).reshape(1, k)
     u0 = (iu + fb_u[0]) / nu  # [R, K]
@@ -210,9 +213,9 @@ def _expand(x, k: int):
     return torch.repeat_interleave(x, k, dim=-1)
 
 
-def _bounce_uniforms(key, d: int, n: int, device):
+def _bounce_uniforms(key, d: int, n: int, device, dtype=torch.float32):
     bkey = rng.stream_key(key, rng.BOUNCE_STREAM_BASE)
-    return rng.uniforms(rng.fold_in(bkey, d), (3, n), device)
+    return rng.uniforms(rng.fold_in(bkey, d), (3, n), device, dtype)
 
 
 def bounce_rows(key, nb: int, n: int, device, lane_major: bool = False) -> torch.Tensor:
@@ -231,29 +234,54 @@ def bounce_rows(key, nb: int, n: int, device, lane_major: bool = False) -> torch
     return torch.cat(rows, dim=0) if rows else torch.zeros((0, n), device=device)
 
 
+def remat_step(step, state: PathState, d: int) -> PathState:
+    """``step(state, d)`` under ``torch.utils.checkpoint``: the backward
+    recomputes the step from its inputs; it keeps nothing else."""
+    from torch.utils.checkpoint import checkpoint
+
+    return PathState(*checkpoint(lambda *st: tuple(step(PathState(*st), d)), *state,
+                                 use_reentrant=False))
+
+
+def camera_stage(scene, camera: Camera, params: RenderParams, key, px, py, tri_chunk: int,
+                 backend: str, packed=None):
+    """The camera rays of one pass and what they hit first -> (dir0 [3, R],
+    hits0, mat0): the uniforms on ``CAMERA_STREAM`` in the camera's dtype,
+    the search by ``backend`` (``packed``: the scene's pack for K2)."""
+    cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, px.shape[0]),
+                         px.device, camera.centre.dtype)
+    org0, dir0 = generate_rays(camera, px, py, cam_u)
+    hits0 = intersect_scene(scene, org0, dir0, params.epsilon, tri_chunk, backend,
+                            packed=packed)
+    return dir0, hits0, gather_materials(scene.materials, hits0.mat_id)
+
+
 def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
                tri_chunk: int = 1024):
     """One 1-spp pass over a tile of pixels -> radiance [R, 3]; the scan
-    wavefront (one bounce per loop step)."""
+    wavefront (one bounce per loop step). Every draw and temporary takes
+    the camera's dtype. With ``params.remat`` each bounce runs under
+    ``torch.utils.checkpoint``: the backward recomputes its intersection
+    and samples from the carried path state instead of keeping them (the
+    JAX package's ``jax.checkpoint`` of the scan step)."""
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
     eps = params.epsilon
     r0 = px.shape[0]
     dev = px.device
+    dtype = camera.centre.dtype
 
     backend = resolve_intersector(params, dev)
     packed = PackedScene(scene) if backend == "kernel" else None  # K2's, once a pass
-    cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
-    org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=packed)
-    mat0 = gather_materials(scene.materials, hits0.mat_id)
+    dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
+                                     packed)
 
     miss_colour = scene.environment[:, None].expand(3, r0)
     if params.preview:
         return torch.where(hits0.hit, mat0.diffuse, miss_colour).T
 
-    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev)
+    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev, dtype)
     refl0 = effective_reflectivity(mat0, hits0, dir0)  # [R]
     spec0 = p0 < refl0[:, None]  # [R, K]
 
@@ -263,8 +291,8 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     spec0f = spec0.reshape(-1)
     dir1 = sample_direction(mat0x, hits0x, dir0x, u0.reshape(-1), v0.reshape(-1), spec0f)
     refl0x = _expand(refl0, k)
-    beta1 = torch.where(spec0f, torch.ones((3, r0 * k), device=dev), mat0x.diffuse) \
-        * branch_weight(refl0x, spec0f)
+    beta1 = torch.where(spec0f, torch.ones((3, r0 * k), dtype=dtype, device=dev),
+                        mat0x.diffuse) * branch_weight(refl0x, spec0f)
     alive1 = hits0x.hit
     if params.kill_dead_paths:
         alive1 = alive1 & torch.any(beta1 != 0.0, dim=0)
@@ -272,15 +300,18 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
         org=hits0x.pos,
         dirn=dir1,
         beta=beta1,
-        acc=torch.zeros((3, r0 * k), device=dev),
+        acc=torch.zeros((3, r0 * k), dtype=dtype, device=dev),
         alive=alive1,
     )
 
+    def step(st, d):
+        bu = _bounce_uniforms(key, d, r0 * k, dev, dtype)
+        return bounce(scene, st, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
+                      kill_dead=params.kill_dead_paths, packed=packed)
+
     n_bounces = max(params.max_depth - 1, 0)
     for d in range(1, n_bounces + 1):
-        bu = _bounce_uniforms(key, d, r0 * k, dev)
-        state = bounce(scene, state, bu[0], bu[1], bu[2], eps, tri_chunk, backend,
-                       kill_dead=params.kill_dead_paths, packed=packed)
+        state = remat_step(step, state, d) if params.remat else step(state, d)
 
     path_mean = state.acc.reshape(3, r0, k).mean(dim=2)
     hit_colour = mat0.emission + path_mean
@@ -302,14 +333,11 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
-    eps = params.epsilon
     r0 = px.shape[0]
     dev = px.device
 
-    cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
-    org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=packed)
-    mat0 = gather_materials(scene.materials, hits0.mat_id)
+    dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
+                                     packed)
 
     miss_colour = scene.environment[:, None].expand(3, r0)
     base = torch.where(hits0.hit, mat0.emission, miss_colour)

@@ -15,7 +15,10 @@ K4's and K5's searches on the card, and a scene above the resident range takes K
 stream mode (integrator.uses_stream). On the CPU
 the default is the scan wavefront (integrator.trace_pass), one pass per
 group, tiled exactly like the JAX package's CPU branch so the same keys
-fold in.
+fold in. The other ways (models/ways.WAYS: ``oo``, ``fp`` and their
+aliases) run one pass per group on either device, their intersections on
+K2 where the kernel backend is active. ``params.dtype="float64"`` renders
+on the CPU only.
 """
 
 from __future__ import annotations
@@ -62,12 +65,14 @@ def _budgets(device) -> tuple[int, int]:
 
 
 def uses_regen(params: RenderParams, way: str, device) -> bool:
-    """True when render() launches the regenerating megakernel."""
+    """True when render() launches the regenerating megakernel (float32
+    only: a float64 render takes the scan wavefront)."""
     from .integrator import resolve_intersector
 
     backend = resolve_intersector(params, device)
     return (
         way in ("dod", "wavefront")
+        and params.dtype == "float32"
         and not params.preview
         and backend == "kernel"
         and params.fused != "off"
@@ -136,10 +141,10 @@ def make_pass_fn(scene, camera, params: RenderParams, way: str = "dod",
     [R, 3] over ``n_passes`` consecutive sample passes (plus the per-lane
     counts when the feedback sort is on). Keys fold exactly like the
     unfused path: fold_in(fold_in(base, sample), tile)."""
-    from .integrator import trace_pass, trace_passes_fused
+    from .integrator import trace_passes_fused
+    from .ways import WAYS
 
-    if way not in ("dod", "wavefront"):
-        raise ValueError(f"way {way!r} is not ported yet")
+    trace = WAYS[way]
     if uses_regen(params, way, scene.device):
         if params.regen_feedback_sort:
             def pass_fn(base_key, sample0, tile_idx, px, py, sort_key):
@@ -163,13 +168,20 @@ def make_pass_fn(scene, camera, params: RenderParams, way: str = "dod",
         return pass_fn
 
     def pass_fn(base_key, sample0, tile_idx, px, py):
-        acc = torch.zeros((px.shape[0], 3), device=px.device)
+        acc = torch.zeros((px.shape[0], 3), dtype=camera.centre.dtype, device=px.device)
         for i in range(n_passes):
             key = rng.fold_in(rng.fold_in(base_key, sample0 + i), tile_idx)
-            acc = acc + trace_pass(scene, camera, params, key, px, py, tri_chunk)
+            acc = acc + trace(scene, camera, params, key, px, py, tri_chunk)
         return acc
 
     return pass_fn
+
+
+def has_float64(*trees) -> bool:
+    """Whether any tensor in ``trees`` (tensors and nested tuples of them,
+    such as a Scene or a Camera) is float64."""
+    return any(t.dtype == torch.float64 if isinstance(t, torch.Tensor)
+               else isinstance(t, tuple) and has_float64(*t) for t in trees)
 
 
 def resolve_device(device) -> torch.device:
@@ -198,7 +210,8 @@ def render(
     resume_from: Optional[str] = None,
     device="cuda",
 ) -> ArrayOutput:
-    """Full render: samples_per_pixel passes over all pixels on ``device``.
+    """Full render: samples_per_pixel passes over all pixels on ``device``,
+    by ``way`` (a key of models/ways.WAYS).
 
     ``update_fn`` receives the partially-accumulated ArrayOutput at most once
     per ``save_every_seconds`` (main.cpp:331-343), at pass-group boundaries.
@@ -213,9 +226,10 @@ def render(
     from .integrator import resolve_rng_mode
     from ..ops.megakernel import S_COUNT_MAX, PackedSceneStream
 
+    if torch.device(device).type != "cpu" and (params.dtype == "float64"
+                                                or has_float64(scene, camera)):
+        raise ValueError("float64 renders run on the CPU only (pass device='cpu')")
     dev = resolve_device(device)
-    if params.dtype != "float32":
-        raise NotImplementedError(f"dtype {params.dtype} is not ported yet")
     scene = scene.to(dev)
     camera = camera.to(dev)
     width, height = params.width, params.height

@@ -63,8 +63,7 @@ import torch
 
 from ..ops import kernel_rng as kr
 from ..ops import rng
-from ..ops.camera import generate_rays
-from ..ops.intersect import Hits, hits_from_winner, intersect_scene
+from ..ops.intersect import Hits, hits_from_winner
 from ..ops.intersect_kernel import winner_t_vjp
 from ..ops.megakernel import (
     PackedSceneStream,
@@ -83,8 +82,8 @@ from .integrator import (
     bounce_from_hits,
     bounce_rows,
     branch_weight,
+    camera_stage,
     effective_reflectivity,
-    gather_materials,
     lane_ids_for,
     resolve_intersector,
     sample_direction,
@@ -231,10 +230,8 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     # camera + first hit + stratified K expansion: the streams and math of
     # integrator.trace_pass (zero-throughput kill on)
     geo = packed if packed is not None else PackedSceneStream(scene)
-    cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
-    org0, dir0 = generate_rays(camera, px, py, cam_u)
-    hits0 = intersect_scene(scene, org0, dir0, eps, tri_chunk, backend, packed=geo)
-    mat0 = gather_materials(scene.materials, hits0.mat_id)
+    dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
+                                     geo)
     miss_colour = scene.environment[:, None].expand(3, r0)
     if params.preview:
         return torch.where(hits0.hit, mat0.diffuse, miss_colour).T

@@ -280,8 +280,11 @@ def intersect_plain(packed: PackedScene, org, dirn, live, eps: float):
 def _intersect_cuda(packed: PackedScene, org, dirn, live, eps: float):
     n = org.shape[1]
     dev = org.device
-    org = org.to(torch.float32).contiguous()
-    dirn = dirn.to(torch.float32).contiguous()
+    if org.dtype != torch.float32 or dirn.dtype != torch.float32:
+        raise TypeError(f"K2 takes float32 rays, got {org.dtype} / {dirn.dtype} "
+                        "(float64 runs on the CPU only)")
+    org = org.contiguous()
+    dirn = dirn.contiguous()
     live = live.contiguous()  # bool: one byte a ray
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((n,), dtype=torch.int32, device=dev)

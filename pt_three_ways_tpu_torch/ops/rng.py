@@ -6,12 +6,13 @@ number as a pure function of (seed, pass, tile, purpose, array index), so
 renders are bit-reproducible under any tiling and resume.
 
 This module reproduces ``jax.random.PRNGKey`` / ``fold_in`` / ``uniform``
-(float32) bit for bit, in the ``jax_threefry_partitionable=True`` layout
-that jax 0.9 uses by default: ``uniform(key, shape)`` hashes the flat index
-``i`` of each element as the counter pair (i >> 32, i & 0xFFFFFFFF) and
-xors the two output words. Keys are explicit: a key is an int64 tensor
-``[2]`` holding the two uint32 words, passed by the caller; there is no
-global generator.
+(float32 and, under ``jax_enable_x64``, float64) bit for bit, in the
+``jax_threefry_partitionable=True`` layout that jax 0.9 uses by default:
+``uniform(key, shape)`` hashes the flat index ``i`` of each element as the
+counter pair (i >> 32, i & 0xFFFFFFFF); a 32-bit draw xors the two output
+words, a 64-bit draw concatenates them (first word high). Keys are
+explicit: a key is an int64 tensor ``[2]`` holding the two uint32 words,
+passed by the caller; there is no global generator.
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF`` masks (torch's
 uint32 lacks most operators on the CPU). Threefry needs only add, xor and
@@ -75,18 +76,28 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     """uint32 bits (in int64) of ``jax.random.bits`` for ``shape``."""
-    k1, k2 = _words(key)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    hi = idx >> 32
-    lo = idx & _M32
-    b1, b2 = threefry2x32(k1, k2, hi, lo)
+    b1, b2 = _hash_words(key, shape, device)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)``: the top 23 bits as the
-    mantissa of a float in [1, 2), minus 1."""
+def _hash_words(key: torch.Tensor, shape, device):
+    k1, k2 = _words(key)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return threefry2x32(k1, k2, idx >> 32, idx & _M32)
+
+
+def uniform(key: torch.Tensor, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)``: the top mantissa-width bits
+    of the draw as the mantissa of a float in [1, 2), minus 1. float32 takes
+    23 bits of the 32-bit draw; float64 takes 52 of the 64-bit draw
+    ``(b1 << 32) | b2``, built as ``(b1 << 20) | (b2 >> 12)`` so no value
+    leaves int64."""
+    if dtype == torch.float64:
+        b1, b2 = _hash_words(key, shape, device)
+        mant = ((b1 << 20) | (b2 >> 12)).reshape(shape)
+        return (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
+    if dtype != torch.float32:
+        raise ValueError(f"uniform: unsupported dtype {dtype}")
     bits = random_bits(key, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
@@ -110,6 +121,7 @@ def stream_key(key: torch.Tensor, stream: int) -> torch.Tensor:
     return fold_in(key, stream)
 
 
-def uniforms(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
-    """U[0,1) float32 of the given shape; counter-based over the flat index."""
-    return uniform(key, shape, device)
+def uniforms(key: torch.Tensor, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """U[0,1) of the given shape and dtype (float32 or float64);
+    counter-based over the flat index."""
+    return uniform(key, shape, device, dtype)

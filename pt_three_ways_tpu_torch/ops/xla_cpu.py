@@ -20,6 +20,26 @@ tensors (on other devices they are the plain operations):
   * ``sqrt``, ``sin``, ``cos``, ``acos`` of PyTorch's vectorised CPU kernels
     differ from XLA's; they are evaluated in float64 and rounded once (the
     IEEE result for ``sqrt``).
+
+float64 (``--dtype float64``, CPU only), as read from XLA's optimised LLVM IR
+for jitted float64 code and from its results:
+
+  * ``fma``: XLA contracts float64 products into sums by the same rule.
+    PyTorch has no fused multiply-add, so the helper computes its value
+    exactly from error-free transforms (Dekker's product, Knuth's sum) and
+    carries the plain expression's gradient.
+  * ``rsqrt``: XLA also rewrites float64 ``1 / sqrt(x)``, from the AVX-512
+    ``vrsqrt14pd`` estimate with the same two Newton steps. That estimate
+    is not tabulated here, so float64 takes the plain ``1 / sqrt(x)``:
+    the two differ in the last bit on about 3 in 10 inputs.
+  * ``sqrt`` is the IEEE result in XLA as in PyTorch. ``sin`` and ``cos``
+    in XLA equal numpy's (glibc's) and PyTorch's differ in the last bit
+    on about 1 in 500 inputs; ``acos`` differs from both in the last bit
+    on about 1 in 8. No float64 evaluation rounds better, so these are the
+    plain PyTorch operations.
+
+So a float64 render follows the JAX package's to within a few units in the
+last place of each value (the tests hold it to 1e-12), not bit for bit.
 """
 
 from __future__ import annotations
@@ -107,11 +127,50 @@ def via64(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x)
 
 
+def cpu64(*xs) -> bool:
+    """True when every tensor argument is a float64 CPU tensor."""
+    ts = [x for x in xs if isinstance(x, torch.Tensor)]
+    return bool(ts) and all(t.device.type == "cpu" and t.dtype == torch.float64 for t in ts)
+
+
+_SPLIT64 = 134217729.0  # 2^27 + 1: Dekker's split of a float64
+
+
+def _fma64(a, b, c):
+    """a * b + c rounded once, for float64 CPU tensors: the exact product
+    a*b = p + e (Dekker), p + c = s + t (Knuth), then s + (t + e); the
+    gradient is the plain expression's."""
+    plain = a * b + c
+    with torch.no_grad():
+        a_, b_, c_ = (x.detach() if isinstance(x, torch.Tensor) else x for x in (a, b, c))
+        p = a_ * b_
+        ca = _SPLIT64 * a_
+        ah = ca - (ca - a_)
+        al = a_ - ah
+        cb = _SPLIT64 * b_
+        bh = cb - (cb - b_)
+        bl = b_ - bh
+        e = (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+        s = p + c_
+        v = s - p
+        t = (p - (s - v)) + (c_ - v)
+        r = s + (t + e)
+        # overflow or a non-finite input: the plain value
+        r = torch.where(torch.isfinite(r), r, plain.detach())
+    if plain.requires_grad:
+        return r + (plain - plain.detach())
+    return r
+
+
 def fma(a, b, c):
-    """a * b + c, rounded once on the CPU."""
+    """a * b + c, rounded once on the CPU. A Python number operand is a
+    constant of the tensors' dtype, as in XLA."""
     if cpu32(a, b, c):
-        d = lambda x: x.double() if isinstance(x, torch.Tensor) else x
+        d = lambda x: x.double() if isinstance(x, torch.Tensor) else \
+            float(torch.tensor(x, dtype=torch.float32))
         return (d(a) * d(b) + d(c)).float()
+    if cpu64(a, b, c):
+        return _fma64(a, b, c)
     return a * b + c
 
 

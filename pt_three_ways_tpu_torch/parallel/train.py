@@ -19,10 +19,16 @@ The forwards, as in the JAX package:
     under the step's key (samples 0 .. S-1, tile 0) in one launch of K4 in
     replay mode, the backward K9's reverse walk; the estimate is the
     radiance sum / S;
-  * ``fused="off"`` (or another backend): ``integrator.trace_pass``, the
-    per-bounce wavefront, with ``kill_dead_paths=False`` (a path whose
+  * ``fused="off"`` (or another backend): the way's pass
+    (``models/ways.WAYS[way]``: ``integrator.trace_pass``, the per-bounce
+    wavefront, for ``dod``; ``trace_pass_oo`` or ``trace_pass_fp`` for
+    ``oo`` and ``fp``), with ``kill_dead_paths=False`` (a path whose
     throughput is exactly 0 still carries d(beta)/d(param)), differentiated
-    by autograd, the winner distance through K2's VJP.
+    by autograd, the winner distances through K2's VJP; ``params.remat``
+    recomputes each of ``trace_pass``'s bounces in the backward.
+
+What is ported here: one device, ``way=``, ``fused=``, ``passes_per_step``,
+``differentiate_camera`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.integrator import resolve_intersector, trace_pass
+from ..models.integrator import resolve_intersector
 from ..models.materials import MaterialTable
+from ..models.ways import WAYS
 from ..ops import rng
 from ..utils.render_params import RenderParams
+
+
+FLOAT64_ON_CPU = "float64 training runs on the CPU only (pass device='cpu')"
 
 
 class TrainState(NamedTuple):
@@ -56,7 +66,7 @@ def _grads(loss, leaves):
     return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, leaves)]
 
 
-def make_sharded_train_step(scene, params: RenderParams, mesh=None,
+def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "dod",
                             learning_rate: float = 0.05, tri_chunk: int = 1024,
                             differentiate_camera: bool = False, fused: str = "auto",
                             passes_per_step: int = 1, device="cuda"):
@@ -66,16 +76,23 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
     ``px``/``py`` [R] pixel coordinates and ``target`` [R, 3];
     ``state.materials`` replaces the scene's materials; each call consumes
     ``passes_per_step`` sample passes of the estimator under ``key``
-    (more than one needs the replay path). ``mesh``: None (one device); a
-    mesh of more devices is not ported yet."""
-    from ..models.render import resolve_device
+    (more than one needs the replay path). ``way``: the pass that
+    ``fused="off"`` differentiates (the replay path is ``dod``'s only).
+    ``mesh``: None (one device); a mesh of more devices is not ported
+    yet. float64 (``params.dtype``, the scene or the state) runs on the CPU
+    only: on another device it raises ValueError."""
+    from ..models.render import has_float64, resolve_device
 
     if _mesh_devices(mesh) != 1:
         raise NotImplementedError("not yet ported")
+    on_card = torch.device(device).type != "cpu"
+    if on_card and (params.dtype == "float64" or has_float64(scene)):
+        raise ValueError(FLOAT64_ON_CPU)
     dev = resolve_device(device)
     scene = scene.to(dev)
     use_replay = (
         fused == "auto"
+        and way in ("dod", "wavefront")
         and resolve_intersector(params, dev) == "kernel"
         and not params.preview
     )
@@ -90,13 +107,15 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None,
         # the geometry's tables, built once: each step refreshes the material rows
         replay_kw = dict(packed=PackedSceneStream(scene))
     else:
-        trace = trace_pass
+        trace = WAYS[way]
         params = params.replace(kill_dead_paths=False, fused="off")
         if passes_per_step > 1:
             raise ValueError("passes_per_step > 1 needs the replay path (fused='auto' "
                              "with the kernel backend)")
 
     def train_step(state: TrainState, key, px, py, target):
+        if on_card and has_float64(state.materials, state.camera):
+            raise ValueError(FLOAT64_ON_CPU)
         px, py, target = px.to(dev), py.to(dev), target.to(dev)
         mats = [m.detach().to(dev).requires_grad_() for m in state.materials]
         cam = [c.detach().to(dev) for c in state.camera]

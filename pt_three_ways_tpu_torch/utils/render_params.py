@@ -22,7 +22,8 @@ class RenderParams:
     seed: int = 0
 
     # --- extensions with no reference analogue ---
-    # Compute dtype ("float32"; "float64" is not ported yet).
+    # Compute dtype: "float32", or "float64" (the scan wavefront and the
+    # other ways on the CPU; a CUDA render raises).
     dtype: str = "float32"
     # Geometric epsilon; scenes with large coordinates override it.
     epsilon: float = 1e-4
@@ -41,8 +42,9 @@ class RenderParams:
     # broadcast "xla"-style scan elsewhere), "xla", or "kernel" (the kernel
     # wrappers: CUDA kernels for CUDA tensors, their plain versions on CPU).
     intersector: str = "auto"
-    # Kept for parity with the JAX configuration (its per-bounce
-    # recomputation in the backward is not ported).
+    # Per-bounce recomputation in the backward: trace_pass runs each bounce
+    # under torch.utils.checkpoint, so autograd keeps O(path state) a bounce
+    # (the replay path ignores it: its backward recomputes nothing).
     remat: bool = False
     # Kill paths whose throughput is exactly zero (identical images, much
     # less work in light-dominated scenes).

@@ -131,7 +131,34 @@ Phases (one line each, any failure stops the run):
      1e-5 of dod with the sums in float64, and in float32 within 1e-5 plus
      the two ways' own rounding (each way's float32 sums against its float64
      sums); two CLI runs of --way oo (256^2, 2 spp, seeds 1 and 2)
-     merged by raw_to_png, its PNG equal to to_srgb8() of the merge.
+     merged by raw_to_png, its PNG equal to to_srgb8() of the merge;
+ 10. the native host library and the (dp, sp) mesh: (a) the library
+     (csrc/pt3native.cpp, g++) must build and load; the host scene build
+     of cornell, suzanne, ce, bbc-owl, example1 and suzanne-sub3 with and
+     without it (PT3_NO_NATIVE=1), bit-equal, timed on the host's clock;
+     the Python and the native merge of two 1920x1080 .raw files, bytes
+     equal, timed; (b) a 1-rank NCCL world: render_sharded of cornell
+     (square) and suzanne 512^2 at 16 spp bit-equal to render(), the walls
+     beside each other, the counters set to 0 just before each sharded
+     render and read just after, the render again with every K2 launch
+     held bit for bit against its plain version (suzanne's first timed)
+     and, on cornell, K5's main call and K4's call (the probe) against
+     their plain versions as in phase 5 (the "sharded" entries of their
+     rows' by_path), and the 1-rank regen train step (S=8, suzanne 512^2,
+     deterministic algorithms) bit-equal to mesh=None (the 1x1 mesh without
+     groups); (c) two ranks sharing the card over
+     gloo (its collectives staged through host memory), spawned by
+     parallel/distributed.spawn: cornell and suzanne 256^2 at 16 spp on a
+     dp=2 mesh (autotune off, 8 passes a launch) within rtol 1e-6 of
+     render(), on an sp=2 mesh (the default flow) bit-equal twice and its
+     4x4 block means within rtol 2e-2 / atol 2e-3 of render()'s, and a
+     dp=2 regen train step (S=4 a rank) against the one-device step at
+     S=8 (the same samples): loss within rtol 1e-5, updates within
+     tests/test_torch_train.py's gates, with each wall and each rank's
+     peak memory; (d) the CLI: --devices 2 on one card exits 1 naming the
+     card count; --devices 1 in a 1-rank NCCL world (torchrun's variables
+     set) takes the CLI's sharded branch (render_sharded on a mesh, rank 0
+     writing), launches K2 and K4/K5 and writes the plain run's .raw.
 The last two lines are the kernels JSON and the device JSON.
 
 ``--crossover NAMES`` builds, then prints only phase 8's crossover table for
@@ -663,12 +690,93 @@ def k9_walk_stats(cnt, aligned=False):
     return use, (g * first).sum().item() / requests
 
 
+def phase10_ranks(train_seed):
+    """Phase 10(c) on each of two ranks sharing card 0 over gloo (the
+    collectives staged through host memory, parallel/mesh.py): cornell and
+    suzanne 256^2 at 16 spp on a dp=2 mesh (autotune off, 8 passes a
+    launch) and twice on an sp=2 mesh (the default flow), and a dp=2
+    regenerating train step (S=4) on suzanne 256^2. Returns rank 0's
+    results, with every rank's peak device memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pt_three_ways_tpu_torch.ops import rng
+    from pt_three_ways_tpu_torch.parallel.mesh import make_mesh
+    from pt_three_ways_tpu_torch.parallel.shard import render_sharded
+    from pt_three_ways_tpu_torch.parallel.train import make_sharded_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = {"dp2": make_mesh(n_devices=2, dp=2, device=dev),
+              "sp2": make_mesh(n_devices=2, dp=1, device=dev)}
+    res = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # the process's first launches (library load, allocator) outside the walls
+    render_sharded(*phase10_scene("cornell", 64, samples_per_pixel=2, seed=1), meshes["dp2"])
+    for name in ("cornell", "suzanne"):
+        scene, camera, params = phase10_scene(name, 256, samples_per_pixel=16, seed=1)
+        fixed = params.replace(autotune=False, passes_per_dispatch=8)
+        out, wall = timed(lambda: render_sharded(scene, camera, fixed, meshes["dp2"]))
+        res[f"dp2 {name}"] = (out.sum, out.count, wall)
+        a, wall = timed(lambda: render_sharded(scene, camera, params, meshes["sp2"]))
+        b = render_sharded(scene, camera, params, meshes["sp2"])
+        res[f"sp2 {name}"] = (a.sum, a.count, wall,
+                              bool(np.array_equal(a.sum, b.sum) and np.array_equal(a.count, b.count)))
+    scene, camera, params = phase10_scene("suzanne", 256, seed=1)
+    px, py, target, state = phase10_train_inputs(scene, camera, params, train_seed)
+    step = make_sharded_train_step(scene, params, meshes["dp2"], learning_rate=0.05,
+                                   passes_per_step=4)
+    (loss, new), wall = timed(lambda: step(state, rng.base_key(train_seed), px, py, target))
+    res["train"] = (float(loss), [m.cpu().numpy() for m in new.materials], wall)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2**30)
+    res["peaks"] = peaks
+    return res
+
+
+def phase10_scene(name, side, **kw):
+    """A catalog scene at side^2 (K=16, depth 5) with its auto epsilon."""
+    from pt_three_ways_tpu_torch.models.catalog import create_scene
+    from pt_three_ways_tpu_torch.models.scene import SceneBuilder, auto_epsilon
+    from pt_three_ways_tpu_torch.utils.render_params import RenderParams
+
+    params = RenderParams(width=side, height=side, **kw)
+    sb = SceneBuilder()
+    camera = create_scene(sb, name, params)
+    scene = sb.build()
+    return scene, camera, params.replace(epsilon=auto_epsilon(scene, camera))
+
+
+def phase10_train_inputs(scene, camera, params, seed):
+    """Pixels, a seeded uniform target and the first state (0.6x albedo) of
+    phase 10's train steps."""
+    import numpy as np
+    import torch
+
+    from pt_three_ways_tpu_torch.parallel.train import TrainState
+
+    n, w = params.width * params.height, params.width
+    px = torch.arange(n, dtype=torch.int32) % w
+    py = torch.arange(n, dtype=torch.int32) // w
+    target = torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=(n, 3)).astype(np.float32))
+    mats = scene.materials._replace(diffuse=scene.materials.diffuse * 0.6)
+    return px, py, target, TrainState(mats, camera, 0)
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--until", type=int, default=9,
-                    help="stop after this phase (default: all nine)")
+    ap.add_argument("--until", type=int, default=10,
+                    help="stop after this phase (default: all ten)")
     ap.add_argument("--crossover", help="after the build, only phase 8's crossover table on "
                                         "these scenes (comma-separated catalog names, "
                                         "name@16:9 for a 16:9 frame), e.g. "
@@ -1688,9 +1796,9 @@ def main(argv=None) -> int:
         return hook
 
     def grads_hook(f):
-        def hook(loss, leaves):
+        def hook(*a):
             marks["b0"] = record()
-            out = f(loss, leaves)
+            out = f(*a)
             marks["b1"] = record()
             return out
         return hook
@@ -2949,8 +3057,7 @@ def main(argv=None) -> int:
             e1 = torch.cuda.Event(enable_timing=True)
             got = []
             e0.record()
-            with swapped(train, "_grads", lambda loss, leaves: got.append(
-                    grads_of(loss, leaves)) or got[-1]), \
+            with swapped(train, "_grads", lambda *a: got.append(grads_of(*a)) or got[-1]), \
                     swapped(integ, "gather_materials", gather64 if f64 else gather32):
                 loss9, _ = step9(st0, rng.base_key(7), tpx9, tpy9, target9)
             e1.record()
@@ -3018,6 +3125,357 @@ def main(argv=None) -> int:
               f"raw_to_png: {' / '.join(proc.stdout.splitlines())}; its PNG equals "
               f"to_srgb8() of the merge", flush=True)
         print(f"phase 9: {time.time() - t9:.1f} s", flush=True)
+
+    # ---- phase 10: the native host library and the mesh --------------------
+    if args.until >= 10:
+        t10 = time.time()
+        torch.cuda.empty_cache()
+        import io
+
+        from pt_three_ways_tpu_torch import cli as port_cli
+        from pt_three_ways_tpu_torch.parallel import distributed, shard
+        from pt_three_ways_tpu_torch.parallel.mesh import all_reduce, make_mesh
+        from pt_three_ways_tpu_torch.parallel.shard import render_sharded
+        from pt_three_ways_tpu_torch.parallel.train import make_sharded_train_step
+        from pt_three_ways_tpu_torch.utils import native
+        from pt_three_ways_tpu_torch.utils.framebuffer import ArrayOutput, merge
+
+        # (a) the native library: it must build and load here (no fallback)
+        if native.load() is None:
+            fail(f"the native host library did not build ({native.LIB_PATH})")
+
+        @contextlib.contextmanager
+        def no_native(off):
+            """PT3_NO_NATIVE set (the Python paths) when off, the library
+            loaded anew either way."""
+            old = os.environ.pop("PT3_NO_NATIVE", None)
+            if off:
+                os.environ["PT3_NO_NATIVE"] = "1"
+            native._LIB, native._TRIED = None, False
+            try:
+                yield
+            finally:
+                os.environ.pop("PT3_NO_NATIVE", None)
+                if old is not None:
+                    os.environ["PT3_NO_NATIVE"] = old
+                native._LIB, native._TRIED = None, False
+
+        def host_build(name):
+            """The scene's host build (catalog, builder, pack to tensors):
+            the least of two, s on the host's clock, and the scene."""
+            best = None
+            for _ in range(2):
+                t0 = time.time()
+                sb = SceneBuilder()
+                create_scene(sb, name, RenderParams(width=64, height=64))
+                scene = sb.build()
+                t = time.time() - t0
+                best = t if best is None else min(best, t)
+            return best, scene
+
+        builds = []
+        for name in ("cornell", "suzanne", "ce", "bbc-owl", "example1", "suzanne-sub3"):
+            with no_native(False):
+                t_n, s_n = host_build(name)
+            with no_native(True):
+                t_p, s_p = host_build(name)
+            flat = lambda sc: [t for part in sc for t in (part if isinstance(part, tuple)
+                                                          else (part,))]
+            if not all(torch.equal(a, b) for a, b in zip(flat(s_n), flat(s_p))):
+                fail(f"the native scene build of {name} differs from the Python one")
+            builds.append(f"{name} ({s_n.num_triangles} triangles) native {t_n * 1e3:.1f} ms, "
+                          f"Python {t_p * 1e3:.1f} ms")
+        print(f"phase 10 native library {native.LIB_PATH}: host scene builds, the least of "
+              f"two on the host's clock, bit-equal either way: " + "; ".join(builds)
+              + f" [{smi}]", flush=True)
+        raws = [os.path.join(raw_dir, "cornell.raw"), os.path.join(raw_dir, "noise.raw")]
+        first = ArrayOutput.load(raws[0])
+        noise = ArrayOutput(first.width, first.height)
+        noise.sum[:] = np.random.default_rng(10).uniform(size=noise.sum.shape)
+        noise.count[:] = 40
+        noise.save(raws[1])
+        merged = [os.path.join(raw_dir, f"merged_{k}.raw") for k in ("python", "native")]
+        t0 = time.time()
+        merge([ArrayOutput.load(r) for r in raws]).save(merged[0])
+        t_py = time.time() - t0
+        t0 = time.time()
+        native.raw_merge_native(raws, merged[1])
+        t_nat = time.time() - t0
+        if open(merged[0], "rb").read() != open(merged[1], "rb").read():
+            fail("the native .raw merge differs from the Python merge")
+        print(f"phase 10 merge of two {first.width}x{first.height} .raw files (load, add, save; "
+              f"host clock): Python {t_py * 1e3:.1f} ms, native {t_nat * 1e3:.1f} ms, bytes "
+              f"equal [{smi}]", flush=True)
+
+        # (b) a 1-rank NCCL world: the sharded render and train step against
+        # the one-device ones, bit for bit
+        distributed.initialize(f"tcp://127.0.0.1:{distributed.free_port()}", 1, 0,
+                               device="cuda")
+        mesh = make_mesh(n_devices=1)
+        for g in (mesh.dp_group, mesh.sp_group, mesh.group):  # NCCL's set-up, untimed
+            all_reduce(torch.ones(1, device=dev), g)
+        torch.cuda.synchronize()
+        backend = torch.distributed.get_backend()
+
+        def hold_main(kernel, call, n_launches):
+            """The wrapper call (a, kw) on the card against its plain version,
+            as phase 5 holds the main group's call; timed, with its bound."""
+            a, kw = call
+            pk, state0 = a[0], a[1]
+            out_k = wrappers[kernel](*a, **kw)
+            with plain(kernel):
+                pms, out_p = once_ms(lambda: wrappers[kernel](*a, **kw))
+            _, err = cmp_acc(kernel, out_k, out_p)
+            if (kernel == "K5" or pk.no_glossy) and not same_out(out_k, out_p):
+                fail(f"{kernel} on the sharded render's main launch differs from its plain "
+                     "version")
+            ms = events_ms(lambda: wrappers[kernel](*a, **kw), 3)
+            live = int(out_p[1].sum().item())
+            search = [live * full_scan_ops(pk)]
+            if pk.n_windows > 1 and pk.n_tri > 0:
+                search = [0]
+                with plain(kernel), counting_search(search):
+                    wrappers[kernel](*a, **kw)
+            b, by = bound(nbytes(state0, a[2], pk.tri_tab, pk.sph_tab, pk.tri_attr,
+                                 pk.sph_attr) + nbytes(*out_k), search[0] + live * OPS_SHADE)
+            return dict(launches=n_launches, max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=b, bound_by=by)
+
+        for tag in ("cornell-square", "suzanne"):
+            scene, camera, params = render_inputs[tag]
+            walls = {}
+            for way, fn in (("render()", lambda: render(scene, camera, params, device="cuda")),
+                            ("render_sharded", lambda: render_sharded(scene, camera, params,
+                                                                      mesh))):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.time()
+                out = fn()
+                torch.cuda.synchronize()
+                walls[way] = (time.time() - t0, out, read_counts())
+            (w_r, out_r, _), (w_s, out_s, counts10) = walls["render()"], walls["render_sharded"]
+            if not (np.array_equal(out_r.sum, out_s.sum)
+                    and np.array_equal(out_r.count, out_s.count)):
+                fail(f"the 1-rank sharded render of {tag} differs from render()")
+            # the sharded render again: every K2 launch checked, the K4/K5 calls kept
+            seen, calls = [], {"K4": {}, "K5": {}}
+            launch2 = ik._intersect_cuda
+
+            def k2_hook(*a):
+                out = launch2(*a)
+                seen.append(a if not seen else None)
+                k2_check(a)
+                return out
+
+            def keep(kernel, name, config):
+                f = getattr(mk, name)
+
+                def hook(*a, **kw):
+                    calls[kernel].setdefault(config(a, kw), (a, kw))
+                    # the launch counter is an attribute of the wrapper itself
+                    setattr(mk, name, f)
+                    try:
+                        return f(*a, **kw)
+                    finally:
+                        setattr(mk, name, hook)
+                return hook
+
+            with swapped(ik, "_intersect_cuda", k2_hook), \
+                    swapped(mk, "fused_passes", keep("K5", "fused_passes",
+                                                     lambda a, kw: a[5])), \
+                    swapped(mk, "fused_passes_krng", keep("K4", "fused_passes_krng",
+                                                          lambda a, kw: (a[7], kw.get(
+                                                              "tail_frac", 0.0)))):
+                render_sharded(scene, camera, params, mesh)
+            torch.cuda.synchronize()
+            held = []
+            if tag == "suzanne":
+                k2_report(10, "sharded", scene, seen[0], counts10["K2"], len(seen))
+            # K4 and K5 on cornell's render: K5's main call, K4's one call (the
+            # probe; suzanne's K4 calls are phase 5's, 25 s a plain run)
+            for kernel in ("K4", "K5") if tag == "cornell-square" else ():
+                if calls[kernel]:
+                    main = list(calls[kernel].values())[-1]
+                    checks[kernel]["sharded"] = hold_main(kernel, main, counts10[kernel])
+                    c = checks[kernel]["sharded"]
+                    held.append(f"{kernel} {'main' if kernel == 'K5' else 'probe'} launch "
+                                f"against its plain version max|dacc| "
+                                f"{c['max_abs_err']:.3e}, {c['ms']:.3f} ms, plain "
+                                f"{c['plain_ms']:.1f} ms, bound {c['bound_ms']:.3f} ms "
+                                f"({c['bound_by']})")
+            for k in ("K2", "K4") + (("K5",) if tag == "cornell-square" else ()):
+                if counts10[k] <= 0:
+                    fail(f"kernel {k} was not launched by the sharded {tag} render")
+            print(f"phase 10 1-rank {backend} mesh {tag} {params.width}x{params.height} spp "
+                  f"{params.samples_per_pixel}: render_sharded {w_s:.3f} s, render() "
+                  f"{w_r:.3f} s, sum and count bit-equal; launches {counts10}; every K2 "
+                  f"launch ({len(seen)}) bit-equal to its plain version; "
+                  + "; ".join(held) + f" [{smi}]", flush=True)
+            del walls, out_r, out_s, calls, seen
+        torch.cuda.empty_cache()
+        # the 1-rank regenerating train step against mesh=None, bit for bit,
+        # with PyTorch's deterministic algorithms (the backward of the camera
+        # stage's indexed material loads, an accumulating index_put_, is not
+        # deterministic on CUDA otherwise); mesh=None runs twice to show
+        # that the reference itself repeats bit for bit
+        rscene, rcam, rparams = phase10_scene("suzanne", 512, seed=1)
+        rin = phase10_train_inputs(rscene, rcam, rparams, 7)
+        steps = {}
+        import torch.utils.deterministic as det
+
+        fill = det.fill_uninitialized_memory
+        det.fill_uninitialized_memory = False  # leave torch.empty as it is
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name, m in (("mesh", mesh), ("one device", None), ("one device again", None)):
+                step = make_sharded_train_step(rscene, rparams, m, learning_rate=0.05,
+                                               passes_per_step=S_REGEN)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                loss, new = step(rin[3], rng.base_key(7), *rin[:3])
+                torch.cuda.synchronize()
+                steps[name] = (time.time() - t0, float(loss),
+                               [x.detach() for x in new.materials],
+                               torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            det.fill_uninitialized_memory = fill
+        (w_m, l_m, m_m, p_m), (w_o, l_o, m_o, p_o) = steps["mesh"], steps["one device"]
+        same = lambda x, y: x[1] == y[1] and all(torch.equal(a, b) for a, b in zip(x[2], y[2]))
+        repeats = same(steps["one device"], steps["one device again"])
+        if not same(steps["mesh"], steps["one device"]):
+            fail(f"the 1-rank regen train step differs from mesh=None: loss {l_m} vs {l_o} "
+                 f"(mesh=None repeats itself bit for bit: {repeats})")
+        print(f"phase 10 1-rank {backend} mesh regen train step suzanne 512^2 K=16 depth 5 "
+              f"S={S_REGEN} (deterministic algorithms): loss {l_m:.9e} and new materials "
+              f"bit-equal to mesh=None (which repeats bit for bit: {repeats}); "
+              f"{w_m * 1e3:.1f} ms (mesh) vs {w_o * 1e3:.1f} ms, peak {p_m:.2f} vs {p_o:.2f} "
+              f"GiB [{smi}]", flush=True)
+        del steps, m_m, m_o, rin
+        distributed.shutdown()
+        torch.cuda.empty_cache()
+
+        # (c) two ranks sharing the one card over gloo
+        t0 = time.time()
+        two = distributed.spawn(phase10_ranks, 2, 11, device="cuda:0", backend="gloo",
+                                timeout=600)
+        t_spawn = time.time() - t0
+        lines = []
+        for name in ("cornell", "suzanne"):
+            scene, camera, params = phase10_scene(name, 256, samples_per_pixel=16, seed=1)
+            fixed = params.replace(autotune=False, passes_per_dispatch=8)
+            t0 = time.time()
+            ref = render(scene, camera, fixed, device="cuda")
+            w_ref = time.time() - t0
+            s2, c2, w2 = two[f"dp2 {name}"]
+            if not np.array_equal(c2, ref.count) or not np.allclose(s2, ref.sum, rtol=1e-6,
+                                                                      atol=0.0):
+                fail(f"dp=2 {name} differs from render() beyond rtol 1e-6: max rel "
+                     f"{np.max(np.abs(s2 - ref.sum) / np.maximum(np.abs(ref.sum), 1e-30))}")
+            rel = float(np.max(np.abs(s2 - ref.sum) / np.maximum(np.abs(ref.sum), 1e-30)))
+            t0 = time.time()
+            ref = render(scene, camera, params, device="cuda")
+            w_def = time.time() - t0
+            sa, ca, wa, same = two[f"sp2 {name}"]
+            blocks = lambda x, c: (x / c[..., None]).reshape(4, 64, 4, 64, 3).mean(axis=(1, 3))
+            if not same:
+                fail(f"two sp=2 renders of {name} differ")
+            if not np.allclose(blocks(sa, ca), blocks(ref.sum, ref.count), rtol=2e-2,
+                               atol=2e-3):
+                fail(f"the sp=2 {name} render's 4x4 block means differ from render()'s")
+            lines.append(f"{name}: dp=2 {w2:.3f} s (max rel {rel:.2e} to render() "
+                         f"{w_ref:.3f} s), sp=2 {wa:.3f} s (render() {w_def:.3f} s; bit-equal "
+                         f"twice, block means within rtol 2e-2/atol 2e-3)")
+        tscene2, tcam2, tparams2 = phase10_scene("suzanne", 256, seed=1)
+        tin = phase10_train_inputs(tscene2, tcam2, tparams2, 11)
+        step = make_sharded_train_step(tscene2, tparams2, learning_rate=0.05,
+                                       passes_per_step=8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        loss1, new1 = step(tin[3], rng.base_key(11), *tin[:3])
+        torch.cuda.synchronize()
+        w_1, p_1 = time.time() - t0, torch.cuda.max_memory_allocated() / 2**30
+        loss2, mats2, w_t = two["train"]
+        if not np.isclose(loss2, float(loss1), rtol=1e-5, atol=0.0):
+            fail(f"the dp=2 train step's loss {loss2} vs the one-device step's {float(loss1)}")
+        worst = {}
+        for f, a, b, o in zip(new1.materials._fields, mats2, new1.materials, tin[3].materials):
+            b, o = b.cpu().numpy(), o.cpu().numpy()
+            tol = 1e-3 if f == "ior" else 1e-4
+            scale = max(np.abs(b - o).max(), 1e-6)
+            # an update below two float32 spacings of the value is not resolved
+            atol = np.maximum(tol * scale, 2 * np.spacing(np.abs(o)))
+            d = np.abs((a - o) - (b - o))
+            if not (d <= atol).all():
+                fail(f"the dp=2 train step's {f} update differs from the one-device step's")
+            worst[f] = float((d / atol).max())
+        print(f"phase 10 two gloo ranks on one card (collectives staged through host memory; "
+              f"spawned and joined in {t_spawn:.1f} s), 256^2 spp 16 K=16 depth 5: "
+              + "; ".join(lines) + f"; dp=2 regen train step suzanne 256^2 S=4 per rank: loss "
+              f"{loss2:.9e} vs one device S=8 {float(loss1):.9e}, updates within "
+              f"{max(worst.values()):.3f} of the gate, {w_t * 1e3:.1f} ms (one device "
+              f"{w_1 * 1e3:.1f} ms); peak device memory per rank over its whole run "
+              f"{[round(p, 2) for p in two['peaks']]} GiB (the one-device step {p_1:.2f}) [{smi}]",
+              flush=True)
+        del two, new1, tin
+
+        # (d) the CLI
+        err = io.StringIO()
+        out_png = os.path.join(raw_dir, "devices2.png")
+        with contextlib.redirect_stderr(err):
+            rc = port_cli.main(["-w", "64", "-h", "64", "--spp", "1", "--devices", "2",
+                                out_png])
+        if rc != 1 or "needs 2 CUDA cards" not in err.getvalue():
+            fail(f"cli --devices 2 on one card: rc {rc}, {err.getvalue()!r}")
+        # the CLI's sharded branch in a 1-rank torchrun-style world (its
+        # variables set here): it joins the world, makes the mesh and renders
+        # through render_sharded, rank 0 writing; against the plain run
+        raw1, raw0 = (os.path.join(raw_dir, f"cli_devices{k}.raw") for k in (1, 0))
+        argv = ["-w", "256", "-h", "256", "--spp", "2", "--seed", "1", "--save-every", "0",
+                "--raw"]
+        world = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(distributed.free_port()))
+        meshes, backends = [], []
+        sharded_of = shard.render_sharded
+
+        def sharded_seen(*a, **kw):
+            meshes.append(a[3])
+            backends.append(torch.distributed.get_backend())
+            return sharded_of(*a, **kw)
+
+        saved_env = {k: os.environ.get(k) for k in world}
+        os.environ.update(world)
+        reset_counts()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    swapped(shard, "render_sharded", sharded_seen):
+                rc1 = port_cli.main([*argv, "--devices", "1", raw1])
+            torch.cuda.synchronize()
+        finally:
+            counts_cli = read_counts()
+            distributed.shutdown()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc0 = port_cli.main([*argv, raw0])
+        if rc1 != 0 or len(meshes) != 1 or meshes[0].dp_group is None:
+            fail(f"cli --devices 1 in a 1-rank world (rc {rc1}) did not render through "
+                 f"render_sharded on a mesh with groups ({meshes})")
+        if counts_cli["K2"] <= 0 or counts_cli["K4"] + counts_cli["K5"] <= 0:
+            fail(f"the CLI's sharded render launched no K2 or no K4/K5: {counts_cli}")
+        if rc0 != 0 or open(raw1, "rb").read() != open(raw0, "rb").read():
+            fail(f"the CLI's sharded branch (rc {rc1}) does not write the plain run's "
+                 f"(rc {rc0}) .raw")
+        print(f"phase 10 CLI: --devices 2 on one card exits 1 ({err.getvalue().strip()}); "
+              f"--devices 1 in a 1-rank {backends[0]} world (RANK/WORLD_SIZE/MASTER_* set) "
+              f"renders through render_sharded on a {meshes[0].shape} mesh, launches "
+              f"{counts_cli}, and rank 0 writes the plain run's .raw byte for byte", flush=True)
+        print(f"phase 10: {time.time() - t10:.1f} s", flush=True)
 
     # one row per kernel: the numbers of the path that carries it (the
     # CLI-default cornell render for K2 and K4, square cornell for K5, the

@@ -5,7 +5,13 @@ The same flags, defaults and output lines as the JAX package's CLI, plus
 ``--device {cuda,cpu}`` (default ``cuda``; a CUDA run without a card fails).
 Every way (dod/wavefront, oo/megakernel, fp/functional) and ``--scene
 smallpt`` run on either device; ``--dtype float64`` runs on the CPU only.
-``--devices`` above 1 is not ported yet.
+``--devices N --dp D`` renders over a (dp, sp) mesh of N ranks, one process
+per device (parallel/shard.render_sharded): inside a torchrun world it
+joins that world (its first N ranks make the mesh, ``--devices 1`` too),
+otherwise it starts N local ranks itself
+(parallel/distributed.spawn; NCCL between cards, gloo with ``--device
+cpu``); rank 0 prints and writes. With ``--device cuda`` fewer than N cards
+is an error. ``--scene smallpt`` runs on one device, as in the JAX package.
 Tuning (rng mode, passes per launch, feedback sort, tail compaction) is the
 runtime autotune's job on the card (models/render.autotune_decisions).
 ``-h`` means HEIGHT like the reference; use --help for help.
@@ -17,6 +23,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import random
 import sys
 import time
@@ -60,8 +67,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, metavar="CKPT.raw",
                    help="resume from a .raw checkpoint of the same config")
     p.add_argument("--devices", type=int, default=1,
-                   help="number of devices (only 1 is ported)")
-    p.add_argument("--dp", type=int, default=1, help="sample-parallel replicas")
+                   help="shard the render over N devices, one process each "
+                        "(1 = single device)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="sample-parallel replicas within --devices")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="render device (default cuda)")
     p.add_argument("output", help="output filename")
@@ -76,13 +85,40 @@ def main(argv=None) -> int:
     if args.way not in WAYS:
         print(f"Unknown way {args.way}", file=sys.stderr)
         return 1
-    if args.devices > 1:
-        print("--devices > 1 is not yet ported", file=sys.stderr)
-        return 1
     if args.dtype == "float64" and args.device != "cpu":
         print("--dtype float64 runs on the CPU only: add --device cpu", file=sys.stderr)
         return 1
+    if args.devices < 1 or args.dp < 1 or args.devices % args.dp:
+        print(f"--dp {args.dp} does not divide --devices {args.devices}", file=sys.stderr)
+        return 1
+    if args.scene != "smallpt" and _in_torchrun():
+        # the world's launcher placed the processes: its first --devices
+        # ranks make the mesh, any others wait
+        return _run(args, sharded=True)
+    if args.devices > 1 and args.scene != "smallpt":
+        import torch
 
+        if args.device == "cuda":
+            cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if cards < args.devices:
+                print(f"--devices {args.devices} needs {args.devices} CUDA cards, one process "
+                      f"each, but this machine has {cards}", file=sys.stderr)
+                return 1
+        from .parallel import distributed
+
+        if args.seed == 0:  # every rank renders the same seed
+            args.seed = random.SystemRandom().randrange(1, 2**31)
+        return distributed.spawn(_run, args.devices, args, True, device=args.device)
+    return _run(args)
+
+
+def _in_torchrun() -> bool:
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
+
+
+def _run(args, sharded: bool = False) -> int:
+    """The render on this process: the whole of it, or this rank's part of
+    the sharded one (rank 0 prints and writes)."""
     import torch
 
     from .models.catalog import EPSILON_HINT, create_scene, hint_key
@@ -92,7 +128,26 @@ def main(argv=None) -> int:
     from .utils.png import write_png
     from .utils.render_params import RenderParams
 
-    device = resolve_device(args.device)
+    mesh = None
+    if sharded:
+        import torch.distributed as dist
+
+        from .parallel import distributed
+        from .parallel.mesh import make_mesh
+
+        if not dist.is_initialized():
+            distributed.initialize(device=args.device)
+        mesh = make_mesh(n_devices=args.devices, dp=args.dp, device=args.device)
+        if args.seed == 0:  # a torchrun world: rank 0 draws the seed for all
+            pick = [random.SystemRandom().randrange(1, 2**31)]
+            dist.broadcast_object_list(pick, src=0)
+            args.seed = pick[0]
+        if not mesh.member:
+            return 0
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    quiet = mesh is not None and mesh.rank != 0
     seed = args.seed if args.seed != 0 else random.SystemRandom().randrange(1, 2**31)
 
     if args.scene == "smallpt":
@@ -134,7 +189,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(e, file=sys.stderr)
         return 1
-    print(stats.report())
+    if not quiet:
+        print(stats.report())
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     builder = SceneBuilder()
@@ -150,21 +206,20 @@ def main(argv=None) -> int:
             write_png(args.output, output.to_srgb8())
 
     start = time.time()
-    output = render(
-        scene,
-        camera,
-        params,
-        way=args.way,
-        update_fn=save,
-        save_every_seconds=float(args.save_every),
-        progress=args.progress,
-        tri_chunk=args.tri_chunk,
-        resume_from=args.resume,
-        device=device,
-    )
+    kw = dict(way=args.way, update_fn=save, save_every_seconds=float(args.save_every),
+              progress=args.progress, tri_chunk=args.tri_chunk, resume_from=args.resume,
+              device=device)
+    if mesh is not None:
+        from .parallel.shard import render_sharded
+
+        output = render_sharded(scene, camera, params, mesh, **kw)
+    else:
+        output = render(scene, camera, params, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - start
+    if quiet:
+        return 0
     save(output)
 
     total_samples = output.total_samples()

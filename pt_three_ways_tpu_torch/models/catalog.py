@@ -7,6 +7,8 @@ reference's templated createScene dispatch (main.cpp:291-309).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -56,9 +58,24 @@ def add_cube(builder, low, high, material: MaterialSpec) -> None:
 
 
 def _load_obj(builder, filename: str) -> None:
-    """The Python OBJ/MTL path (the JAX package's native bulk parser builds
-    the identical scene)."""
-    opener = DirRelativeOpener(scenes_dir())
+    sdir = scenes_dir()
+    # Native bulk ingest (csrc/pt3native.cpp): the same scene as the Python
+    # loader (errors included), taken when the builder supports SoA ingest.
+    # PT3_NATIVE_OBJ=0 forces the Python parser alone (PT3_NO_NATIVE=1
+    # forces every Python path): the scene's other native step, build()'s
+    # Morton order, stays as it is, so a comparison of the two parsers'
+    # scenes sees the parsers and nothing else.
+    if os.environ.get("PT3_NATIVE_OBJ", "1") != "0" and hasattr(
+        builder, "add_triangles_soa"
+    ):
+        from ..utils.native import parse_obj_native
+
+        parsed = parse_obj_native(os.path.join(sdir, filename), sdir)
+        if parsed is not None:
+            verts, mat_ids, mats = parsed
+            builder.add_triangles_soa(verts, mats, mat_ids)
+            return
+    opener = DirRelativeOpener(sdir)
     with opener.open(filename) as stream:
         load_obj_file(stream, opener, builder)
 

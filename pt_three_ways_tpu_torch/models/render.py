@@ -223,6 +223,31 @@ def render(
     ``--save-every`` writes). On resume the autotune probe group is traced
     again (radiance discarded) so the same decisions are reached.
     """
+    return render_rounds(scene, camera, params, None, way, tri_chunk, update_fn,
+                         save_every_seconds, progress, resume_from, device)
+
+
+def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk: int,
+                  update_fn, save_every_seconds: float, progress: bool,
+                  resume_from: Optional[str], device) -> ArrayOutput:
+    """The tile and round loop of render() (``mesh=None``) and of
+    parallel/shard.render_sharded (this rank's ``parallel/mesh.Mesh``):
+    resume, the runtime autotune, memory tiling, the feedback sort's key
+    chain and throttled checkpoints (on the mesh's first rank).
+
+    A round takes a block of up to S samples on each of the dp replicas
+    (the last round masks the inactive ones, so the output holds exactly
+    spp samples); each rank traces its sp shard of every tile (the tile's
+    rays padded to a multiple of sp, the padding clamped to the last row)
+    and gathers the shards over sp. The pass fns are
+    ``make_pass_fn`` without a mesh and ``parallel/shard
+    .make_sharded_pass_fn`` on one: they differ in a single-pass launch,
+    which the mesh traces by the way's pass, as the JAX package's sharded
+    render does. Without a mesh the autotune runs on the card only, as the
+    JAX package's render() runs it on the TPU only; on a mesh it also runs
+    on the CPU with the kernel intersector (the kernels' plain versions),
+    as the JAX package's sharded render does in interpret mode. The CPU
+    tests hold each against its JAX counterpart."""
     from .integrator import resolve_rng_mode
     from ..ops.megakernel import S_COUNT_MAX, PackedSceneStream
 
@@ -233,7 +258,9 @@ def render(
     scene = scene.to(dev)
     camera = camera.to(dev)
     width, height = params.width, params.height
+    spp = params.samples_per_pixel
     start_sample = 0
+    out = ArrayOutput(width, height)
     if resume_from is not None:
         prev = ArrayOutput.load(resume_from)
         if (prev.width, prev.height) != (width, height):
@@ -248,73 +275,112 @@ def render(
                 "written at pass boundaries so this is not a pt3 checkpoint"
             )
         start_sample = int(prev.count.min())
-    out = ArrayOutput(width, height)
-    if resume_from is not None:
         out += prev
 
+    if mesh is None:
+        dp, sp, sp_idx = 1, 1, 0
+
+        def gather(t):
+            return t
+    else:
+        from ..parallel.mesh import all_gather
+
+        dp, sp, sp_idx = mesh.shape["dp"], mesh.shape["sp"], mesh.sp_idx
+
+        def gather(t):
+            return all_gather(t, mesh.sp_group)
+    leader = sp_idx == 0 and (mesh is None or mesh.dp_idx == 0)
     regen = uses_regen(params, way, dev)
     on_cuda = dev.type == "cuda"
+
+    def cap(p, s):
+        """A block size capped by the samples a replica has and, for the
+        in-kernel RNG, by its per-lane liveness mask."""
+        s = min(s, max(spp // dp, 1))
+        if regen and resolve_rng_mode(p) == "kernel":
+            s = min(s, S_COUNT_MAX)
+        return s
+
     # 8 passes per launch on the card (also the autotune probe's group
     # size); 1 on the CPU like the JAX package's CPU branch. An explicit
     # params.passes_per_dispatch pins the group size.
-    ppd = params.passes_per_dispatch or (8 if on_cuda else 1)
-    if regen and resolve_rng_mode(params) == "kernel":
-        ppd = min(ppd, S_COUNT_MAX)
+    S = cap(params, params.passes_per_dispatch or (8 if on_cuda else 1))
+    # The runtime autotune: the first round doubles as the probe; its
+    # per-lane bounce counts (summed over dp) drive autotune_decisions, and
+    # the remaining rounds run the derived (rng_mode, S, sort, tail).
     autotune = (
         params.autotune
-        and on_cuda
         and regen
+        and (on_cuda or (mesh is not None and params.intersector == "kernel"))
         and params.rng_mode == "auto"
         and not params.regen_feedback_sort
         and params.regen_tail_frac == 0.0
-        and params.samples_per_pixel > max(8, params.passes_per_dispatch)
+        and spp > max(8, params.passes_per_dispatch)
+        and spp // dp > 1
     )
-    probe_n = min(ppd, params.samples_per_pixel)
-    pass_fns = {}
+    feedback = regen and (params.regen_feedback_sort or autotune)
     cur_params = params
-    packed = None
-    if regen:
-        # K4's and K5's culled searches (and K6) read the window boxes
-        packed = PackedSceneStream(scene)
+    if autotune:
+        if not params.passes_per_dispatch:
+            # the probe needs a multi-pass block for its lane counts
+            S = cap(params, max(S, 8))
+        # the probe returns lane counts: the feedback fn with a zero
+        # (identity) sort key
+        cur_params = params.replace(regen_feedback_sort=True)
+    probe_n = S
+    pass_fns = {}
+    # K4's and K5's culled searches (and K6) read the window boxes
+    packed = PackedSceneStream(scene) if regen else None
 
     def get_fn(n):
         if n not in pass_fns:
-            pass_fns[n] = make_pass_fn(scene, camera, cur_params, way, tri_chunk,
-                                       n, packed=packed)
+            if mesh is None:
+                pass_fns[n] = make_pass_fn(scene, camera, cur_params, way, tri_chunk, n,
+                                           packed=packed)
+            else:
+                from ..parallel.shard import make_sharded_pass_fn
+
+                pass_fns[n] = make_sharded_pass_fn(
+                    scene, camera, cur_params, mesh, way, tri_chunk, n, regen=regen,
+                    feedback_sort=feedback, packed=packed)
         return pass_fns[n]
 
     # with autotune the final group size may grow to 64: size the tile rows
-    # for the worst case so tiling never changes mid-render
-    rows_per_tile = _tile_rows(params, 64 if autotune else ppd, regen=regen,
-                               device=dev)
+    # for the worst case so tiling never changes mid-render (on a mesh as
+    # if unsharded: each device holds 1/sp of a tile)
+    rows_per_tile = _tile_rows(params, 64 if autotune else S, regen=regen, device=dev)
     n_tiles = math.ceil(height / rows_per_tile)
-    xs = torch.arange(width, dtype=torch.int32, device=dev).repeat(rows_per_tile)
-    base_ys = torch.arange(rows_per_tile, dtype=torch.int32,
-                           device=dev).repeat_interleave(width)
+    shard = -(-rows_per_tile * width // sp)
+    flat = torch.arange(sp_idx * shard, (sp_idx + 1) * shard, dtype=torch.int32, device=dev)
+    xs = flat % width
+    base_ys = torch.clamp(flat // width, max=rows_per_tile - 1)
 
     base_key = rng.base_key(params.seed)
-    total = params.samples_per_pixel * n_tiles
-    prog = Progressifier(total) if progress else None
+    prog = Progressifier(spp * n_tiles) if progress and leader else None
     next_save = time.monotonic() + save_every_seconds
-
-    spp = params.samples_per_pixel
     done = start_sample * n_tiles
     sample = start_sample
-    feedback = regen and (params.regen_feedback_sort or autotune)
-    if autotune:
-        # the probe group must return lane counts: run it through the
-        # feedback-fn shape with a zero (identity) sort key
-        cur_params = params.replace(regen_feedback_sort=True)
     k_sub = max(params.first_bounce_samples, 1)
-    tile_counts = {}
+    # the feedback sort's per-lane keys, this rank's shard of each tile's,
+    # chained on the device in unsorted lane order
+    tile_keys = {}
+
+    def tile_py(tile):
+        return torch.clamp(base_ys + tile * rows_per_tile, max=height - 1)
+
+    def zero_key():
+        return torch.zeros((shard * k_sub,), dtype=torch.int32, device=dev)
 
     def apply_tuning():
-        nonlocal cur_params, ppd, feedback
-        counts = np.concatenate(
-            [tile_counts[t].cpu().numpy() for t in sorted(tile_counts)]
-        )
+        """Decides from the probe's counts of every tile, gathered over sp
+        in the global lane order (the decision bins lanes in tiles of
+        AUTOTUNE_TILE, so every rank must see the same order), and rebuilds
+        the pass fns."""
+        nonlocal cur_params, S, feedback
+        counts = np.concatenate([gather(tile_keys[t]).cpu().numpy()
+                                 for t in sorted(tile_keys)])
         dec = autotune_decisions(
-            counts, probe_n, max(params.max_depth - 1, 0),
+            counts, probe_n * dp, max(params.max_depth - 1, 0),
             scene.num_triangles, scene.num_spheres,
         )
         cur_params = params.replace(
@@ -323,26 +389,18 @@ def render(
             regen_tail_frac=dec["tail_frac"],
         )
         if not params.passes_per_dispatch:
-            ppd = dec["passes_per_dispatch"]
-            if resolve_rng_mode(cur_params) == "kernel":
-                ppd = min(ppd, S_COUNT_MAX)
+            S = cap(cur_params, dec["passes_per_dispatch"])
         pass_fns.clear()
         feedback = regen and dec["feedback_sort"]
         if not feedback:
-            tile_counts.clear()
-
-    def tile_px(tile):
-        return xs, base_ys + tile * rows_per_tile
+            tile_keys.clear()
 
     if autotune and start_sample > 0:
-        # resumed run: trace the original first group again (radiance
-        # discarded) so the tuning decisions match the uninterrupted run
+        # resumed run: trace the original probe round again (radiance
+        # discarded) so the decisions match the uninterrupted run's
         probe_fn = get_fn(probe_n)
         for tile in range(n_tiles):
-            px, py = tile_px(tile)
-            zk = torch.zeros((px.shape[0] * k_sub,), dtype=torch.int32, device=dev)
-            _, cnts = probe_fn(base_key, 0, tile, px, py, zk)
-            tile_counts[tile] = cnts
+            _, tile_keys[tile] = probe_fn(base_key, 0, tile, xs, tile_py(tile), zero_key())
         apply_tuning()
         autotune = False
 
@@ -354,41 +412,46 @@ def render(
         nonlocal pending, done
         if pending is None:
             return
-        tile, n, radiance = pending
+        tile, n_active, radiance = pending
         pending = None
         y0 = tile * rows_per_tile
         rows = min(rows_per_tile, height - y0)
-        rad = radiance.detach().cpu().numpy().astype(np.float64)
+        rad = radiance.detach().cpu().numpy().astype(np.float64)[: rows_per_tile * width]
         out.sum[y0:y0 + rows] += rad.reshape(rows_per_tile, width, 3)[:rows]
-        out.count[y0:y0 + rows] += n
-        done += n
+        out.count[y0:y0 + rows] += n_active
+        done += n_active
         if prog:
             prog.update(done)
 
     while sample < spp:
-        n = min(ppd, spp - sample)
+        remaining = spp - sample
+        if remaining >= dp:
+            # full blocks only: every replica renders exactly n samples
+            n = min(S, remaining // dp)
+            n_active = dp * n
+        else:
+            # trailing remainder: masked single-pass launches
+            n = 1
+            n_active = remaining
         fn = get_fn(n)
         for tile in range(n_tiles):
-            px, py = tile_px(tile)
+            py = tile_py(tile)
             if feedback:
-                key_in = tile_counts.get(tile)
-                if key_in is None:
-                    key_in = torch.zeros((px.shape[0] * k_sub,), dtype=torch.int32,
-                                         device=dev)
-                radiance, new_counts = fn(base_key, sample, tile, px, py, key_in)
-                # counts chain on the device, in unsorted lane order
-                tile_counts[tile] = new_counts
+                key_in = tile_keys.get(tile)
+                radiance, tile_keys[tile] = fn(base_key, sample, tile, xs, py,
+                                               zero_key() if key_in is None else key_in)
             else:
-                radiance = fn(base_key, sample, tile, px, py)
+                radiance = fn(base_key, sample, tile, xs, py)
+            radiance = gather(radiance)
             drain()
-            pending = (tile, n, radiance)
-        sample += n
+            pending = (tile, n_active, radiance)
+        sample += n_active
         if autotune:
             apply_tuning()
             autotune = False
         # checkpoint only at pass-group boundaries: every tile is at the same
         # sample count, so a later --resume continues bit-identically
-        if update_fn and save_every_seconds > 0:
+        if update_fn and save_every_seconds > 0 and leader:
             now = time.monotonic()
             if now > next_save:
                 drain()

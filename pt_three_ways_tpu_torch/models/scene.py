@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.camera import Camera
-from ..utils.morton import morton_order
+from ..utils.native import morton_order
 from .materials import MaterialInterner, MaterialSpec, MaterialTable
 
 
@@ -122,6 +122,38 @@ class SceneBuilder:
         self._tri_normals.append(np.asarray(normals, dtype=np.float64))
         self._tri_mats.append(self._materials.intern(material))
 
+    def add_triangles_soa(self, verts, mat_rows, mat_ids) -> None:
+        """Bulk triangle ingest from the native OBJ parser
+        (utils/native.parse_obj_native): verts [n, 3, 3] f64, mat_rows
+        [m, 9] = (emission 3, diffuse 3, ior, reflectivity, cone), mat_ids
+        [n] int32 indices into mat_rows. The same scene as n add_triangle
+        calls (face normals, material interning) without the Python loop."""
+        verts = np.asarray(verts, np.float64)
+        n = verts.shape[0]
+        if n == 0:
+            return
+        e1 = verts[:, 1] - verts[:, 0]
+        e2 = verts[:, 2] - verts[:, 0]
+        nrm = np.cross(e1, e2)
+        ln = np.linalg.norm(nrm, axis=1, keepdims=True)
+        nrm = np.where(ln > 0, nrm / np.maximum(ln, 1e-300), (0.0, 0.0, 1.0))
+        normals = np.repeat(nrm[:, None, :], 3, axis=1)  # [n, 3, 3]
+        local = [
+            self._materials.intern(MaterialSpec(
+                emission=(r[0], r[1], r[2]),
+                diffuse=(r[3], r[4], r[5]),
+                index_of_refraction=float(r[6]),
+                reflectivity=float(r[7]),
+                reflection_cone_angle_radians=float(r[8]),
+            ))
+            for r in np.asarray(mat_rows, np.float64)
+        ]
+        remap = (np.asarray(local, np.int32)[np.asarray(mat_ids, np.int32)]
+                 if local else np.zeros(n, np.int32))
+        self._tri_verts.extend(verts)
+        self._tri_normals.extend(normals)
+        self._tri_mats.extend(remap.tolist())
+
     def add_sphere(self, centre, radius: float, material: MaterialSpec):
         self._sph_centres.append(np.asarray(centre, dtype=np.float64).reshape(3))
         self._sph_radii.append(float(radius))
@@ -151,9 +183,10 @@ class SceneBuilder:
             normals = np.stack(self._tri_normals)
             tri_mats = np.asarray(self._tri_mats, dtype=np.int32)
             if morton and len(self._tri_verts) > 64:
-                # Spatial (Morton) ordering so consecutive triangle chunks
-                # are compact in space; oversized triangles (backdrop quads)
-                # go at the end so they don't inflate a chunk's box.
+                # Spatial (Morton) ordering (native, or its Python form) so
+                # consecutive triangle chunks are compact in space; oversized
+                # triangles (backdrop quads) go at the end so they don't
+                # inflate a chunk's box.
                 diag = np.linalg.norm(
                     verts.max(axis=1) - verts.min(axis=1), axis=1
                 )

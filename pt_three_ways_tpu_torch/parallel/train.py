@@ -1,13 +1,23 @@
 """Differentiable rendering: the inverse-rendering training step.
 
-The port of the JAX package's ``parallel/train.py`` for ONE device: pixel
-gradients w.r.t. the material table (emission, diffuse albedo, ior,
-reflectivity, cone angle) and, on request, the camera, by path-replay
-backprop, then one SGD update. The JAX step is a jitted ``shard_map`` over a
-(dp, sp) mesh; on a 1x1 mesh that is: the key folded twice with index 0
-(``tile_key(tile_key(key, dp_idx), sp_idx)``), the estimate equal to the
-pass's radiance, and the loss the global mean squared error. Meshes with
-more devices are not ported yet.
+The port of the JAX package's ``parallel/train.py``: pixel gradients
+w.r.t. the material table (emission, diffuse albedo, ior, reflectivity,
+cone angle) and, on request, the camera, by path-replay backprop, then one
+SGD update. The JAX step is a jitted ``shard_map`` over a (dp, sp) mesh.
+
+On a mesh (``parallel/mesh.make_mesh``, one process per device; ``mesh=None``
+is the one-device 1x1 mesh, ``parallel/mesh.one_device_mesh``, whose
+collectives are the identity) each rank traces block ``sp_idx`` of the
+pixels under its replica's key ``tile_key(tile_key(key, dp_idx), sp_idx)``
+(or, on the regenerating path, its replica's block of samples); the
+estimate is the dp all-reduce of the radiance over ``dp *
+passes_per_step``, the loss the sp all-reduce of the squared error over
+the element count. Each rank backpropagates its own radiance with the
+cotangent d loss / d radiance (``2 (estimate - target) / (N dp
+passes_per_step)``, detached, formed in the order autograd forms it from
+the mean squared error on one device), and the parameter gradients are
+summed over the mesh: the gradient of the JAX step's ``value_and_grad``
+through its ``shard_map``. Every rank applies the same update.
 
 The forwards, as in the JAX package:
 
@@ -27,8 +37,8 @@ The forwards, as in the JAX package:
     by autograd, the winner distances through K2's VJP; ``params.remat``
     recomputes each of ``trace_pass``'s bounces in the backward.
 
-What is ported here: one device, ``way=``, ``fused=``, ``passes_per_step``,
-``differentiate_camera`` and ``remat``.
+Everything of the JAX step is ported: meshes, ``way=``, ``fused=``,
+``passes_per_step``, ``differentiate_camera`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from ..models.materials import MaterialTable
 from ..models.ways import WAYS
 from ..ops import rng
 from ..utils.render_params import RenderParams
+from .mesh import all_reduce, one_device_mesh
 
 
 FLOAT64_ON_CPU = "float64 training runs on the CPU only (pass device='cpu')"
@@ -53,16 +64,11 @@ class TrainState(NamedTuple):
     step: int
 
 
-def _mesh_devices(mesh) -> int:
-    if mesh is None:
-        return 1
-    size = getattr(mesh, "size", None)
-    return int(size() if callable(size) else size)
-
-
-def _grads(loss, leaves):
-    """d loss / d leaves (zeros for a leaf the loss does not reach)."""
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+def _grads(radiance, cot, leaves):
+    """This rank's d loss / d leaves: the radiance's vector-Jacobian
+    product with the cotangent ``cot`` (zeros for a leaf it does not
+    reach)."""
+    gs = torch.autograd.grad(radiance, leaves, grad_outputs=cot, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g for g, x in zip(gs, leaves)]
 
 
@@ -78,17 +84,25 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
     ``passes_per_step`` sample passes of the estimator under ``key``
     (more than one needs the replay path). ``way``: the pass that
     ``fused="off"`` differentiates (the replay path is ``dod``'s only).
-    ``mesh``: None (one device); a mesh of more devices is not ported
-    yet. float64 (``params.dtype``, the scene or the state) runs on the CPU
-    only: on another device it raises ValueError."""
+    ``mesh``: None (one device, the 1x1 mesh), or this rank's ``parallel/mesh.Mesh``
+    (``px``, ``py`` and ``target`` are then the global arrays, their
+    length divisible by sp; one call consumes ``dp * passes_per_step``
+    sample passes; ``device`` defaults to the mesh's). float64
+    (``params.dtype``, the scene or the state) runs on the CPU only: on
+    another device it raises ValueError."""
     from ..models.render import has_float64, resolve_device
 
-    if _mesh_devices(mesh) != 1:
-        raise NotImplementedError("not yet ported")
+    if mesh is not None:
+        if not mesh.member:
+            raise ValueError("this rank is outside the mesh")
+        if device == "cuda":
+            device = mesh.device
     on_card = torch.device(device).type != "cpu"
     if on_card and (params.dtype == "float64" or has_float64(scene)):
         raise ValueError(FLOAT64_ON_CPU)
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = one_device_mesh(dev)
     scene = scene.to(dev)
     use_replay = (
         fused == "auto"
@@ -113,26 +127,43 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
             raise ValueError("passes_per_step > 1 needs the replay path (fused='auto' "
                              "with the kernel backend)")
 
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    dp_idx, sp_idx = mesh.dp_idx, mesh.sp_idx
+
     def train_step(state: TrainState, key, px, py, target):
+        """The loss and the update from this rank's block, its gradients
+        summed over the mesh."""
         if on_card and has_float64(state.materials, state.camera):
             raise ValueError(FLOAT64_ON_CPU)
-        px, py, target = px.to(dev), py.to(dev), target.to(dev)
+        r = px.shape[0]
+        if r % sp:
+            raise ValueError(f"{r} rays do not split into sp={sp} equal blocks")
+        blk = slice(sp_idx * (r // sp), (sp_idx + 1) * (r // sp))
+        px, py, target = px[blk].to(dev), py[blk].to(dev), target[blk].to(dev)
         mats = [m.detach().to(dev).requires_grad_() for m in state.materials]
         cam = [c.detach().to(dev) for c in state.camera]
         if differentiate_camera:
             cam = [c.requires_grad_() for c in cam]
         sc = scene._replace(materials=MaterialTable(*mats))
         camera = type(state.camera)(*cam)
-        if use_regen:
-            radiance = trace_passes_replay(sc, camera, params, key, 0, 0, px, py,
-                                           passes_per_step, tri_chunk, **replay_kw)
-            estimate = radiance / passes_per_step
-        else:
-            k = rng.tile_key(rng.tile_key(key, 0), 0)
-            estimate = trace(sc, camera, params, k, px, py, tri_chunk, **replay_kw)
-        loss = torch.mean((estimate - target) ** 2)
         leaves = mats + (cam if differentiate_camera else [])
-        grads = _grads(loss, leaves)
+        if use_regen:
+            radiance = trace_passes_replay(sc, camera, params, key, dp_idx * passes_per_step,
+                                           sp_idx, px, py, passes_per_step, tri_chunk,
+                                           **replay_kw)
+        else:
+            k = rng.tile_key(rng.tile_key(key, dp_idx), sp_idx)
+            radiance = trace(sc, camera, params, k, px, py, tri_chunk, **replay_kw)
+        with torch.no_grad():
+            d = all_reduce(radiance, mesh.dp_group) / (dp * passes_per_step) - target
+            # the global mean as the sum of the equal blocks' means over sp
+            # (exactly torch.mean's value on one block)
+            loss = all_reduce(torch.mean(d ** 2) / sp, mesh.sp_group)
+            # d loss / d radiance in the order autograd forms it from
+            # mean((estimate - target) ** 2) on one device
+            inv_n = torch.ones((), dtype=d.dtype, device=d.device) / (target.numel() * sp)
+            cot = inv_n * (2.0 * d) / (dp * passes_per_step)
+        grads = [all_reduce(g, mesh.group) for g in _grads(radiance, cot, leaves)]
         with torch.no_grad():
             new_mat = MaterialTable(*(m - learning_rate * g for m, g in zip(mats, grads)))
             new_cam = type(state.camera)(*cam)

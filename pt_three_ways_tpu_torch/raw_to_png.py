@@ -2,9 +2,11 @@
 
 Loads N ``.raw`` checkpoints (the port's, the JAX package's or the C++
 reference's: the format is the same), accumulates them exactly
-(sum, count addition, ``utils/framebuffer.merge``), reports each file's and
-the average samples per pixel, and writes a PNG. It runs on the host and
-touches no device.
+(``utils/framebuffer.merge``: sum, count addition on the arrays it has
+loaded to report each file's samples per pixel), reports the average
+samples per pixel, and writes a PNG. It runs on the host and touches no
+device. ``utils/native.raw_merge_native`` writes the same bytes for a
+caller that holds only the paths.
 
 Usage: python -m pt_three_ways_tpu_torch.raw_to_png out.png in1.raw [in2.raw ...]
 """

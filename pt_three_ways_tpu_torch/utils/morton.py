@@ -1,9 +1,9 @@
 """Spatial (Morton) ordering of triangle centroids.
 
-The pure-Python form of the JAX package's ordering (its native library
-computes the same permutation); the scene builder sorts triangles with it so
-consecutive 64-row chunks are compact in space for the intersector's
-two-level box hierarchy.
+The pure-Python form of ``utils/native.morton_order`` (the native library,
+csrc/pt3native.cpp, computes the same permutation and falls back to this);
+the scene builder sorts triangles with it so consecutive 64-row chunks are
+compact in space for the intersector's two-level box hierarchy.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port stands alone: no file of pt_three_ways_tpu_torch/, and not
 chip_smoke.py, imports jax or the JAX package, and a process that imports
-the port and renders on the CPU never loads jax."""
+the port and renders on the CPU never loads jax, nor does any rank of
+``cli --devices 2 --device cpu``."""
 
 import ast
 import os
@@ -59,6 +60,29 @@ def test_port_renders_without_loading_jax(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+    # the sharded CLI's ranks are processes of their own: a stand-in jax
+    # package ahead of the real one on their path records any import of
+    # it (and fails it); the run must succeed and record none
+    for name in ("jax", "jaxlib", "pt_three_ways_tpu"):
+        fake = tmp_path / "shadow" / name
+        fake.mkdir(parents=True)
+        (fake / "__init__.py").write_text(
+            "import os\n"
+            "open(os.environ['PT3_JAX_MARK'], 'a').write(f'{os.getpid()} {__name__}\\n')\n"
+            "raise ImportError(__name__ + ' is not for the port')\n")
+    mark = tmp_path / "jax_imports.txt"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path / "shadow"), ROOT]),
+               PT3_JAX_MARK=str(mark))
+    out = tmp_path / "two.raw"
+    r = subprocess.run([sys.executable, "-m", "pt_three_ways_tpu_torch.cli", "-w", "8", "-h",
+                        "8", "--spp", "2", "--max-depth", "3", "--first-bounce-u", "2",
+                        "--first-bounce-v", "2", "--save-every", "0", "--raw", "--devices",
+                        "2", "--device", "cpu", str(out)],
+                       cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "Total samples: 128" in r.stdout
+    assert not mark.exists(), mark.read_text()
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -119,11 +119,11 @@ def test_cli_on_cpu(tmp_path, capsys):
     assert cli_main(["-w", "8", "-h", "6", "--spp", "1", "--seed", "2", "--raw",
                      "--save-every", "0", "--device", "cpu", raw]) == 0
     assert ArrayOutput.load(raw).total_samples() == 48
-    for bad in (["--devices", "2"], ["--dtype", "float64", "--device", "cuda"],
+    for bad in (["--devices", "2", "--dp", "3"], ["--dtype", "float64", "--device", "cuda"],
                 ["--scene", "nope"], ["--way", "zz"]):
         assert cli_main(["-w", "4", "-h", "4", "--device", "cpu", *bad, out]) == 1
     for ok in (["--way", "oo"], ["--way", "functional"], ["--scene", "smallpt"],
-               ["--dtype", "float64"]):
+               ["--dtype", "float64"], ["--devices", "2"]):
         assert cli_main(["-w", "4", "-h", "4", "--spp", "1", "--max-depth", "3",
                          "--save-every", "0", "--device", "cpu", *ok, out]) == 0
 

@@ -129,10 +129,10 @@ def test_train_demo_lowers_the_albedo_error():
 
 
 def test_unported_options_raise():
+    """A dp that does not divide the device count raises, as in the JAX
+    package's make_mesh (meshes themselves: tests/test_torch_sharding.py)."""
+    from pt_three_ways_tpu_torch.parallel.mesh import make_mesh
+
     _, _, _, pt, st, _, _, _ = make_pair("cornell")
-
-    class TwoDevices:
-        size = 2
-
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_sharded_train_step(st, pt, mesh=TwoDevices(), device="cpu")
+    with pytest.raises(ValueError, match="dp=2 does not divide device count 1"):
+        make_sharded_train_step(st, pt, mesh=make_mesh(dp=2, device="cpu"), device="cpu")

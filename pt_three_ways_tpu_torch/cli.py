@@ -12,6 +12,9 @@ otherwise it starts N local ranks itself
 (parallel/distributed.spawn; NCCL between cards, gloo with ``--device
 cpu``); rank 0 prints and writes. With ``--device cuda`` fewer than N cards
 is an error. ``--scene smallpt`` runs on one device, as in the JAX package.
+``--trace-out FILE.json`` builds the scene and renders under
+``torch.profiler`` with the program's spans on (utils/tracing), and writes
+the profiler's Chrome trace: spans and kernels on one timeline.
 Tuning (rng mode, passes per launch, feedback sort, tail compaction) is the
 runtime autotune's job on the card (models/render.autotune_decisions).
 ``-h`` means HEIGHT like the reference; use --help for help.
@@ -23,6 +26,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import random
 import sys
@@ -73,6 +77,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="sample-parallel replicas within --devices")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="render device (default cuda)")
+    p.add_argument("--trace-out", default=None, metavar="FILE.json",
+                   help="write a Chrome trace of the scene build and render "
+                        "(torch.profiler, with the program's spans)")
     p.add_argument("output", help="output filename")
     return p
 
@@ -110,6 +117,31 @@ def main(argv=None) -> int:
             args.seed = random.SystemRandom().randrange(1, 2**31)
         return distributed.spawn(_run, args.devices, args, True, device=args.device)
     return _run(args)
+
+
+@contextlib.contextmanager
+def _traced(path, device, write: bool):
+    """The block under ``torch.profiler`` (the card's activity too on a
+    CUDA device) with the program's spans on; its Chrome trace written to
+    ``path`` where ``write``. Without ``path``, the block alone."""
+    if path is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils import tracing
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        tracing.enable()
+        try:
+            yield
+        finally:
+            tracing.disable()
+    if write:
+        prof.export_chrome_trace(path)
 
 
 def _in_torchrun() -> bool:
@@ -192,32 +224,33 @@ def _run(args, sharded: bool = False) -> int:
     if not quiet:
         print(stats.report())
 
-    dtype = torch.float64 if args.dtype == "float64" else torch.float32
-    builder = SceneBuilder()
-    camera = create_scene(builder, args.scene, params, dtype)
-    scene = builder.build(dtype)
-    if args.epsilon is None and hint_key(args.scene) not in EPSILON_HINT:
-        params = params.replace(epsilon=auto_epsilon(scene, camera))
+    with _traced(args.trace_out, device, not quiet):
+        dtype = torch.float64 if args.dtype == "float64" else torch.float32
+        builder = SceneBuilder()
+        camera = create_scene(builder, args.scene, params, dtype)
+        scene = builder.build(dtype)
+        if args.epsilon is None and hint_key(args.scene) not in EPSILON_HINT:
+            params = params.replace(epsilon=auto_epsilon(scene, camera))
 
-    def save(output: ArrayOutput) -> None:
-        if args.raw:
-            output.save(args.output)
+        def save(output: ArrayOutput) -> None:
+            if args.raw:
+                output.save(args.output)
+            else:
+                write_png(args.output, output.to_srgb8())
+
+        start = time.time()
+        kw = dict(way=args.way, update_fn=save, save_every_seconds=float(args.save_every),
+                  progress=args.progress, tri_chunk=args.tri_chunk, resume_from=args.resume,
+                  device=device)
+        if mesh is not None:
+            from .parallel.shard import render_sharded
+
+            output = render_sharded(scene, camera, params, mesh, **kw)
         else:
-            write_png(args.output, output.to_srgb8())
-
-    start = time.time()
-    kw = dict(way=args.way, update_fn=save, save_every_seconds=float(args.save_every),
-              progress=args.progress, tri_chunk=args.tri_chunk, resume_from=args.resume,
-              device=device)
-    if mesh is not None:
-        from .parallel.shard import render_sharded
-
-        output = render_sharded(scene, camera, params, mesh, **kw)
-    else:
-        output = render(scene, camera, params, **kw)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    elapsed = time.time() - start
+            output = render(scene, camera, params, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.time() - start
     if quiet:
         return 0
     save(output)

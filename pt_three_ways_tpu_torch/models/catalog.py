@@ -14,6 +14,7 @@ import torch
 
 from .materials import MaterialSpec
 from ..ops.camera import Camera, make_camera, set_focus
+from ..utils import tracing
 from ..utils.assets import scenes_dir
 from ..utils.obj_loader import DirRelativeOpener, load_obj_file
 
@@ -364,6 +365,7 @@ def hint_key(scene_name: str) -> str:
     return scene_name
 
 
+@tracing.spanned("pt3.scene.build")
 def create_scene(builder, scene_name: str, params, dtype=torch.float32) -> Camera:
     """Dispatch (main.cpp:291-309). A ``-subN`` suffix (e.g. suzanne-sub3)
     renders the base scene with every triangle midpoint-subdivided N times

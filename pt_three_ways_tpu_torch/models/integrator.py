@@ -45,6 +45,7 @@ from ..ops.vecmath import (
     reflect,
     reflectance,
 )
+from ..utils import tracing
 from ..utils.render_params import RenderParams
 
 
@@ -137,7 +138,8 @@ def sample_direction(mat: GatheredMat, hits: Hits, dirn, u, v, spec):
 
 def _static_no_glossy(materials) -> bool:
     ca = materials.cone_angle.detach()
-    return bool(ca.numel() == 0 or float(ca.max()) < _VEPS)
+    with tracing.span("pt3.sync.glossy"):
+        return bool(ca.numel() == 0 or float(ca.max()) < _VEPS)
 
 
 class PathState(NamedTuple):
@@ -250,7 +252,8 @@ def camera_stage(scene, camera: Camera, params: RenderParams, key, px, py, tri_c
     the search by ``backend`` (``packed``: the scene's pack for K2)."""
     cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, px.shape[0]),
                          px.device, camera.centre.dtype)
-    org0, dir0 = generate_rays(camera, px, py, cam_u)
+    with tracing.span("pt3.camera.rays", px.device):
+        org0, dir0 = generate_rays(camera, px, py, cam_u)
     hits0 = intersect_scene(scene, org0, dir0, params.epsilon, tri_chunk, backend,
                             packed=packed)
     return dir0, hits0, gather_materials(scene.materials, hits0.mat_id)
@@ -318,6 +321,7 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     return torch.where(hits0.hit, hit_colour, miss_colour).T
 
 
+@tracing.spanned("pt3.camera", device=True)
 def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
                         want_unif: bool = True, packed=None):
     """Camera stage + stratified K expansion for ONE sample pass.
@@ -328,7 +332,7 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
     RNG streams as trace_pass, so the regenerating megakernel reproduces its
     estimator. ``want_unif=False`` (in-kernel RNG) skips the tables.
     ``packed``: the scene's pack for K2 (built by ``intersect_scene`` when
-    None).
+    None). Traced as ``pt3.camera``.
     """
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
@@ -458,6 +462,9 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
             )
         else:
             acc, cnts = fused_passes(packed, state0, unif, params.epsilon, nb, n_passes)
+        # after the launch's span, so that neither K4's span nor a timer
+        # around the wrapper holds the counter's reduction
+        tracing.count("k4.live_bounces", cnts)
         if sort_key is not None:
             acc = acc[:, inv]
             cnts = cnts[inv]

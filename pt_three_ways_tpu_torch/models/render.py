@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import rng
+from ..utils import tracing
 from ..utils.framebuffer import ArrayOutput
 from ..utils.progress import Progressifier
 from ..utils.render_params import RenderParams
@@ -227,6 +228,7 @@ def render(
                          save_every_seconds, progress, resume_from, device)
 
 
+@tracing.spanned("pt3.render")
 def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk: int,
                   update_fn, save_every_seconds: float, progress: bool,
                   resume_from: Optional[str], device) -> ArrayOutput:
@@ -247,7 +249,14 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
     JAX package's render() runs it on the TPU only; on a mesh it also runs
     on the CPU with the kernel intersector (the kernels' plain versions),
     as the JAX package's sharded render does in interpret mode. The CPU
-    tests hold each against its JAX counterpart."""
+    tests hold each against its JAX counterpart.
+
+    Traced (``utils/tracing``) as ``pt3.render``, the frame's root, with
+    ``pt3.render.pack`` (the scene's pack and the tiling), one
+    ``pt3.render.launch`` a (round, tile) launch, ``pt3.render.autotune``
+    and ``pt3.render.drain``; ``pt3.sync.scene`` (the scene's copy),
+    ``pt3.sync.autotune`` and ``pt3.sync.drain`` are its waits on the
+    card."""
     from .integrator import resolve_rng_mode
     from ..ops.megakernel import S_COUNT_MAX, PackedSceneStream
 
@@ -255,8 +264,9 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
                                                 or has_float64(scene, camera)):
         raise ValueError("float64 renders run on the CPU only (pass device='cpu')")
     dev = resolve_device(device)
-    scene = scene.to(dev)
-    camera = camera.to(dev)
+    with tracing.span("pt3.sync.scene"):  # copies from host memory wait for the card
+        scene = scene.to(dev)
+        camera = camera.to(dev)
     width, height = params.width, params.height
     spp = params.samples_per_pixel
     start_sample = 0
@@ -329,8 +339,6 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
         cur_params = params.replace(regen_feedback_sort=True)
     probe_n = S
     pass_fns = {}
-    # K4's and K5's culled searches (and K6) read the window boxes
-    packed = PackedSceneStream(scene) if regen else None
 
     def get_fn(n):
         if n not in pass_fns:
@@ -345,15 +353,19 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
                     feedback_sort=feedback, packed=packed)
         return pass_fns[n]
 
-    # with autotune the final group size may grow to 64: size the tile rows
-    # for the worst case so tiling never changes mid-render (on a mesh as
-    # if unsharded: each device holds 1/sp of a tile)
-    rows_per_tile = _tile_rows(params, 64 if autotune else S, regen=regen, device=dev)
-    n_tiles = math.ceil(height / rows_per_tile)
-    shard = -(-rows_per_tile * width // sp)
-    flat = torch.arange(sp_idx * shard, (sp_idx + 1) * shard, dtype=torch.int32, device=dev)
-    xs = flat % width
-    base_ys = torch.clamp(flat // width, max=rows_per_tile - 1)
+    with tracing.span("pt3.render.pack"):
+        # K4's and K5's culled searches (and K6) read the window boxes
+        packed = PackedSceneStream(scene) if regen else None
+        # with autotune the final group size may grow to 64: size the tile
+        # rows for the worst case so tiling never changes mid-render (on a
+        # mesh as if unsharded: each device holds 1/sp of a tile)
+        rows_per_tile = _tile_rows(params, 64 if autotune else S, regen=regen, device=dev)
+        n_tiles = math.ceil(height / rows_per_tile)
+        shard = -(-rows_per_tile * width // sp)
+        flat = torch.arange(sp_idx * shard, (sp_idx + 1) * shard, dtype=torch.int32,
+                            device=dev)
+        xs = flat % width
+        base_ys = torch.clamp(flat // width, max=rows_per_tile - 1)
 
     base_key = rng.base_key(params.seed)
     prog = Progressifier(spp * n_tiles) if progress and leader else None
@@ -377,30 +389,32 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
         AUTOTUNE_TILE, so every rank must see the same order), and rebuilds
         the pass fns."""
         nonlocal cur_params, S, feedback
-        counts = np.concatenate([gather(tile_keys[t]).cpu().numpy()
-                                 for t in sorted(tile_keys)])
-        dec = autotune_decisions(
-            counts, probe_n * dp, max(params.max_depth - 1, 0),
-            scene.num_triangles, scene.num_spheres,
-        )
-        cur_params = params.replace(
-            rng_mode=dec["rng_mode"],
-            regen_feedback_sort=dec["feedback_sort"],
-            regen_tail_frac=dec["tail_frac"],
-        )
-        if not params.passes_per_dispatch:
-            S = cap(cur_params, dec["passes_per_dispatch"])
-        pass_fns.clear()
-        feedback = regen and dec["feedback_sort"]
-        if not feedback:
-            tile_keys.clear()
+        with tracing.span("pt3.render.autotune"):
+            with tracing.span("pt3.sync.autotune"):
+                counts = [gather(tile_keys[t]).cpu() for t in sorted(tile_keys)]
+            dec = autotune_decisions(
+                np.concatenate([c.numpy() for c in counts]), probe_n * dp,
+                max(params.max_depth - 1, 0), scene.num_triangles, scene.num_spheres,
+            )
+            cur_params = params.replace(
+                rng_mode=dec["rng_mode"],
+                regen_feedback_sort=dec["feedback_sort"],
+                regen_tail_frac=dec["tail_frac"],
+            )
+            if not params.passes_per_dispatch:
+                S = cap(cur_params, dec["passes_per_dispatch"])
+            pass_fns.clear()
+            feedback = regen and dec["feedback_sort"]
+            if not feedback:
+                tile_keys.clear()
 
     if autotune and start_sample > 0:
         # resumed run: trace the original probe round again (radiance
         # discarded) so the decisions match the uninterrupted run's
         probe_fn = get_fn(probe_n)
         for tile in range(n_tiles):
-            _, tile_keys[tile] = probe_fn(base_key, 0, tile, xs, tile_py(tile), zero_key())
+            with tracing.span("pt3.render.launch"):
+                _, tile_keys[tile] = probe_fn(base_key, 0, tile, xs, tile_py(tile), zero_key())
         apply_tuning()
         autotune = False
 
@@ -414,11 +428,14 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
             return
         tile, n_active, radiance = pending
         pending = None
-        y0 = tile * rows_per_tile
-        rows = min(rows_per_tile, height - y0)
-        rad = radiance.detach().cpu().numpy().astype(np.float64)[: rows_per_tile * width]
-        out.sum[y0:y0 + rows] += rad.reshape(rows_per_tile, width, 3)[:rows]
-        out.count[y0:y0 + rows] += n_active
+        with tracing.span("pt3.render.drain"):
+            y0 = tile * rows_per_tile
+            rows = min(rows_per_tile, height - y0)
+            with tracing.span("pt3.sync.drain"):
+                rad = radiance.detach().cpu()
+            rad = rad.numpy().astype(np.float64)[: rows_per_tile * width]
+            out.sum[y0:y0 + rows] += rad.reshape(rows_per_tile, width, 3)[:rows]
+            out.count[y0:y0 + rows] += n_active
         done += n_active
         if prog:
             prog.update(done)
@@ -436,12 +453,13 @@ def render_rounds(scene, camera, params: RenderParams, mesh, way: str, tri_chunk
         fn = get_fn(n)
         for tile in range(n_tiles):
             py = tile_py(tile)
-            if feedback:
-                key_in = tile_keys.get(tile)
-                radiance, tile_keys[tile] = fn(base_key, sample, tile, xs, py,
-                                               zero_key() if key_in is None else key_in)
-            else:
-                radiance = fn(base_key, sample, tile, xs, py)
+            with tracing.span("pt3.render.launch"):
+                if feedback:
+                    key_in = tile_keys.get(tile)
+                    radiance, tile_keys[tile] = fn(base_key, sample, tile, xs, py,
+                                                   zero_key() if key_in is None else key_in)
+                else:
+                    radiance = fn(base_key, sample, tile, xs, py)
             radiance = gather(radiance)
             drain()
             pending = (tile, n_active, radiance)

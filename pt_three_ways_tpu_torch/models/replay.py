@@ -72,6 +72,7 @@ from ..ops.megakernel import (
     fused_passes_krng,
     regen_replay_bwd,
 )
+from ..utils import tracing
 from ..utils.render_params import RenderParams
 from .integrator import (
     GatheredMat,
@@ -216,7 +217,8 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     scene.materials, scene.environment and the camera. Needs the kernel
     backend (CUDA kernels on the card, their plain versions on the CPU).
     ``packed``: the geometry's ``PackedSceneStream`` (built here when
-    None)."""
+    None). The camera part, up to K7's chain and its uniforms included, is
+    traced as ``pt3.camera``."""
     nu = params.first_bounce_u_samples
     nv = params.first_bounce_v_samples
     k = nu * nv
@@ -229,32 +231,35 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
 
     # camera + first hit + stratified K expansion: the streams and math of
     # integrator.trace_pass (zero-throughput kill on)
-    geo = packed if packed is not None else PackedSceneStream(scene)
-    dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
-                                     geo)
-    miss_colour = scene.environment[:, None].expand(3, r0)
-    if params.preview:
-        return torch.where(hits0.hit, mat0.diffuse, miss_colour).T
+    with tracing.span("pt3.camera", dev):
+        geo = packed if packed is not None else PackedSceneStream(scene)
+        dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk,
+                                         backend, geo)
+        miss_colour = scene.environment[:, None].expand(3, r0)
+        if params.preview:
+            return torch.where(hits0.hit, mat0.diffuse, miss_colour).T
 
-    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev)
-    refl0 = effective_reflectivity(mat0, hits0, dir0)
-    spec0 = (p0 < refl0[:, None]).reshape(-1)
-    hits0x = Hits(*(_expand(f, k) for f in hits0))
-    mat0x = GatheredMat(*(_expand(f, k) for f in mat0))
-    dir1 = sample_direction(mat0x, hits0x, _expand(dir0, k), u0.reshape(-1),
-                            v0.reshape(-1), spec0)
-    beta1 = torch.where(spec0, torch.ones((3, r0 * k), device=dev), mat0x.diffuse) \
-        * branch_weight(_expand(refl0, k), spec0)
-    alive1 = hits0x.hit & torch.any(beta1 != 0.0, dim=0)
-    state0_rows = torch.cat([hits0x.pos, dir1, beta1, alive1.to(torch.float32)[None, :],
-                             torch.zeros((3, r0 * k), device=dev)], dim=0)  # [13, R*K]
+        u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev)
+        refl0 = effective_reflectivity(mat0, hits0, dir0)
+        spec0 = (p0 < refl0[:, None]).reshape(-1)
+        hits0x = Hits(*(_expand(f, k) for f in hits0))
+        mat0x = GatheredMat(*(_expand(f, k) for f in mat0))
+        dir1 = sample_direction(mat0x, hits0x, _expand(dir0, k), u0.reshape(-1),
+                                v0.reshape(-1), spec0)
+        beta1 = torch.where(spec0, torch.ones((3, r0 * k), device=dev), mat0x.diffuse) \
+            * branch_weight(_expand(refl0, k), spec0)
+        alive1 = hits0x.hit & torch.any(beta1 != 0.0, dim=0)
+        state0_rows = torch.cat([hits0x.pos, dir1, beta1, alive1.to(torch.float32)[None, :],
+                                 torch.zeros((3, r0 * k), device=dev)], dim=0)  # [13, R*K]
+        nb = max(params.max_depth - 1, 0)
+        if nb:
+            unifs = bounce_rows(key, nb, r0 * k, dev).reshape(nb, 4, r0 * k)
 
-    nb = max(params.max_depth - 1, 0)
-    nrays = torch.tensor(r0, dtype=torch.int64, device=dev)
+    with tracing.span("pt3.sync.nrays"):  # a copy from host memory waits for the card
+        nrays = torch.tensor(r0, dtype=torch.int64, device=dev)
     if nb == 0:
         acc = torch.zeros((3, r0 * k), device=dev)
     else:
-        unifs = bounce_rows(key, nb, r0 * k, dev).reshape(nb, 4, r0 * k)
         m = scene.materials
         acc = _Chain.apply(m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
                            scene.environment, state0_rows, unifs, scene, geo, nb, float(eps),
@@ -429,7 +434,8 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
                                                packed=geo)
         base_sum = base_sum + base
         states.append(st_rows)
-    nrays = torch.tensor(n_passes * r0, dtype=torch.int64, device=dev)
+    with tracing.span("pt3.sync.nrays"):
+        nrays = torch.tensor(n_passes * r0, dtype=torch.int64, device=dev)
     cnt = torch.zeros((r0 * k,), dtype=torch.int32, device=dev)
     if nb == 0:
         radiance = base_sum.T

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.camera import Camera
+from ..utils import tracing
 from ..utils.native import morton_order
 from .materials import MaterialInterner, MaterialSpec, MaterialTable
 
@@ -176,6 +177,7 @@ class SceneBuilder:
     def num_spheres(self) -> int:
         return len(self._sph_centres)
 
+    @tracing.spanned("pt3.scene.build")
     def build(self, dtype=torch.float32, morton: bool = True,
               device="cpu") -> Scene:
         if self._tri_verts:

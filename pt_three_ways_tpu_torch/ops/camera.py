@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .vecmath import fcos, fma, fsin, fsqrt, normalise
 
 
@@ -107,7 +108,8 @@ def generate_rays(camera: Camera, px: torch.Tensor, py: torch.Tensor,
     )
     lens_dir = normalise(focal_point - lens_org)
 
-    use_lens = bool(camera.aperture > 0.0)
+    with tracing.span("pt3.sync.aperture"):
+        use_lens = bool(camera.aperture > 0.0)
     if use_lens:
         return lens_org, lens_dir
     return pinhole_org.contiguous(), direction

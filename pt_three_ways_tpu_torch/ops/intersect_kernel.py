@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import _cuda
 from .vecmath import fsqrt
 from .xla_cpu import fma
@@ -152,7 +153,9 @@ class PackedScene:
             v = verts.reshape(n_win, window * 3, 3)
             sph = scene.spheres
             reach = sph.centre.detach().abs() + sph.radius_sq.detach().sqrt()[:, None]
-            scale = max(float(verts.abs().max()), float(reach.max()) if reach.numel() else 0.0)
+            with tracing.span("pt3.sync.pack"):
+                scale = max(float(verts.abs().max()),
+                            float(reach.max()) if reach.numel() else 0.0)
             self.wbox_margin = WBOX_MARGIN * (1.0 + scale)
             lo = v.min(dim=1).values - self.wbox_margin
             hi = v.max(dim=1).values + self.wbox_margin
@@ -373,6 +376,7 @@ class _Intersect(torch.autograd.Function):
         return d_org.to(org.dtype), d_dir.to(dirn.dtype), None, None, None
 
 
+@tracing.spanned("pt3.k2", device=True)
 def intersect_packed(packed: PackedScene, org: torch.Tensor, dirn: torch.Tensor,
                      eps: float, live: torch.Tensor | None = None):
     """Nearest hit per ray. org/dirn: [3, R]; live: [R] bool (None = all).
@@ -380,7 +384,7 @@ def intersect_packed(packed: PackedScene, org: torch.Tensor, dirn: torch.Tensor,
     differentiable w.r.t. org and dirn (``intersect_vjp``).
 
     CUDA tensors launch the kernel (and raise if it fails); CPU tensors
-    take the plain version."""
+    take the plain version. Traced as ``pt3.k2``."""
     if live is None:
         live = torch.ones((org.shape[1],), dtype=torch.bool, device=org.device)
     live = live.to(torch.bool)

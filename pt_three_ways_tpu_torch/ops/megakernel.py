@@ -108,6 +108,11 @@ on whole [*, N] tensors through ``bounce_bwd_plain``.
 Beside each kernel is its plain PyTorch version on whole [*, N] tensors
 (masked loop iterations, like the Pallas body); the wrappers take it only
 for CPU tensors.
+
+Each public wrapper is a span of ``utils/tracing``, timed on the device:
+``pt3.k4`` (``fused_passes_krng`` and ``fused_passes``), ``pt3.k7``
+(``fused_bounces``), ``pt3.k8`` (``bounce_bwd_step``), ``pt3.k9``
+(``regen_replay_bwd``) and ``pt3.k10`` (``bounce_step``).
 """
 
 from __future__ import annotations
@@ -118,6 +123,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import _cuda
 from . import kernel_rng as kr
 from .intersect_kernel import (  # noqa: F401 (WBOX_MARGIN: the tests read it here)
@@ -193,7 +199,6 @@ class PackedSceneFused(PackedScene):
         dev = self.tri_mat.device
         f32 = torch.float32
         cone = mats.cone_angle
-        self.no_glossy = bool(cone.numel() == 0 or float(cone.max()) < EPSILON)
         self.mat9 = torch.cat(
             [mats.emission.to(f32), mats.diffuse.to(f32), mats.ior.to(f32)[:, None],
              mats.reflectivity.to(f32)[:, None], mats.cone_angle.to(f32)[:, None]],
@@ -213,7 +218,9 @@ class PackedSceneFused(PackedScene):
         self.environment = environment.detach().to(f32)
         # the launches pass the environment by value: read once here, not
         # (with a device-to-host copy and its wait) at every launch
-        self.env_host = tuple(float(x) for x in self.environment.tolist())
+        with tracing.span("pt3.sync.materials"):
+            self.no_glossy = bool(cone.numel() == 0 or float(cone.max()) < EPSILON)
+            self.env_host = tuple(float(x) for x in self.environment.tolist())
 
     def with_materials(self, materials, environment):
         """This pack for ``materials`` and ``environment``: the geometry
@@ -1110,6 +1117,7 @@ def lane_major_table(unif_rows: torch.Tensor, nb: int, s_count: int) -> torch.Te
     return unif_rows.reshape(s_count * nb, 4, n).transpose(1, 2).contiguous()
 
 
+@tracing.spanned("pt3.k4", device=True)
 def fused_passes(pk: PackedSceneFused, state0: torch.Tensor, unif: torch.Tensor,
                  eps: float, nb: int, s_count: int):
     """K5: S regenerating passes with table uniforms. state0 [S*10, N] rows
@@ -1127,8 +1135,10 @@ def fused_passes(pk: PackedSceneFused, state0: torch.Tensor, unif: torch.Tensor,
     unif = unif.to(torch.float32).contiguous()
     nexta = next_alive_table(state0, s_count)
     if _device_kind(state0, unif, pk.tri_tab) == "cuda":
-        return _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count)
-    return fused_passes_plain(pk, state0, nexta, unif, eps, nb, s_count)
+        acc, cnt = _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count)
+    else:
+        acc, cnt = fused_passes_plain(pk, state0, nexta, unif, eps, nb, s_count)
+    return acc, cnt
 
 
 fused_passes.launches = 0
@@ -1156,6 +1166,7 @@ def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,
                   thresh, no_glossy, block, replay, stream)
 
 
+@tracing.spanned("pt3.k4", device=True)
 def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
                       lane_ids: torch.Tensor, key_words, sample0: int, eps: float,
                       nb: int, s_count: int, tail_frac: float = 0.0,
@@ -1281,6 +1292,7 @@ def bounce_step_plain(pk: PackedSceneFused, state, unif, eps: float, with_hit: b
             torch.where(hit, idx, torch.zeros_like(idx)))
 
 
+@tracing.spanned("pt3.k10", device=True)
 def bounce_step(pk: PackedSceneFused, state: torch.Tensor, unif: torch.Tensor, eps: float,
                 with_hit: bool = False):
     """K10: one bounce of the compacting wavefront. state [13, N] (org3
@@ -1301,6 +1313,7 @@ def bounce_step(pk: PackedSceneFused, state: torch.Tensor, unif: torch.Tensor, e
 bounce_step.launches = 0
 
 
+@tracing.spanned("pt3.k7", device=True)
 def fused_bounces(pk: PackedSceneFused, org: torch.Tensor, dirn: torch.Tensor,
                   beta: torch.Tensor, alive: torch.Tensor, unif: torch.Tensor,
                   eps: float, nb: int, with_residuals: bool = False):
@@ -1329,6 +1342,7 @@ fused_bounces.launches = 0
 MAX_BWD_MATERIALS = 340
 
 
+@tracing.spanned("pt3.k8", device=True)
 def bounce_bwd_step(pk: PackedSceneFused, state: torch.Tensor, t: torch.Tensor,
                     idx: torch.Tensor, unif: torch.Tensor, cot_out: torch.Tensor):
     """K8: the VJP of one replayed bounce. state [13, N]: the saved input
@@ -1354,6 +1368,7 @@ def bounce_bwd_step(pk: PackedSceneFused, state: torch.Tensor, t: torch.Tensor,
 bounce_bwd_step.launches = 0
 
 
+@tracing.spanned("pt3.k9", device=True)
 def regen_replay_bwd(pk: PackedSceneFused, lane_ids: torch.Tensor, key_words,
                      sample0: int, resid: torch.Tensor, cnt: torch.Tensor,
                      acc_bar: torch.Tensor, s_count: int):

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from ..utils import tracing
+
 # Stream labels so distinct uses of the same (seed, pass) never collide.
 CAMERA_STREAM = 0x0C0FFEE
 FIRST_BOUNCE_STREAM = 0x1B0B0
@@ -123,5 +125,6 @@ def stream_key(key: torch.Tensor, stream: int) -> torch.Tensor:
 
 def uniforms(key: torch.Tensor, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
     """U[0,1) of the given shape and dtype (float32 or float64);
-    counter-based over the flat index."""
-    return uniform(key, shape, device, dtype)
+    counter-based over the flat index. Traced as ``pt3.rng``."""
+    with tracing.span("pt3.rng", device):
+        return uniform(key, shape, device, dtype)

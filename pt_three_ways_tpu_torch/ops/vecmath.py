@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from .xla_cpu import fma, rsqrt, via64
 
 # Geometric epsilon (the reference's 1e-9 f64 value, scaled for f32).
@@ -128,8 +129,9 @@ def onb_from_z(z: torch.Tensor) -> Onb:
     """Basis around unit z with the coincident-axis guard at 0.9999."""
     use_y = torch.abs(z[0]) > _COINCIDENT
     shape = (3,) + (1,) * (z.dim() - 1)
-    piv_y = torch.tensor([0.0, 1.0, 0.0], dtype=z.dtype, device=z.device).reshape(shape)
-    piv_x = torch.tensor([1.0, 0.0, 0.0], dtype=z.dtype, device=z.device).reshape(shape)
+    with tracing.span("pt3.sync.onb"):  # copies from host memory wait for the card
+        piv_y = torch.tensor([0.0, 1.0, 0.0], dtype=z.dtype, device=z.device).reshape(shape)
+        piv_x = torch.tensor([1.0, 0.0, 0.0], dtype=z.dtype, device=z.device).reshape(shape)
     pivot = torch.where(use_y, piv_y, piv_x)
     xx = normalise(cross(pivot, z))
     yy = normalise(cross(z, xx))

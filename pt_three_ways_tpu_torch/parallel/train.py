@@ -51,6 +51,7 @@ from ..models.integrator import resolve_intersector
 from ..models.materials import MaterialTable
 from ..models.ways import WAYS
 from ..ops import rng
+from ..utils import tracing
 from ..utils.render_params import RenderParams
 from .mesh import all_reduce, one_device_mesh
 
@@ -130,16 +131,19 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     dp_idx, sp_idx = mesh.dp_idx, mesh.sp_idx
 
+    @tracing.spanned("pt3.train.step")
     def train_step(state: TrainState, key, px, py, target):
         """The loss and the update from this rank's block, its gradients
-        summed over the mesh."""
+        summed over the mesh. Traced as ``pt3.train.step``, a unit's root,
+        with ``.forward``, ``.backward`` and ``.update``."""
         if on_card and has_float64(state.materials, state.camera):
             raise ValueError(FLOAT64_ON_CPU)
         r = px.shape[0]
         if r % sp:
             raise ValueError(f"{r} rays do not split into sp={sp} equal blocks")
         blk = slice(sp_idx * (r // sp), (sp_idx + 1) * (r // sp))
-        px, py, target = px[blk].to(dev), py[blk].to(dev), target[blk].to(dev)
+        with tracing.span("pt3.sync.inputs"):  # copies from host memory wait for the card
+            px, py, target = px[blk].to(dev), py[blk].to(dev), target[blk].to(dev)
         mats = [m.detach().to(dev).requires_grad_() for m in state.materials]
         cam = [c.detach().to(dev) for c in state.camera]
         if differentiate_camera:
@@ -147,13 +151,14 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
         sc = scene._replace(materials=MaterialTable(*mats))
         camera = type(state.camera)(*cam)
         leaves = mats + (cam if differentiate_camera else [])
-        if use_regen:
-            radiance = trace_passes_replay(sc, camera, params, key, dp_idx * passes_per_step,
-                                           sp_idx, px, py, passes_per_step, tri_chunk,
-                                           **replay_kw)
-        else:
-            k = rng.tile_key(rng.tile_key(key, dp_idx), sp_idx)
-            radiance = trace(sc, camera, params, k, px, py, tri_chunk, **replay_kw)
+        with tracing.span("pt3.train.forward"):
+            if use_regen:
+                radiance = trace_passes_replay(sc, camera, params, key,
+                                               dp_idx * passes_per_step, sp_idx, px, py,
+                                               passes_per_step, tri_chunk, **replay_kw)
+            else:
+                k = rng.tile_key(rng.tile_key(key, dp_idx), sp_idx)
+                radiance = trace(sc, camera, params, k, px, py, tri_chunk, **replay_kw)
         with torch.no_grad():
             d = all_reduce(radiance, mesh.dp_group) / (dp * passes_per_step) - target
             # the global mean as the sum of the equal blocks' means over sp
@@ -163,8 +168,9 @@ def make_sharded_train_step(scene, params: RenderParams, mesh=None, way: str = "
             # mean((estimate - target) ** 2) on one device
             inv_n = torch.ones((), dtype=d.dtype, device=d.device) / (target.numel() * sp)
             cot = inv_n * (2.0 * d) / (dp * passes_per_step)
-        grads = [all_reduce(g, mesh.group) for g in _grads(radiance, cot, leaves)]
-        with torch.no_grad():
+        with tracing.span("pt3.train.backward"):
+            grads = [all_reduce(g, mesh.group) for g in _grads(radiance, cot, leaves)]
+        with torch.no_grad(), tracing.span("pt3.train.update"):
             new_mat = MaterialTable(*(m - learning_rate * g for m, g in zip(mats, grads)))
             new_cam = type(state.camera)(*cam)
             if differentiate_camera:

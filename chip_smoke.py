@@ -15,8 +15,12 @@ Phases (one line each, any failure stops the run):
      and 4 blocks an SM; K10 with the culled warp search on one-chunk
      scenes)), with each kernel instance's registers and spills (and the
      older K10's, the other builds');
-  2. each kernel's wrapper against the same wrapper with its plain PyTorch
-     version in place of the launch, at 256^2 camera tiles: K2 (cornell,
+  2. K11 (ops/rng.uniforms) bit for bit against the plain int64 threefry,
+     float32 and float64, on a cornell camera stage's and a training pass's
+     draws, timed alone and through uniforms beside the plain version, its
+     issue floor (SASS_THREEFRY) and its bytes; each kernel's wrapper
+     against the same wrapper with its plain PyTorch version in place of the
+     launch, at 256^2 camera tiles: K2 (cornell,
      suzanne; bit for bit), K5 (cornell), K4 (cornell, suzanne, and suzanne with tail
      compaction against the same run to exhaustion; with the cone angles
      zeroed, bit for bit against its plain version and its stream mode);
@@ -28,7 +32,8 @@ Phases (one line each, any failure stops the run):
      goes on with K4 (feedback sort, tail compaction) or K5 as the probe
      decides; each writes a .raw (build/chip_smoke/) and a PNG
      (chiprun_out/); every launch counter is set to 0 just before each
-     render and read just after it;
+     render and read just after it, and K11's equals the render's card
+     calls of rng.uniforms, with no card draw by the plain threefry;
   5. each render again, every K2 launch held bit for bit (t, idx) against
      its plain version and the older K2, the first one's kernel timed in
      turns with the older K2 and, on a mesh, with K2's builds whose
@@ -52,7 +57,8 @@ Phases (one line each, any failure stops the run):
      on suzanne 512^2 (K=16, depth 5: the camera stage with K2, K7 with its
      residuals forward, four K8 launches backward), each split into forward
      and backward with its peak memory, the launch counters set to 0 just
-     before the three steps and read just after; one per-bounce wavefront
+     before the three steps and read just after (K11's against the steps'
+     card calls of rng.uniforms, as in phase 4); one per-bounce wavefront
      step (fused="off") at the same size with camera gradients through K2's
      VJP; K7 (with and
      without residuals) and K8 (each bounce, and twice for bitwise
@@ -171,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -207,6 +214,11 @@ OPS_SHADE = 200
 # SASS instructions of one triangle test in the one-chunk scan's loop
 ISSUE_PER_S = 33.5e12
 SASS_TRIANGLE = 74
+# SASS instructions a threefry uniform (csrc/threefry.cu, float32): a
+# thread's path to its float4 store is 315 instructions for 4 elements
+# (cuobjdump on sm_90a): 20 rounds of add, funnel shift and xor, 5 key
+# injections, the float's assembly, the index and store arithmetic
+SASS_THREEFRY = 315 / 4
 # the replay residual slot K4 writes and K9 reads per live bounce: org3
 # dir3 beta3, t, idx, sample, depth (float32)
 REPLAY_SLOT_BYTES = 13 * 4
@@ -907,7 +919,7 @@ def main(argv=None) -> int:
                  "K10": (mk, "_bounce_step_cuda", mk.bounce_step_plain)}
     wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
                 "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd,
-                "K10": mk.bounce_step}
+                "K10": mk.bounce_step, "K11": rng.uniform_kernel}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -921,6 +933,38 @@ def main(argv=None) -> int:
         out["K6"] = mk.fused_passes_krng.stream_launches
         out["K4"] -= out["K6"]
         return out
+
+    @contextlib.contextmanager
+    def draws_counted():
+        """Counts the card's ``rng.uniforms`` calls and their elements, and
+        the card's draws by the plain int64 threefry (``rng.uniform``,
+        inside ``uniforms`` or not), over the block."""
+        seen = {"calls": 0, "elements": 0, "plain": 0}
+        orig_uniforms, orig_uniform = rng.uniforms, rng.uniform
+
+        def uniforms(key, shape, device="cpu", dtype=torch.float32):
+            if torch.device(device).type == "cuda":
+                seen["calls"] += 1
+                seen["elements"] += math.prod(shape)
+            return orig_uniforms(key, shape, device, dtype)
+
+        def uniform(key, shape, device="cpu", dtype=torch.float32):
+            if torch.device(device).type == "cuda":
+                seen["plain"] += 1
+            return orig_uniform(key, shape, device, dtype)
+
+        rng.uniforms, rng.uniform = uniforms, uniform
+        try:
+            yield seen
+        finally:
+            rng.uniforms, rng.uniform = orig_uniforms, orig_uniform
+
+    def check_draws(seen, k11_launches, what):
+        """Every card draw of ``what`` was one K11 launch: K11's count
+        equals the ``uniforms`` calls, and the plain threefry drew nothing."""
+        if seen["calls"] <= 0 or k11_launches != seen["calls"] or seen["plain"] != 0:
+            fail(f"{what}: {k11_launches} K11 launches for {seen['calls']} card uniforms "
+                 f"calls, {seen['plain']} card draws by the plain threefry")
 
     @contextlib.contextmanager
     def plain(kernel):
@@ -1135,6 +1179,48 @@ def main(argv=None) -> int:
         return 0
 
     # ---- phase 2: kernels vs plain versions at 256^2 ---------------------
+    # K11 (ops/rng.uniforms on the card) against the plain int64 threefry on
+    # the main path's own draws: a CLI-default cornell camera stage (a tile
+    # of 414,720 pixels: camera and first-bounce draws) and a training pass
+    # on 512^2 (camera, first bounce, and one of K7's bounce-row draws)
+    k11_checks = {}
+    k11_key = rng.stream_key(rng.fold_in(rng.fold_in(rng.base_key(7), 3), 1), rng.CAMERA_STREAM)
+    for tag, shapes in (("cornell", [(4, 414720), (3, 414720, 16)]),
+                        ("train", [(4, 262144), (3, 262144, 16), (3, 4194304)])):
+        # launches: the main path's own count, phase 4's cornell render and
+        # phase 6's training steps; max_abs_err 0: bit for bit, or a failure
+        row = dict(launches=None, max_abs_err=0.0, ms=0.0, kernel_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, issue_floor_ms=0.0, bytes_ms=0.0, elements=0)
+        for shape in shapes:
+            for dtype, view in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+                got = rng.uniforms(k11_key, shape, dev, dtype)
+                ref = rng.uniform(k11_key, shape, dev, dtype)
+                if not torch.equal(got.view(view), ref.view(view)):
+                    fail(f"K11 {shape} {dtype} differs from the plain threefry: "
+                         f"{(got.view(view) != ref.view(view)).float().mean().item()} of elements")
+            n = math.prod(shape)
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+            k1, k2 = rng._words(k11_key)
+
+            def alone():
+                _cuda.check(_cuda.lib().pt3_threefry_uniform(
+                    k1, k2, n, out.data_ptr(), 0, _cuda.stream_ptr(dev)), "pt3_threefry_uniform")
+
+            row["kernel_ms"] += events_ms(alone, 50)
+            row["ms"] += events_ms(lambda: rng.uniforms(k11_key, shape, dev), 50)
+            row["plain_ms"] += events_ms(lambda: rng.uniform(k11_key, shape, dev), 3)
+            row["issue_floor_ms"] += n * SASS_THREEFRY / ISSUE_PER_S * 1e3
+            row["bytes_ms"] += n * 4 / PEAK_BYTES_PER_S * 1e3
+            row["elements"] += n
+        row["bound_ms"] = max(row["issue_floor_ms"], row["bytes_ms"])
+        row["bound_by"] = "issue" if row["issue_floor_ms"] >= row["bytes_ms"] else "bytes"
+        k11_checks[tag] = row
+        print(f"phase 2 K11 {tag} {shapes}: float32 and float64 bit-equal to the plain "
+              f"threefry; {row['elements']} float32 uniforms: kernel {row['kernel_ms']:.4f} ms "
+              f"(through uniforms {row['ms']:.4f}) plain {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {SASS_THREEFRY} SASS an element "
+              f"over {ISSUE_PER_S:.3g}/s; bytes {row['bytes_ms']:.4f} ms)")
+    torch.cuda.empty_cache()
     for name in ("cornell", "suzanne"):
         scene, camera, params = build_scene(name, 256, 256)
         packed = ik.PackedScene(scene)
@@ -1274,12 +1360,13 @@ def main(argv=None) -> int:
     # the table-mode kernel (K5)
     renders = [
         ("cornell", "cornell", RenderParams(seed=1),
-         ("K2", "K4")),
+         ("K2", "K4", "K11")),
         ("cornell-square", "cornell", RenderParams(width=512, height=512,
                                                    samples_per_pixel=16, seed=1),
-         ("K2", "K4", "K5")),
+         ("K2", "K4", "K5", "K11")),
         ("suzanne", "suzanne", RenderParams(width=512, height=512,
-                                            samples_per_pixel=16, seed=1), ("K2", "K4")),
+                                            samples_per_pixel=16, seed=1),
+         ("K2", "K4", "K11")),
     ]
     raw_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(raw_dir, exist_ok=True)
@@ -1300,8 +1387,9 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.time()
-        out = render(scene, camera, params, device="cuda")
-        torch.cuda.synchronize()
+        with draws_counted() as seen:
+            out = render(scene, camera, params, device="cuda")
+            torch.cuda.synchronize()
         wall = time.time() - t0
         launches[tag] = read_counts()
         img = out.mean()
@@ -1317,6 +1405,7 @@ def main(argv=None) -> int:
         for k in expect:
             if launches[tag][k] <= 0:
                 fail(f"kernel {k} was not launched by the {tag} render")
+        check_draws(seen, launches[tag]["K11"], f"the {tag} render")
         kernel_ms = {}
         for k, a, b in spans:
             kernel_ms[k] = kernel_ms.get(k, 0.0) + a.elapsed_time(b)
@@ -1326,8 +1415,10 @@ def main(argv=None) -> int:
               f"{samples / (wall * 1000.0):.2f}, Mray/s {n_rays / wall / 1e6:.2f}, "
               f"mean {mean:.5f}, launches {launches[tag]}, kernel ms "
               f"{ {k: round(v, 3) for k, v in kernel_ms.items()} } "
-              f"({busy:.1%} of wall), peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"({busy:.1%} of wall), K11 drew {seen['elements']} uniforms in "
+              f"{seen['calls']} uniforms calls (plain threefry on the card: {seen['plain']}), "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    k11_checks["cornell"]["launches"] = launches["cornell"]["K11"]
     for mod, name, orig in reversed(restore):
         setattr(mod, name, orig)
     spans.clear()
@@ -1815,31 +1906,32 @@ def main(argv=None) -> int:
     losses = []
     for fn in wrappers.values():
         fn.launches = 0
-    for i in range(3):
-        marks["step"] = i
-        tspans.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        e0 = record()
-        loss, state = step(state, tkey, tpx, tpy, target)
-        e3 = record()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        kms = {k: sum(a.elapsed_time(b) for kk, a, b in tspans if kk == k)
-               for k in ("K2", "K7", "K8")}
-        fwd = e0.elapsed_time(marks["b0"])
-        bwd = marks["b0"].elapsed_time(marks["b1"])
-        upd = marks["b1"].elapsed_time(e3)
-        n8 = sum(1 for kk, _, _ in tspans if kk == "K8")
-        losses.append(float(loss))
-        print(f"phase 6 train step {i} suzanne 512^2 K=16 depth 5 ({tpx.shape[0] * 16} lanes): "
-              f"loss {float(loss):.6e}, wall {wall * 1e3:.1f} ms = forward {fwd:.1f} ms "
-              f"(camera stage {fwd - kms['K7'] - kms['K2']:.1f} + K2 {kms['K2']:.3f} + K7 "
-              f"{kms['K7']:.3f}) + backward {bwd:.1f} ms (camera-stage autograd "
-              f"{bwd - kms['K8']:.1f} + K8 {kms['K8']:.3f} in {n8} launches) + update "
-              f"{upd:.2f} ms; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with draws_counted() as tseen:
+        for i in range(3):
+            marks["step"] = i
+            tspans.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            e0 = record()
+            loss, state = step(state, tkey, tpx, tpy, target)
+            e3 = record()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            kms = {k: sum(a.elapsed_time(b) for kk, a, b in tspans if kk == k)
+                   for k in ("K2", "K7", "K8")}
+            fwd = e0.elapsed_time(marks["b0"])
+            bwd = marks["b0"].elapsed_time(marks["b1"])
+            upd = marks["b1"].elapsed_time(e3)
+            n8 = sum(1 for kk, _, _ in tspans if kk == "K8")
+            losses.append(float(loss))
+            print(f"phase 6 train step {i} suzanne 512^2 K=16 depth 5 ({tpx.shape[0] * 16} lanes): "
+                  f"loss {float(loss):.6e}, wall {wall * 1e3:.1f} ms = forward {fwd:.1f} ms "
+                  f"(camera stage {fwd - kms['K7'] - kms['K2']:.1f} + K2 {kms['K2']:.3f} + K7 "
+                  f"{kms['K7']:.3f}) + backward {bwd:.1f} ms (camera-stage autograd "
+                  f"{bwd - kms['K8']:.1f} + K8 {kms['K8']:.3f} in {n8} launches) + update "
+                  f"{upd:.2f} ms; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     marks["step"] = None
     tlaunch = {k: fn.launches for k, fn in wrappers.items()}
     for mod, name, orig in reversed(trestore):
@@ -1848,11 +1940,15 @@ def main(argv=None) -> int:
     finite = all(bool(torch.isfinite(m).all()) for m in state.materials)
     if not (all(np.isfinite(losses)) and finite and moved > 0.0):
         fail(f"training: losses {losses}, finite materials {finite}, moved {moved}")
-    for k in ("K2", "K7", "K8"):
+    for k in ("K2", "K7", "K8", "K11"):
         if tlaunch[k] <= 0:
             fail(f"kernel {k} was not launched by the training steps")
+    check_draws(tseen, tlaunch["K11"], "the training steps")
+    k11_checks["train"]["launches"] = tlaunch["K11"]
     print(f"phase 6 training: losses {[f'{x:.6e}' for x in losses]}, materials moved "
-          f"{moved:.4e} (sum |delta|), launches {tlaunch}")
+          f"{moved:.4e} (sum |delta|), launches {tlaunch}; K11 drew {tseen['elements']} "
+          f"uniforms in {tseen['calls']} uniforms calls (plain threefry on the card: "
+          f"{tseen['plain']})")
 
     # the per-bounce wavefront with camera gradients (K2's VJP on the card)
     ostep = make_sharded_train_step(tscene, tparams, learning_rate=0.05, fused="off",
@@ -3486,7 +3582,7 @@ def main(argv=None) -> int:
     # under "by_path"
     head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
             "K8": "train", "K4r": "regen-train", "K9": "regen-train", "K6": "sub3",
-            "K10": "compact"}
+            "K10": "compact", "K11": "cornell"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -3506,9 +3602,12 @@ def main(argv=None) -> int:
                "pt_three_ways_tpu/ops/pallas_megakernel.py:329"),
         "K10": ("K10 bounce_step", "pt_three_ways_tpu_torch/csrc/bounce_step.cu",
                 "pt_three_ways_tpu/ops/pallas_megakernel.py:2078"),
+        "K11": ("K11 uniforms", "pt_three_ways_tpu_torch/csrc/threefry.cu",
+                "pt_three_ways_tpu/ops/rng.py:52 (XLA's jax.random.uniform, no pallas_call)"),
     }
+    checks["K11"] = k11_checks
     rows = []
-    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10"):
+    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10", "K11"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          path=head[k], **checks[k][head[k]], library_ms=None,

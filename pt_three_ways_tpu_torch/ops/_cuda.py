@@ -37,6 +37,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 U = ctypes.c_uint
+L = ctypes.c_longlong
 
 # entry point -> argument types (all return int: the cudaError_t)
 _SIGNATURES = {
@@ -76,6 +77,8 @@ _SIGNATURES = {
     # acc_bar, d_state0, partial, d_out, n, s_count, stream
     "pt3_regen_replay_bwd": [P, P, P, P, I, I, I, F, F, F, P, P, I, U, U, U, I,
                              P, P, P, P, P, P, P, I, I, P],
+    # key word 0, key word 1, n, out, dtype (0 float32, 1 float64), stream
+    "pt3_threefry_uniform": [U, U, L, P, I, P],
 }
 
 

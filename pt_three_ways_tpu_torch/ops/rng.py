@@ -16,7 +16,10 @@ passed by the caller; there is no global generator.
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF`` masks (torch's
 uint32 lacks most operators on the CPU). Threefry needs only add, xor and
-rotate, so no product ever leaves 64 bits.
+rotate, so no product ever leaves 64 bits. That plain version (``uniform``)
+is the CPU's path and the reference; on a CUDA device ``uniforms`` launches
+kernel K11 (``csrc/threefry.cu``, ``uniform_kernel``), which gives the same
+bits in one launch.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 import torch
 
 from ..utils import tracing
+from . import _cuda
 
 # Stream labels so distinct uses of the same (seed, pass) never collide.
 CAMERA_STREAM = 0x0C0FFEE
@@ -123,8 +127,34 @@ def stream_key(key: torch.Tensor, stream: int) -> torch.Tensor:
     return fold_in(key, stream)
 
 
+_KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def uniform_kernel(key: torch.Tensor, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """``uniform`` on a CUDA device by K11, one launch; bit for bit the plain
+    version's values. Raises for another dtype or a failed launch. Counts
+    its calls in ``uniform_kernel.launches`` and, while tracing is on, the
+    elements drawn in the counter ``rng.kernel_draws``."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"uniform: unsupported dtype {dtype}")
+    k1, k2 = _words(key)
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    err = _cuda.lib().pt3_threefry_uniform(k1, k2, out.numel(), out.data_ptr(),
+                                           _KERNEL_DTYPES[dtype], _cuda.stream_ptr(out.device))
+    _cuda.check(err, "pt3_threefry_uniform")
+    uniform_kernel.launches += 1
+    tracing.count("rng.kernel_draws", out.numel())
+    return out
+
+
+uniform_kernel.launches = 0
+
+
 def uniforms(key: torch.Tensor, shape, device="cpu", dtype=torch.float32) -> torch.Tensor:
     """U[0,1) of the given shape and dtype (float32 or float64);
-    counter-based over the flat index. Traced as ``pt3.rng``."""
+    counter-based over the flat index: K11 on a CUDA device, the plain
+    version elsewhere. Traced as ``pt3.rng``."""
     with tracing.span("pt3.rng", device):
+        if torch.device(device).type == "cuda":
+            return uniform_kernel(key, shape, device, dtype)
         return uniform(key, shape, device, dtype)

@@ -36,9 +36,10 @@ Names, from the entry point down (``pt3.`` first):
       which PyTorch ends with a stream synchronisation (onb, nrays,
       inputs, scene).
 
-Counter: ``k4.live_bounces``, the live bounces of the render's K4 and K5
+Counters: ``k4.live_bounces``, the live bounces of the render's K4 and K5
 launches (``models/integrator.trace_passes_fused``, after each launch's
-span).
+span); ``rng.kernel_draws``, the uniforms K11 drew (``ops/rng
+.uniform_kernel``, inside ``pt3.rng``).
 """
 
 from __future__ import annotations

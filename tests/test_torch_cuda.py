@@ -40,7 +40,12 @@ unpacked winner) bit for bit against its plain version with the cone angles
 zeroed, with partial warps, dead first samples and S = 1, 8 and 70; K8 on
 warps all hit, all dead and mixed, with the scene's materials and with 40,
 bit-identical on a second run, its cot_in at the gates above, d_mat and
-d_env within 1e-5 of the largest of the float64 sums.
+d_env within 1e-5 of the largest of the float64 sums. K11 (``rng.uniforms``
+on the card) bit for bit against the plain ``rng.uniform``, compared as
+int32 or int64 views, in float32 and float64, on the render's keys and the
+main path's shapes and at n = 0, 1, 21 and 2^24 + 3; another dtype raises;
+one launch a call, its draws counted in ``rng.kernel_draws`` while tracing
+is on.
 """
 
 import numpy as np
@@ -54,6 +59,7 @@ from pt_three_ways_tpu_torch.models.scene import SceneBuilder, auto_epsilon
 from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
 from pt_three_ways_tpu_torch.ops import kernel_rng, rng
 from pt_three_ways_tpu_torch.ops import megakernel as mk
+from pt_three_ways_tpu_torch.utils import tracing
 from pt_three_ways_tpu_torch.utils.render_params import RenderParams
 
 pytestmark = pytest.mark.cuda
@@ -619,3 +625,51 @@ def test_k8_lane_classes_match_plain(dev, name, many):
     for got, ref in zip(o1[1:], op[1:]):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
     assert int((op[1].abs().sum(dim=1) > 0).sum()) > (10 if many else 0)
+
+
+def _k11_keys():
+    """The render's key chain (``fold_in(fold_in(base, sample), tile)``) on
+    the camera, first-bounce and a bounce stream, and a 64-bit seed."""
+    key = rng.fold_in(rng.fold_in(rng.base_key(1234567), 5), 2)
+    return [rng.stream_key(key, rng.CAMERA_STREAM), rng.stream_key(key, rng.FIRST_BOUNCE_STREAM),
+            rng.fold_in(rng.stream_key(key, rng.BOUNCE_STREAM_BASE), 3),
+            rng.PRNGKey(2**32 + 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(4, 414720), (3, 414720, 16), (3, 4194304), (0,), (1,),
+                                   (3, 7), (2**24 + 3,)])
+def test_k11_uniforms_match_plain_bitwise(dev, shape, dtype):
+    """K11 (the camera stage's threefry) equals the plain int64 version bit
+    for bit: the main path's shapes (cornell's camera and first-bounce
+    draws, a training pass's bounce rows), no element, one, a count that is
+    not a multiple of a thread's four and one past 2^24."""
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    for key in _k11_keys():
+        got = rng.uniforms(key, shape, dev, dtype)
+        ref = rng.uniform(key, shape, dev, dtype)
+        assert got.shape == ref.shape and got.dtype == dtype and got.device == ref.device
+        assert torch.equal(got.view(view), ref.view(view))
+
+
+def test_k11_launches_and_dtypes(dev):
+    """One launch a call, the draws counted while tracing is on; a dtype
+    the kernel does not make raises."""
+    key = _k11_keys()[0]
+    before = rng.uniform_kernel.launches
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("pt3.render"):
+            rng.uniforms(key, (4, 1000), dev)
+            rng.uniforms(key, (3, 5), dev, torch.float64)
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert rng.uniform_kernel.launches == before + 2
+    assert counters["rng.kernel_draws"] == 4015
+    for dtype in (torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(ValueError, match="unsupported dtype"):
+            rng.uniforms(key, (8,), dev, dtype)
+    assert rng.uniform_kernel.launches == before + 2

@@ -15,6 +15,7 @@ import torch
 
 from pt_three_ways_tpu.ops import kernel_rng as kj
 from pt_three_ways_tpu.ops import rng as rj
+from pt_three_ways_tpu_torch.ops import _cuda
 from pt_three_ways_tpu_torch.ops import kernel_rng as kt
 from pt_three_ways_tpu_torch.ops import rng as rt
 
@@ -54,6 +55,26 @@ def test_uniform_bit_equal(shape):
             b = rt.uniform(rt.fold_in(rt.PRNGKey(seed), d), shape).numpy()
             assert b.dtype == np.float32 and b.shape == a.shape
             np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_uniforms_on_cpu_take_the_plain_path(monkeypatch, dtype):
+    """On a CPU tensor ``uniforms`` never loads the CUDA kernels (K11 is the
+    card's path) and stays bit-equal to the plain ``uniform``."""
+
+    def no_lib():
+        raise AssertionError("uniforms loaded the CUDA kernels on the CPU")
+
+    monkeypatch.setattr(_cuda, "lib", no_lib)
+    launches = rt.uniform_kernel.launches
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    key = rt.stream_key(rt.fold_in(rt.fold_in(rt.base_key(9), 1), 0), rt.CAMERA_STREAM)
+    for shape in [(1,), (3, 7), (4, 1000)]:
+        for device in ("cpu", torch.device("cpu")):
+            got = rt.uniforms(key, shape, device, dtype)
+            assert got.dtype == dtype and got.device.type == "cpu"
+            assert torch.equal(got.view(view), rt.uniform(key, shape, "cpu", dtype).view(view))
+    assert rt.uniform_kernel.launches == launches
 
 
 def test_kernel_rng_hash_bit_equal(rng_np):

@@ -397,8 +397,10 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     ``sort_key`` [r0*k]: feedback work-sort. Lanes are permuted by
     descending key (a stable sort) before the launch and the outputs are
     permuted back, which is bit-exact because per-lane results do not
-    depend on a lane's position. ``with_lane_counts`` also returns this
-    launch's per-lane live-bounce counts (in unsorted lane order).
+    depend on a lane's position; both permutations are traced as device
+    spans ``pt3.sort``, outside K4's ``pt3.k4``. ``with_lane_counts`` also
+    returns this launch's per-lane live-bounce counts (in unsorted lane
+    order).
     ``packed``: a prebuilt ``PackedSceneStream`` for this scene (its window
     boxes cull K4's and K5's searches on the card, or feed K6 where the
     scene streams; the plain versions also take a ``PackedSceneFused``);
@@ -443,14 +445,15 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
         if use_krng:
             lane_ids = lane_ids_for(px, py, params.width, k)
         if sort_key is not None:
-            order = torch.argsort(-sort_key.to(torch.int64), stable=True)
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(order.shape[0], device=dev)
-            state0 = state0[:, order]
-            if use_krng:
-                lane_ids = lane_ids[order]
-            else:
-                unif = unif[:, order]
+            with tracing.span("pt3.sort", dev):
+                order = torch.argsort(-sort_key.to(torch.int64), stable=True)
+                inv = torch.empty_like(order)
+                inv[order] = torch.arange(order.shape[0], device=dev)
+                state0 = state0[:, order]
+                if use_krng:
+                    lane_ids = lane_ids[order]
+                else:
+                    unif = unif[:, order]
         if use_krng:
             kkey = rng.stream_key(base_key, rng.KERNEL_RNG_STREAM)
             acc, cnts = fused_passes_krng(
@@ -466,8 +469,9 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
         # around the wrapper holds the counter's reduction
         tracing.count("k4.live_bounces", cnts)
         if sort_key is not None:
-            acc = acc[:, inv]
-            cnts = cnts[inv]
+            with tracing.span("pt3.sort", dev):
+                acc = acc[:, inv]
+                cnts = cnts[inv]
         path_mean = acc.reshape(3, r0, k).mean(dim=2)
         radiance = (base_sum + path_mean).T
         lane_counts = cnts

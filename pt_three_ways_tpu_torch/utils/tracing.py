@@ -30,6 +30,8 @@ Names, from the entry point down (``pt3.`` first):
       train.backward, train.update (``parallel/train``); scene.build;
   camera (the camera stage), camera.rays, rng (threefry uniforms);
   k2, k4 (K4 and K5), k7, k8, k9, k10: the kernels' public wrappers;
+  sort: the feedback sort's permutations of K4's lanes, before and after
+      its launch (``models/integrator.trace_passes_fused``);
   sync.<site>: a copy between the card and the host that waits for the
       card, the host's wait: a read back (drain, autotune, glossy,
       aperture, pack, materials) or a copy from pageable host memory,

@@ -8,7 +8,8 @@ on the CPU.
     counts K4 returns; the CPU autotune (on a one-device mesh) is one
     ``pt3.render.autotune``; a per-pass training step is one
     ``pt3.train.step`` with its forward, backward and update, one
-    material read and a K8 span a bounce.
+    material read and a K8 span a bounce; a feedback-sorted K4 launch has
+    its two ``pt3.sort`` spans beside ``pt3.k4``, an unsorted one none.
   * The spans land in ``torch.profiler``'s trace, nested as recorded, and
     the CLI's ``--trace-out`` writes them.
 """
@@ -131,6 +132,49 @@ def test_render_span_tree_and_live_bounce_counter(monkeypatch):
     assert snap["counters"] == {"k4.live_bounces": float(cnts.sum())}
     assert snap["unit_counters"] == {_named(snap, "pt3.render")[0]["id"]:
                                      {"k4.live_bounces": float(cnts.sum())}}
+
+
+def _ancestors(snap, s):
+    sp, out = snap["spans"], []
+    while s["parent"] is not None:
+        s = sp[s["parent"]]
+        out.append(s["name"])
+    return out
+
+
+@pytest.mark.parametrize("sorted_lanes", [True, False], ids=["sort_key", "no_sort_key"])
+def test_feedback_sort_span(sorted_lanes):
+    """With a sort key, the permutations before and after K4 are two
+    ``pt3.sort`` spans under the frame's root, outside ``pt3.k4``; without
+    one there is none. The counters are K4's live bounces alone either way,
+    and the sort moves no pixel."""
+    from pt_three_ways_tpu_torch.models.integrator import trace_passes_fused
+
+    scene, camera, params = _scene(width=8, height=8, samples_per_pixel=2, seed=5)
+    px = torch.arange(64, dtype=torch.int32) % 8
+    py = torch.arange(64, dtype=torch.int32) // 8
+    n = 64 * params.first_bounce_samples
+    key = torch.randint(0, 9, (n,), generator=torch.Generator().manual_seed(3),
+                        dtype=torch.int32) if sorted_lanes else None
+
+    def frame(sort_key):
+        with tracing.span("pt3.render"):
+            return trace_passes_fused(scene, camera, params, rng.base_key(5), 0, 0, px, py, 2,
+                                      sort_key=sort_key, with_lane_counts=True)
+
+    (rad, cnts), snap = _traced(frame, key)
+    root = _named(snap, "pt3.render")[0]["id"]
+    sort = _named(snap, "pt3.sort")
+    assert len(sort) == (2 if sorted_lanes else 0)
+    assert len(_named(snap, "pt3.k4")) == 1
+    for s in sort:
+        assert s["root"] == root and "pt3.k4" not in _ancestors(snap, s)
+    for s in _named(snap, "pt3.k4"):
+        assert "pt3.sort" not in _ancestors(snap, s)
+    assert snap["counters"] == {"k4.live_bounces": float(cnts.sum())}
+    plain_rad, plain_cnts = trace_passes_fused(scene, camera, params, rng.base_key(5), 0, 0,
+                                               px, py, 2, with_lane_counts=True)
+    assert torch.equal(rad, plain_rad) and torch.equal(cnts, plain_cnts)
 
 
 def test_cpu_autotune_on_a_one_device_mesh_is_one_span():

@@ -33,7 +33,8 @@ Phases (one line each, any failure stops the run):
      decides; each writes a .raw (build/chip_smoke/) and a PNG
      (chiprun_out/); every launch counter is set to 0 just before each
      render and read just after it, and K11's equals the render's card
-     calls of rng.uniforms, with no card draw by the plain threefry;
+     calls of rng.uniforms, with no card draw by the plain threefry, and
+     K12's is 0 (a render's table does not require grad);
   5. each render again, every K2 launch held bit for bit (t, idx) against
      its plain version and the older K2, the first one's kernel timed in
      turns with the older K2 and, on a mesh, with K2's builds whose
@@ -66,7 +67,13 @@ Phases (one line each, any failure stops the run):
      inputs, timed, K7 also bit for bit against the older K7 and timed in
      turns with it, K8's cot_in bit for bit against the older K8's and its
      other register caps', timed in turns with them (its kernels a call
-     from torch.profiler); K2 on the first step's launch as in phase 5; the
+     from torch.profiler); K12 (the camera stage's material gather VJP: one
+     launch a pass, as many as the steps' gathers that differentiate the
+     table) on the first step's call against its plain version and the
+     float64 sums, bitwise repeatable, timed through its wrapper and alone
+     (torch.profiler) beside its bound, the plain version and PyTorch's
+     accumulating index_put_ (library_ms); K2 on the first step's launch as
+     in phase 5; the
      geometry pack's rebuild against its material refresh; and the card's
      step against the CPU's on a 32^2 crop of cornell 512^2;
   7. the regenerating training path: three make_sharded_train_step steps
@@ -814,6 +821,7 @@ def main(argv=None) -> int:
 
     from pt_three_ways_tpu_torch.ops import _cuda
     from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
+    from pt_three_ways_tpu_torch.ops import material_grad as mg
     from pt_three_ways_tpu_torch.ops import megakernel as mk
 
     LAUNCH.update(K4=mk._regen_krng_cuda, K7=mk._fused_bounces_cuda)
@@ -916,10 +924,11 @@ def main(argv=None) -> int:
                  "K7": (mk, "_fused_bounces_cuda", mk.fused_bounces_plain),
                  "K8": (mk, "_bounce_bwd_cuda", mk.bounce_bwd_plain),
                  "K9": (mk, "_regen_replay_bwd_cuda", mk.regen_replay_bwd_plain),
-                 "K10": (mk, "_bounce_step_cuda", mk.bounce_step_plain)}
+                 "K10": (mk, "_bounce_step_cuda", mk.bounce_step_plain),
+                 "K12": (mg, "_material_grad_cuda", mg.material_grad_plain)}
     wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
                 "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd,
-                "K10": mk.bounce_step, "K11": rng.uniform_kernel}
+                "K10": mk.bounce_step, "K11": rng.uniform_kernel, "K12": mg.material_grad}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1405,6 +1414,8 @@ def main(argv=None) -> int:
         for k in expect:
             if launches[tag][k] <= 0:
                 fail(f"kernel {k} was not launched by the {tag} render")
+        if launches[tag]["K12"] != 0:
+            fail(f"the {tag} render launched K12: its table does not require grad")
         check_draws(seen, launches[tag]["K11"], f"the {tag} render")
         kernel_ms = {}
         for k, a, b in spans:
@@ -1864,7 +1875,7 @@ def main(argv=None) -> int:
     # and the first step's K7/K8 wrapper calls (replay's names for them)
     tspans = []
     marks = {}
-    tcapt = {"K7": [], "K8": [], "K2": []}
+    tcapt = {"K7": [], "K8": [], "K2": [], "K12": []}
     trestore = []
 
     def patch(mod, name, hook):
@@ -1894,9 +1905,19 @@ def main(argv=None) -> int:
             return out
         return hook
 
+    def gathers_counted(f):
+        """Counts the gathers that differentiate the table (K12's calls)."""
+        def hook(table, mat_id):
+            if torch.is_grad_enabled() and any(x.requires_grad for x in table):
+                marks["gathers"] = marks.get("gathers", 0) + 1
+            return f(table, mat_id)
+        return hook
+
     for k, (m, n, _) in launchers.items():
-        if k in ("K2", "K7", "K8"):
+        if k in ("K2", "K7", "K8", "K12"):
             patch(m, n, span(k, getattr(m, n)))
+    patch(mg, "_material_grad_cuda", capture_first("K12", mg._material_grad_cuda))
+    patch(integ, "gather_materials", gathers_counted(integ.gather_materials))
     patch(replay, "fused_bounces", capture_first("K7", replay.fused_bounces))
     patch(replay, "bounce_bwd_step", capture_first("K8", replay.bounce_bwd_step))
     patch(train, "_grads", grads_hook(train._grads))
@@ -1919,7 +1940,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = time.time() - t0
             kms = {k: sum(a.elapsed_time(b) for kk, a, b in tspans if kk == k)
-                   for k in ("K2", "K7", "K8")}
+                   for k in ("K2", "K7", "K8", "K12")}
             fwd = e0.elapsed_time(marks["b0"])
             bwd = marks["b0"].elapsed_time(marks["b1"])
             upd = marks["b1"].elapsed_time(e3)
@@ -1929,7 +1950,8 @@ def main(argv=None) -> int:
                   f"loss {float(loss):.6e}, wall {wall * 1e3:.1f} ms = forward {fwd:.1f} ms "
                   f"(camera stage {fwd - kms['K7'] - kms['K2']:.1f} + K2 {kms['K2']:.3f} + K7 "
                   f"{kms['K7']:.3f}) + backward {bwd:.1f} ms (camera-stage autograd "
-                  f"{bwd - kms['K8']:.1f} + K8 {kms['K8']:.3f} in {n8} launches) + update "
+                  f"{bwd - kms['K8'] - kms['K12']:.1f} + K12 {kms['K12']:.3f} + K8 "
+                  f"{kms['K8']:.3f} in {n8} launches) + update "
                   f"{upd:.2f} ms; peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     marks["step"] = None
@@ -1943,6 +1965,9 @@ def main(argv=None) -> int:
     for k in ("K2", "K7", "K8", "K11"):
         if tlaunch[k] <= 0:
             fail(f"kernel {k} was not launched by the training steps")
+    if not tlaunch["K12"] == marks.get("gathers") == 3:
+        fail(f"the training steps launched K12 {tlaunch['K12']} times for "
+             f"{marks.get('gathers')} gathers that differentiate the table (3: one a pass)")
     check_draws(tseen, tlaunch["K11"], "the training steps")
     k11_checks["train"]["launches"] = tlaunch["K11"]
     print(f"phase 6 training: losses {[f'{x:.6e}' for x in losses]}, materials moved "
@@ -2150,6 +2175,72 @@ def main(argv=None) -> int:
           f"{fmt_ms(checks['K8']['train']['prev_ms'])}, bound {mean('bound_ms'):.4f} ms; "
           f"registers {'; '.join(f'{k}: {v}' for k, v in regs.items() if 'bounce_bwd' in k)}",
           flush=True)
+    # K12 on the first step's call (the camera stage's 262,144 lanes):
+    # against its plain version and the float64 sums, bit-identical on a
+    # second launch, timed through its wrapper and alone (its two kernels'
+    # device time, torch.profiler) beside its bound, its plain version and
+    # PyTorch's index backward (library_ms: the accumulating index_put_ of
+    # each of the five loads, which autograd ran before K12; the port never
+    # calls it)
+    (a12, _), = tcapt["K12"]
+    ids12, cot12, n_mat12 = a12
+    run12 = lambda: mg.material_grad(ids12, cot12, n_mat12)
+    o1, o2 = run12(), run12()
+    with plain("K12"):
+        pms12, op12 = once_ms(run12)
+    ref12 = torch.zeros((n_mat12, 9), dtype=torch.float64, device=dev)
+    sc12 = torch.zeros_like(ref12).index_add_(0, ids12.long(), cot12.T.double().abs())
+    ref12.index_add_(0, ids12.long(), cot12.T.double())
+    rel12 = float(((o1.double() - ref12).abs() / sc12.clamp(min=1e-30)).max())
+    rel12p = float(((op12.double() - ref12).abs() / sc12.clamp(min=1e-30)).max())
+    bitwise12 = torch.equal(o1, o2)
+    if not (bitwise12 and rel12 <= 1e-5):
+        fail(f"K12: bitwise repeat {bitwise12}, largest error {rel12} of the sum of |cot| "
+             "(limit 1e-5)")
+    ms12 = events_ms(run12, 50)
+
+    def k12_kernel_ms(reps=20):
+        """K12's kernels' device time a call (torch.profiler), or None."""
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    run12()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type.name == "CUDA" and ("material_grad_kernel" in e.name
+                                                       or "reduce_columns_kernel" in e.name)]
+        except Exception:  # the profiler only reports here
+            return None
+        return sum(us) / reps / 1e3 if len(us) == 2 * reps else None
+
+    kms12 = k12_kernel_ms()
+    m12 = ids12.long()
+    rows12 = (cot12[0:3].T, cot12[3:6].T, cot12[6], cot12[7], cot12[8])
+    shapes12 = ((n_mat12, 3), (n_mat12, 3), (n_mat12,), (n_mat12,), (n_mat12,))
+
+    def index_backward():
+        return [torch.zeros(sh, device=dev).index_put_((m12,), g, accumulate=True)
+                for sh, g in zip(shapes12, rows12)]
+
+    lib12 = (once_ms(index_backward)[0] + once_ms(index_backward)[0]) / 2
+    b12, by12 = bound(nbytes(ids12, cot12, o1), 9 * ids12.shape[0])
+    checks["K12"] = {"train": dict(
+        launches=tlaunch["K12"], max_abs_err=float((o1.double() - ref12).abs().max()),
+        ms=ms12, kernel_ms=kms12, plain_ms=pms12, bound_ms=b12, bound_by=by12, prev_ms=None,
+        library_ms=lib12)}
+    print(f"phase 6 K12 N={ids12.shape[0]} n_mat={n_mat12} (grid {mg.k12_blocks(ids12.shape[0])} "
+          f"blocks): bitwise repeat {bitwise12}, largest error of the float64 sums relative "
+          f"to the sum of |cot| {rel12:.2e} (the plain version's {rel12p:.2e}); through its "
+          f"wrapper {ms12:.4f} ms, its two kernels alone {fmt_ms(kms12)}, bound {b12:.4f} ms "
+          f"({by12}), plain {pms12:.3f} ms, PyTorch's index backward (library_ms) "
+          f"{lib12:.3f} ms; launches {tlaunch['K12']} for {marks.get('gathers')} "
+          f"differentiated gathers; registers "
+          f"{'; '.join(f'{k}: {v}' for k, v in regs.items() if 'material_grad' in k)}",
+          flush=True)
+    del o1, o2, op12, ref12, sc12
+
     # K2: the first step's launch (every step's camera stage has the same
     # inputs: the same key, pixels and camera)
     k2_report(6, "train", tscene, tcapt["K2"][0][0], tlaunch["K2"], len(tcapt["K2"]))
@@ -2270,6 +2361,9 @@ def main(argv=None) -> int:
     for k in ("K2", "K4", "K9"):
         if rlaunch[k] <= 0:
             fail(f"kernel {k} was not launched by the regen training steps")
+    if rlaunch["K12"] != 3 * S:
+        fail(f"the regen training steps launched K12 {rlaunch['K12']} times (3 x S={S}: one "
+             "a camera stage)")
     print(f"phase 7 regen training: losses {[f'{x:.6e}' for x in losses]} (falling), "
           f"materials moved {moved:.4e} (sum |delta|), launches {rlaunch}")
     print(f"phase 7 geometry pack of the regen chain: {pack_times(tscene_d, mats0)}")
@@ -3410,10 +3504,10 @@ def main(argv=None) -> int:
             del walls, out_r, out_s, calls, seen
         torch.cuda.empty_cache()
         # the 1-rank regenerating train step against mesh=None, bit for bit,
-        # with PyTorch's deterministic algorithms (the backward of the camera
-        # stage's indexed material loads, an accumulating index_put_, is not
-        # deterministic on CUDA otherwise); mesh=None runs twice to show
-        # that the reference itself repeats bit for bit
+        # with PyTorch's deterministic algorithms (which the camera stage's
+        # material gather needed while its VJP was an accumulating
+        # index_put_; K12 sums in a fixed order); mesh=None runs twice to
+        # show that the reference itself repeats bit for bit
         rscene, rcam, rparams = phase10_scene("suzanne", 512, seed=1)
         rin = phase10_train_inputs(rscene, rcam, rparams, 7)
         steps = {}
@@ -3582,7 +3676,7 @@ def main(argv=None) -> int:
     # under "by_path"
     head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
             "K8": "train", "K4r": "regen-train", "K9": "regen-train", "K6": "sub3",
-            "K10": "compact", "K11": "cornell"}
+            "K10": "compact", "K11": "cornell", "K12": "train"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -3604,13 +3698,16 @@ def main(argv=None) -> int:
                 "pt_three_ways_tpu/ops/pallas_megakernel.py:2078"),
         "K11": ("K11 uniforms", "pt_three_ways_tpu_torch/csrc/threefry.cu",
                 "pt_three_ways_tpu/ops/rng.py:52 (XLA's jax.random.uniform, no pallas_call)"),
+        "K12": ("K12 material_grad", "pt_three_ways_tpu_torch/csrc/material_grad.cu",
+                "pt_three_ways_tpu/models/integrator.py:113 (XLA's transpose of "
+                "the gather, a scatter-add; no pallas_call)"),
     }
     checks["K11"] = k11_checks
     rows = []
-    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10", "K11"):
+    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10", "K11", "K12"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         path=head[k], **checks[k][head[k]], library_ms=None,
+                         path=head[k], **{"library_ms": None, **checks[k][head[k]]},
                          by_path=checks[k]))
 
     print(f"total {time.time() - t_start:.1f} s")

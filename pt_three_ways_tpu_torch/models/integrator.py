@@ -35,6 +35,7 @@ from ..ops import rng
 from ..ops.camera import Camera, generate_rays
 from ..ops.intersect import Hits, intersect_scene
 from ..ops.intersect_kernel import PackedScene
+from ..ops.material_grad import material_grad
 from ..ops.vecmath import (
     EPSILON as _VEPS,
     Onb,
@@ -47,6 +48,7 @@ from ..ops.vecmath import (
 )
 from ..utils import tracing
 from ..utils.render_params import RenderParams
+from .materials import MaterialTable
 
 
 def resolve_intersector(params: RenderParams, device) -> str:
@@ -94,8 +96,45 @@ class GatheredMat(NamedTuple):
     cone_angle: torch.Tensor  # [R]
 
 
+class _MaterialGather(torch.autograd.Function):
+    """The five indexed loads of ``gather_materials`` with kernel K12 as
+    their VJP (``ops/material_grad``): one reduction by material id in a
+    fixed order, in place of an accumulating ``index_put_`` per field. The
+    forward is the plain loads, bit for bit. Inputs: the ids [R], then the
+    table's five fields; a cotangent that is None counts as zero."""
+
+    @staticmethod
+    def forward(ctx, mat_id, emission, diffuse, ior, reflectivity, cone_angle):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(mat_id)
+        ctx.n_mat = ior.shape[0]
+        return tuple(_loads(MaterialTable(emission, diffuse, ior, reflectivity, cone_angle),
+                            mat_id))
+
+    @staticmethod
+    def backward(ctx, *cots):
+        if all(c is None for c in cots):
+            return (None,) * 6
+        mat_id, = ctx.saved_tensors
+        ref = next(c for c in cots if c is not None)
+        n = mat_id.shape[0]
+        zero = lambda rows: torch.zeros((rows, n), dtype=ref.dtype, device=ref.device)
+        cot = torch.cat([zero(r) if c is None else c.reshape(r, n)
+                         for c, r in zip(cots, (3, 3, 1, 1, 1))])
+        d = material_grad(mat_id.to(torch.int32).contiguous(), cot, ctx.n_mat)
+        return None, d[:, 0:3], d[:, 3:6], d[:, 6], d[:, 7], d[:, 8]
+
+
 def gather_materials(table, mat_id: torch.Tensor) -> GatheredMat:
-    """All material scalars for every ray: one indexed load per field."""
+    """All material scalars for every ray: one indexed load per field.
+    Where the table is differentiated (grad mode on, a field that requires
+    grad) the loads go through ``_MaterialGather``, whose VJP is K12."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in table):
+        return GatheredMat(*_MaterialGather.apply(mat_id, *table))
+    return _loads(table, mat_id)
+
+
+def _loads(table, mat_id: torch.Tensor) -> GatheredMat:
     m = mat_id.long()
     return GatheredMat(
         emission=table.emission[m].T,

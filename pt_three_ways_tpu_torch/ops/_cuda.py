@@ -79,6 +79,8 @@ _SIGNATURES = {
                              P, P, P, P, P, P, P, I, I, P],
     # key word 0, key word 1, n, out, dtype (0 float32, 1 float64), stream
     "pt3_threefry_uniform": [U, U, L, P, I, P],
+    # ids, cot, n, n_mat, blocks, partial, out, dtype (0 float32, 1 float64), stream
+    "pt3_material_grad": [P, P, I, I, I, P, P, I, P],
 }
 
 

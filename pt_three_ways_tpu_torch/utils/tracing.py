@@ -29,7 +29,8 @@ Names, from the entry point down (``pt3.`` first):
       (``models/render.render_rounds``); train.step, train.forward,
       train.backward, train.update (``parallel/train``); scene.build;
   camera (the camera stage), camera.rays, rng (threefry uniforms);
-  k2, k4 (K4 and K5), k7, k8, k9, k10: the kernels' public wrappers;
+  k2, k4 (K4 and K5), k7, k8, k9, k10, k12: the kernels' public wrappers
+      (k12 inside the backward of a gather that differentiates the table);
   sort: the feedback sort's permutations of K4's lanes, before and after
       its launch (``models/integrator.trace_passes_fused``);
   sync.<site>: a copy between the card and the host that waits for the

@@ -45,7 +45,11 @@ on the card) bit for bit against the plain ``rng.uniform``, compared as
 int32 or int64 views, in float32 and float64, on the render's keys and the
 main path's shapes and at n = 0, 1, 21 and 2^24 + 3; another dtype raises;
 one launch a call, its draws counted in ``rng.kernel_draws`` while tracing
-is on.
+is on. K12 (the material gather's VJP) within 1e-5 of the sum of |cot| of
+the float64 sums for 1, 4, 101, 340 and 2,000 materials (its slices) over
+0, 1, 262,144 and 4,194,304 lanes, bit-identical on a second launch, in
+float64 too; a train step launches it once, and two give bit-identical
+tables.
 """
 
 import numpy as np
@@ -58,6 +62,7 @@ from pt_three_ways_tpu_torch.models.render import render
 from pt_three_ways_tpu_torch.models.scene import SceneBuilder, auto_epsilon
 from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
 from pt_three_ways_tpu_torch.ops import kernel_rng, rng
+from pt_three_ways_tpu_torch.ops import material_grad as mg
 from pt_three_ways_tpu_torch.ops import megakernel as mk
 from pt_three_ways_tpu_torch.utils import tracing
 from pt_three_ways_tpu_torch.utils.render_params import RenderParams
@@ -673,3 +678,104 @@ def test_k11_launches_and_dtypes(dev):
         with pytest.raises(ValueError, match="unsupported dtype"):
             rng.uniforms(key, (8,), dev, dtype)
     assert rng.uniform_kernel.launches == before + 2
+
+
+def _k12_inputs(n_mat, n, dev, dtype=torch.float32, seed=5):
+    """ids [n] int32 in runs of one material (as neighbouring pixels hit)
+    for the first half, at random after; material n_mat // 2 in no lane
+    where there is more than one. cot [9, n] normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.arange(n_mat, device=dev)
+    if n_mat > 1:
+        pool = pool[pool != n_mat // 2]
+    pick = lambda k: pool[torch.randint(0, pool.numel(), (k,), generator=gen, device=dev)]
+    n_runs = n // 100 + 1
+    runs = torch.repeat_interleave(pick(n_runs), torch.randint(
+        1, 200, (n_runs,), generator=gen, device=dev))[:n // 2]
+    ids = torch.cat([runs, pick(n - runs.numel())]).to(torch.int32).contiguous()
+    cot = torch.randn((9, n), generator=gen, device=dev, dtype=dtype)
+    return ids, cot
+
+
+@pytest.mark.parametrize("n", [0, 1, 262144, 4194304])
+@pytest.mark.parametrize("n_mat", [1, 4, 101, 340, 2000])
+def test_k12_matches_plain_and_float64_sums(dev, n_mat, n):
+    """K12 against its plain version (a lane-order index_add_) and the
+    float64 sum: each entry within 1e-5 of the sum of its lanes' |cot|.
+    Why 1e-5: K12 adds a lane through at most ~60 roundings (a thread's
+    running sum over its <= 16 tiles, the warp's 5 shuffles, up to 16
+    flushes into the warp's row, 8 warps, the second pass over <= 1024
+    blocks: 4 strided and 8 tree levels), each within 2^-24 of a partial
+    sum, so at most ~4e-6 of the sum of |cot|.
+    The plain version sums in lane order and may stray further: it is held
+    to the float64 sum by its own distance plus K12's limit. Two launches
+    are bit-identical; 2000 materials take K12's slices (more rows than a
+    block's shared memory holds at once); material n_mat // 2 is in no
+    lane and reads exactly 0."""
+    ids, cot = _k12_inputs(n_mat, n, dev)
+    before = mg.material_grad.launches
+    got = mg.material_grad(ids, cot, n_mat)
+    again = mg.material_grad(ids, cot, n_mat)
+    assert mg.material_grad.launches == before + 2
+    assert got.shape == (n_mat, 9) and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got, again)
+    plain = mg.material_grad_plain(ids, cot, n_mat)
+    ids64 = ids.long()
+    ref = torch.zeros((n_mat, 9), dtype=torch.float64, device=dev)
+    ref.index_add_(0, ids64, cot.T.double())
+    scale = torch.zeros_like(ref).index_add_(0, ids64, cot.T.double().abs())
+    err = (got.double() - ref).abs()
+    assert (err <= 1e-5 * scale).all(), float((err / scale.clamp(min=1e-30)).max())
+    assert ((got.double() - plain.double()).abs()
+            <= (plain.double() - ref).abs() + 1e-5 * scale).all()
+    if n_mat > 1:
+        assert float(got[n_mat // 2].abs().max()) == 0.0
+
+
+def test_k12_float64_and_refusals(dev):
+    """K12 in float64 (the table chip_smoke's float64 lane sums gather
+    from) within 1e-12 of the sum of |cot| of its plain version; the
+    wrapper refuses other shapes and types before any launch."""
+    ids, cot = _k12_inputs(5, 100000, dev, torch.float64)
+    got = mg.material_grad(ids, cot, 5)
+    plain = mg.material_grad_plain(ids, cot, 5)
+    scale = torch.zeros_like(plain).index_add_(0, ids.long(), cot.T.abs())
+    assert got.dtype == torch.float64 and torch.equal(got, mg.material_grad(ids, cot, 5))
+    assert ((got - plain).abs() <= 1e-12 * scale).all()
+    before = mg.material_grad.launches
+    for bad in ((ids.long(), cot), (ids, cot.half()), (ids, cot[:, :-1]),
+                (ids.cpu(), cot), (ids, cot.T.contiguous().T)):
+        with pytest.raises(ValueError):
+            mg.material_grad(*bad, 5)
+    assert mg.material_grad.launches == before
+
+
+def test_k12_is_the_train_steps_material_gather_vjp(dev):
+    """A train step of test_train_step_on_card_matches_cpu's shape launches
+    K12 once (its one camera stage) and no PyTorch index backward (the
+    kernels of the backward, by torch.profiler, where it sees the card);
+    two identical steps give bit-identical material tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pt_three_ways_tpu_torch.parallel.train import TrainState, make_sharded_train_step
+
+    params = RenderParams(width=16, height=16, first_bounce_u_samples=2,
+                          first_bounce_v_samples=2, max_depth=4, intersector="kernel")
+    sb = SceneBuilder()
+    camera = create_scene(sb, "cornell", params)
+    scene = sb.build()
+    px = torch.arange(256, dtype=torch.int32) % 16
+    py = torch.arange(256, dtype=torch.int32) // 16
+    target = torch.full((256, 3), 0.25)
+    step = make_sharded_train_step(scene, params, device="cuda")
+    state = TrainState(scene.materials, camera, 0)
+    before = mg.material_grad.launches
+    _, s1 = step(state, rng.base_key(2), px, py, target)
+    assert mg.material_grad.launches == before + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, s2 = step(state, rng.base_key(2), px, py, target)
+        torch.cuda.synchronize()
+    assert mg.material_grad.launches == before + 2
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert not any("indexing_backward" in k or "index_put" in k for k in names), names
+    assert all(torch.equal(a, b) for a, b in zip(s1.materials, s2.materials))

@@ -10,8 +10,7 @@ Phases (one line each, any failure stops the run):
      K2, K4, K5, K7, K8, K9 and K10 of PREV_COMMIT and this tree's sources
      again with a flag (ALT_BUILDS: the culled build of megakernel.cu, where
      a one-chunk scene takes the culled warp search; K2 with the per-lane
-     scan from 8, 12, 16 voters or never; K5 one lane a thread, and K5
-     counting its table loads' sectors; K8 with its registers capped for 3
+     scan from 8, 12, 16 voters or never; K8 with its registers capped for 3
      and 4 blocks an SM; K10 with the culled warp search on one-chunk
      scenes)), with each kernel instance's registers and spills (and the
      older K10's, the other builds');
@@ -47,11 +46,10 @@ Phases (one line each, any failure stops the run):
      bit for bit against the older K4 and, on cornell, the culled build
      (every launch of the call) and timed in turns with them, with its lane
      utilisation and the share of shading
-     events on glossy materials; K5 bit for bit against its plain version,
-     the older K5 and its one-lane-a-thread build, timed in turns with them,
-     with the lane utilisation one lane a thread, the sectors a request of
-     its table loads (the counting builds), its issue floor beside its bound
-     and its registers; and the card's camera stage against the
+     events on glossy materials; K5 bit for bit against its plain version
+     and the older K5, timed in turns with it, with the lane utilisation
+     one lane a thread, its issue floor beside its bound and its
+     registers; and the card's camera stage against the
      CPU's (whose rounding follows the JAX package's compiled CPU code) on
      every tile of the CLI-default render's first pass;
   6. the training path through make_sharded_train_step: three replay steps
@@ -82,12 +80,10 @@ Phases (one line each, any failure stops the run):
      backward, then the camera stages' autograd), each split into forward
      and backward with its K2/K4/K9 time and peak memory, the launch
      counters set to 0 just before the three steps and read just after;
-     K4's replay mode (culled by the window boxes) with tail compaction
-     against its plain version, against K4 without replay (acc and counts
-     bit-equal) and against the chain's launch (no compaction: slots,
-     counts, acc and K9's gradients bit-equal), the chain's launch against
-     the older K4's replay (bit for bit, timed in turns; see PREV_COMMIT),
-     its tail-fraction sweep, and K9 against its plain
+     the chain's K4 launch in replay mode (culled by the window boxes, no
+     compaction) against its plain version, against K4 without replay (acc
+     and counts bit-equal) and against the older K4's replay (bit for bit,
+     timed in turns; see PREV_COMMIT), and K9 against its plain
      version and twice for bitwise repeatability, on the first step's
      inputs, timed in turns with the older K9 (every output bit-equal), both
      walks' lane utilisation and sectors per request from the counts, and
@@ -182,7 +178,6 @@ range behind ``ops/megakernel.RESIDENT_MAX_TRIANGLES``) and the device line.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import math
 import os
@@ -321,13 +316,6 @@ ALT_BUILDS = {
     # lanes (33: never)
     **{f"voters{v}": ("intersect", [f"-DPT3_THREAD_SCAN_VOTERS={v}"], "pt3_intersect")
        for v in (8, 12, 16, 33)},
-    # K5 one lane a thread (its scene staged, its table loads before the
-    # search, no lane queue); the sectors its table loads touch, with and
-    # without the queue (pt3_k5_sector_counts)
-    "k5_lane_block": ("megakernel", ["-DPT3_K5_LANE_BLOCK"], "pt3_regen_table"),
-    "k5_sectors": ("megakernel", ["-DPT3_K5_COUNT_SECTORS"], "pt3_regen_table"),
-    "k5_sectors_lane_block": ("megakernel", ["-DPT3_K5_COUNT_SECTORS", "-DPT3_K5_LANE_BLOCK"],
-                              "pt3_regen_table"),
     # K8 with its registers capped for 3 and 4 blocks of 256 an SM (the
     # default: 2)
     **{f"k8_blocks{b}": ("bounce_bwd", [f"-DPT3_K8_MIN_BLOCKS={b}"], "pt3_bounce_bwd")
@@ -362,16 +350,25 @@ def load_alt(builds):
         fn = getattr(handles[name], entry)
         fn.argtypes = _cuda._SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        if "-DPT3_K5_COUNT_SECTORS" in flags:
-            handles[name].pt3_k5_sector_counts.argtypes = [ctypes.c_void_p]
-            handles[name].pt3_k5_sector_counts.restype = ctypes.c_int
     return handles, "\n".join(reports)
+
+
+class PrevKrng:
+    """The older K4's entry point behind this tree's arguments: it also
+    takes a replay column and a continuation's sums and counts (rcol,
+    acc_in, cnt_in) after the replay slots, null here."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def pt3_regen_krng(self, *args):
+        return self.lib.pt3_regen_krng(*args[:22], None, None, None, *args[22:])
 
 
 def load_prev(builds):
     """The older kernels' libraries by kernel (PREV_SOURCES; K5 in K4's),
     with their ptxas reports. Every entry point takes this tree's arguments
-    but K10's, which takes no window boxes."""
+    but K10's, which takes no window boxes, and K4's (``PrevKrng``)."""
     import ctypes
 
     from pt_three_ways_tpu_torch.ops import _cuda
@@ -386,7 +383,9 @@ def load_prev(builds):
     handles["K5"] = handles["K4"]
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sig = lambda name: (name, _cuda._SIGNATURES[name])
-    sigs = {"K4": sig("pt3_regen_krng"), "K7": sig("pt3_fused_bounces"),
+    k4 = _cuda._SIGNATURES["pt3_regen_krng"]
+    sigs = {"K4": ("pt3_regen_krng", k4[:22] + [P, P, P] + k4[22:]),
+            "K7": sig("pt3_fused_bounces"),
             "K2": sig("pt3_intersect"), "K9": sig("pt3_regen_replay_bwd"),
             "K5": sig("pt3_regen_table"), "K8": sig("pt3_bounce_bwd"),
             "K10": ("pt3_bounce_step", [P, P, P, P, I, I, I, F, F, F,
@@ -395,6 +394,7 @@ def load_prev(builds):
         fn = getattr(handles[kernel], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    handles["K4"] = PrevKrng(handles["K4"])
     return handles, "\n".join(reports)
 
 
@@ -424,12 +424,12 @@ def prev_krng(prev, args):
     from pt_three_ways_tpu_torch.ops import _cuda
 
     a = list(args)
-    replay = a[13] if len(a) > 13 else None
-    if replay is not None:
-        replay = a[13] = replay._replace(rres=torch.empty_like(replay.rres))
+    rres = a[13] if len(a) > 13 else None
+    if rres is not None:
+        rres = a[13] = torch.empty_like(rres)
     with swap_attr(_cuda, "_LIB", prev["K4"]):
         acc, cnt, res = LAUNCH["K4"](*a)
-    return acc, cnt, (res if replay is None else replay.rres)
+    return acc, cnt, (res if rres is None else rres)
 
 
 def prev_k7(prev, args):
@@ -1638,13 +1638,9 @@ def main(argv=None) -> int:
 
     def k5_turns(a, kw, out):
         """The K5 wrapper call (a, kw), whose outputs were ``out``, on the
-        older K5 (PREV_COMMIT) and on the one-lane-a-thread build
-        (ALT_BUILDS k5_lane_block) in its place: acc and counts bit-equal
-        (fails otherwise); the call timed in turns (this, older, lane block,
-        lane block, older, this); the 32-B sectors per request of a table
-        load in the counting builds (lane queue, one lane a thread), whose
-        outputs must be equal too. Returns {"ms": {run: ms or None},
-        "sectors": {run: sectors a request}}."""
+        older K5 (PREV_COMMIT) in its place: acc and counts bit-equal (fails
+        otherwise); the call timed in turns (this, older, older, this).
+        Returns {run: ms or None}."""
         run = lambda: wrappers["K5"](*a, **kw)
 
         def on_lib(lib):
@@ -1653,29 +1649,14 @@ def main(argv=None) -> int:
                     return run()
             return f
 
-        runs = {"this": run, "older": on_lib(prev_lib["K5"]) if prev_lib is not None else None,
-                "lane block": on_lib(alt_lib["k5_lane_block"])}
-        for k in ("older", "lane block"):
-            if runs[k] is not None and not same_out(out, runs[k]()):
-                fail(f"K5 differs from the {k} K5 on the same call")
+        runs = {"this": run, "older": on_lib(prev_lib["K5"]) if prev_lib is not None else None}
+        if runs["older"] is not None and not same_out(out, runs["older"]()):
+            fail("K5 differs from the older K5 on the same call")
         ms = {k: [] for k in runs}
         order = [k for k in runs if runs[k] is not None]
         for k in order + order[::-1]:
             ms[k].append(events_ms(runs[k], 3))
-        sectors = {}
-        buf = (ctypes.c_ulonglong * 2)()
-        for name, label in (("k5_sectors", "queue"), ("k5_sectors_lane_block", "lane block")):
-            lib = alt_lib[name]
-            torch.cuda.synchronize()
-            _cuda.check(lib.pt3_k5_sector_counts(buf), "pt3_k5_sector_counts")  # zeroes
-            o = on_lib(lib)()
-            torch.cuda.synchronize()
-            _cuda.check(lib.pt3_k5_sector_counts(buf), "pt3_k5_sector_counts")
-            if not same_out(out, o):
-                fail(f"K5's counting build ({label}) differs from K5")
-            sectors[label] = buf[1] / max(buf[0], 1)
-        return {"ms": {k: (sum(v) / len(v) if v else None) for k, v in ms.items()},
-                "sectors": sectors}
+        return {k: (sum(v) / len(v) if v else None) for k, v in ms.items()}
 
     def k5_regs():
         """K5's instances' registers and spills (phase 1)."""
@@ -1729,8 +1710,8 @@ def main(argv=None) -> int:
                 if not same_out(out_k, out_p):
                     fail(f"K5 on the {tag} render's main launch differs from its plain version")
                 k5 = k5_turns(a, kw, out_k)
-                ms, prev_ms = k5["ms"]["this"], k5["ms"]["older"]
-                # lane utilisation one lane a thread (the lane-block build), as K4's
+                ms, prev_ms = k5["this"], k5["older"]
+                # lane utilisation one lane a thread, as K4's
                 cw = out_k[1][:out_k[1].shape[0] // 32 * 32].reshape(-1, 32).to(torch.int64)
                 util = cw.sum().item() / max(32 * cw.max(dim=1).values.sum().item(), 1)
                 # the issue floor: SASS instructions of the events over the
@@ -1742,12 +1723,9 @@ def main(argv=None) -> int:
                          if pk.n_windows == 1 else None)
                 extra = (f"; {k4_design(pk)} with the unpacked winner, lane queue: bit-equal to "
                          f"its plain version True, to the older K5 "
-                         f"{prev_lib is not None or 'not built'}, to one lane a thread True; "
-                         f"in turns: this {ms:.3f} ms, the older K5 {fmt_ms(prev_ms)}, one lane "
-                         f"a thread (the scene staged) {k5['ms']['lane block']:.3f} ms; lane "
-                         f"utilisation one lane a thread {util:.4f}; 32-B sectors a request of "
-                         f"a table load: lane queue {k5['sectors']['queue']:.3f}, one lane a "
-                         f"thread {k5['sectors']['lane block']:.3f}; issue floor "
+                         f"{prev_lib is not None or 'not built'}; in turns: this {ms:.3f} ms, "
+                         f"the older K5 {fmt_ms(prev_ms)}; lane utilisation one lane a thread "
+                         f"{util:.4f}; issue floor "
                          + (f"{floor:.3f} ms" if floor is not None else "n/a (culled)")
                          + f"; registers {k5_regs()}")
             else:
@@ -2371,12 +2349,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # (a, b) K4 in replay mode as the chain runs it (culled by the window
-    # boxes, no compaction) and with tail compaction (tail_frac 0.125):
-    # compacted against its plain version, against K4 without replay (acc
-    # and counts bit-equal) and against the chain's launch (slots, counts,
-    # acc and K9's gradients bit-equal); the chain's launch against the
-    # older K4's replay (slots, counts and acc bit-equal; timed in turns), on
-    # the first step's call
+    # boxes, no compaction): against its plain version, against K4 without
+    # replay (acc and counts bit-equal) and against the older K4's replay
+    # (slots, counts and acc bit-equal; timed in turns), on the first step's
+    # call
     a4, kw4 = rcapt["K4"]
     a4 = [x.to(dev) if torch.is_tensor(x) else x for x in a4]
     pk4, s0_4, lanes4 = a4[0], a4[1], a4[2]
@@ -2384,46 +2360,35 @@ def main(argv=None) -> int:
     if not (isinstance(pk4, mk.PackedSceneStream) and kw4.get("replay")
             and not kw4.get("tail_frac")):
         fail(f"the regen chain's K4 launch is not the culled replay: {kw4}")
-    tail4 = 0.125
-    kw4_tail = dict(kw4, tail_frac=tail4)
-    out_k = mk.fused_passes_krng(*a4, **kw4_tail)
+    kept = []  # the chain's launch, its kernel arguments kept for the older K4
+    launch4 = mk._regen_krng_cuda
+    mk._regen_krng_cuda = lambda *a: kept.append(a) or launch4(*a)
+    try:
+        out_k = mk.fused_passes_krng(*a4, **kw4)
+    finally:
+        mk._regen_krng_cuda = launch4
+    args4 = kept[0]
     out_n = mk.fused_passes_krng(*a4)
     torch.cuda.synchronize()
     same_nr = torch.equal(out_k[0], out_n[0]) and torch.equal(out_k[1], out_n[1])
     del out_n
     cnt_k, res_k = out_k[1], out_k[2]
-    j_col = torch.arange(sc4 * nb4, device=dev)[:, None, None]
-    real = j_col < cnt_k[None, None, :]
-    kept = []  # the chain's launch, its kernel arguments kept for the older K4
-    launch4 = mk._regen_krng_cuda
-    mk._regen_krng_cuda = lambda *a: kept.append(a) or launch4(*a)
-    try:
-        out_c = mk.fused_passes_krng(*a4, **kw4)
-    finally:
-        mk._regen_krng_cuda = launch4
-    args4 = kept[0]
-    torch.cuda.synchronize()
-    same_chain = (torch.equal(out_c[1], cnt_k) and torch.equal(out_c[0], out_k[0])
-                  and bool(torch.where(real, res_k == out_c[2], True).all()))
     acc_bar = rcapt["K9"].to(dev)
     b9 = (pk4, lanes4, a4[3], a4[4], res_k, cnt_k, acc_bar, sc4)
-    same_k9 = all(torch.equal(x, y) for x, y in zip(
-        mk.regen_replay_bwd(*b9), mk.regen_replay_bwd(*b9[:4], out_c[2], out_c[1], *b9[6:])))
     same_prev4 = None
     if prev_lib is not None:
+        j_col = torch.arange(sc4 * nb4, device=dev)[:, None, None]
+        real = j_col < cnt_k[None, None, :]
         out_f = prev_krng(prev_lib, args4)
         torch.cuda.synchronize()
         same_prev4 = (torch.equal(out_f[1], cnt_k) and torch.equal(out_f[0], out_k[0])
                       and bool(torch.where(real, res_k == out_f[2], True).all()))
-        del out_f
-    del out_c, real
-    if not (same_nr and same_chain and same_k9 and same_prev4 is not False):
-        fail(f"K4 replay culled + tail_frac={tail4}: acc and counts bit-equal to K4 without "
-             f"replay {same_nr}; slots, counts and acc bit-equal to the chain's launch "
-             f"{same_chain} and to the older K4's replay {same_prev4}; K9 on the "
-             f"compacted and the chain's slots bit-equal {same_k9}")
+        del out_f, real
+    if not (same_nr and same_prev4 is not False):
+        fail(f"K4 replay culled: acc and counts bit-equal to K4 without replay {same_nr}; "
+             f"slots, counts and acc bit-equal to the older K4's replay {same_prev4}")
     with plain("K4"):
-        pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4_tail))
+        pms4, out_p = once_ms(lambda: mk.fused_passes_krng(*a4, **kw4))
     frac4, err4 = cmp_acc("K4 replay", out_k[:2], out_p[:2])
     cnt_eq = torch.equal(cnt_k, out_p[1])
     lane_ok = torch.all(torch.isclose(out_k[0], out_p[0], rtol=1e-4, atol=1e-5), dim=0) \
@@ -2471,25 +2436,14 @@ def main(argv=None) -> int:
     checks["K4r"] = {"regen-train": dict(launches=rlaunch["K4"], max_abs_err=max(err4, res_err),
                                          ms=ms4, plain_ms=pms4, bound_ms=b4, bound_by=by4,
                                          prev_ms=ms4_prev)}
-    print(f"phase 7 K4 replay N={s0_4.shape[1]} S={sc4} nb={nb4} culled, tail_frac={tail4} "
+    print(f"phase 7 K4 replay N={s0_4.shape[1]} S={sc4} nb={nb4} culled, no compaction, "
           f"against its plain version: lanes agree {frac4:.6f} max|dacc| {err4:.3e}, counts "
           f"equal {cnt_eq}, realized slots {slots} ({n_hit} hits) max|d| {res_err:.3e}; acc "
           f"and counts bit-equal to K4 without replay {same_nr}; slots, counts and acc "
-          f"bit-equal to the chain's launch (no compaction) {same_chain} and to the older "
-          f"K4's replay {same_prev4}, K9 on the compacted and the chain's slots "
-          f"bit-equal {same_k9}; the chain's launch {ms4:.3f} ms ({ms4a:.3f} / {ms4b:.3f}; "
-          f"the older K4 {fmt_ms(ms4_prev)} in turns; {ms4_nr:.3f} without replay) "
-          f"plain {pms4:.1f} ms bound {b4:.3f} ms ({by4}); residual buffer "
+          f"bit-equal to the older K4's replay {same_prev4}; {ms4:.3f} ms ({ms4a:.3f} / "
+          f"{ms4b:.3f}; the older K4 {fmt_ms(ms4_prev)} in turns; {ms4_nr:.3f} without "
+          f"replay) plain {pms4:.1f} ms bound {b4:.3f} ms ({by4}); residual buffer "
           f"{nbytes(res_k) / 1e9:.2f} GB", flush=True)
-
-    # the tail-fraction sweep of the chain's launch (one level)
-    sweep4 = {}
-    for frac in (0.0, 0.0625, 0.125, 0.25):
-        sweep4[frac] = events_ms(lambda: mk.fused_passes_krng(
-            *a4, **dict(kw4, tail_frac=frac, tail_levels=1)), 3)
-    print(f"phase 7 K4 replay tail-fraction sweep (one level, ms): "
-          f"{ {k: round(v, 3) for k, v in sweep4.items()} }; the chain runs without "
-          f"compaction", flush=True)
 
     # (c, d) K9 against its plain version, and twice, on the first step's
     # cotangent and the residuals K4 gives again for the same call
@@ -3048,8 +3002,8 @@ def main(argv=None) -> int:
     del rad_c, rad_5, cnt_5
 
     # K5's culled warp search on that call (the table-mode run's launch):
-    # bit for bit against its plain version, the older K5 and one lane a
-    # thread, timed in turns, with its bound
+    # bit for bit against its plain version and the older K5, timed in
+    # turns, with its bound
     pk5, state5, _, unif5, eps5, nb5, sc5 = k5_calls[-1]
     a5 = (pk5, state5, unif5, eps5, nb5, sc5)  # the wrapper's arguments
     out_5 = wrappers["K5"](*a5)
@@ -3066,16 +3020,13 @@ def main(argv=None) -> int:
                            pk5.wbox, pk5.wbox1) + nbytes(*out_5),
                     search5[0] + live5 * OPS_SHADE)
     checks["K5"]["compact-table"] = dict(
-        launches=1, max_abs_err=0.0, ms=k5["ms"]["this"], plain_ms=pms5, bound_ms=b5,
-        bound_by=by5, prev_ms=k5["ms"]["older"])
+        launches=1, max_abs_err=0.0, ms=k5["this"], plain_ms=pms5, bound_ms=b5,
+        bound_by=by5, prev_ms=k5["older"])
     print(f"phase 8 K5 suzanne 512^2 S={S4} N={state5.shape[1]} (table mode, culled warp "
-          f"search, lane queue): acc and counts bit-equal to its plain version, to the older K5 "
-          f"{prev_lib is not None or 'not built'} and to one lane a thread; in turns: this "
-          f"{k5['ms']['this']:.3f} ms, the older K5 "
-          f"{fmt_ms(k5['ms']['older'])}, one lane a thread {k5['ms']['lane block']:.3f} ms; "
-          f"32-B sectors a request of a table load: lane queue {k5['sectors']['queue']:.3f}, "
-          f"one lane a thread {k5['sectors']['lane block']:.3f}; plain {pms5:.1f} ms bound "
-          f"{b5:.3f} ms ({by5}); live bounces {live5}", flush=True)
+          f"search, lane queue): acc and counts bit-equal to its plain version and to the "
+          f"older K5 {prev_lib is not None or 'not built'}; in turns: this "
+          f"{k5['this']:.3f} ms, the older K5 {fmt_ms(k5['older'])}; plain {pms5:.1f} ms "
+          f"bound {b5:.3f} ms ({by5}); live bounces {live5}", flush=True)
     del a5, out_5, out_p5, k5_calls, scene
 
     # ---- phase 9: the other ways, smallpt, remat, the CLI and the merge ---

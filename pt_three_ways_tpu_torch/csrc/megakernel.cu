@@ -3,7 +3,8 @@
 //
 // K4 replaces the JAX package's ops/pallas_megakernel.py
 // _megakernel_regen_krng / _run_regen_krng (plain, thresh, resume and replay
-// modes); K5 replaces _megakernel_regen / _run_regen. One thread per lane:
+// modes; replay, as there, runs neither with tail compaction nor streamed);
+// K5 replaces _megakernel_regen / _run_regen. One thread per lane:
 // the path state lives in registers, a dead lane reloads the next alive
 // sample's first-bounce state from state0 [(s * 10 + r) * N + lane] and keeps
 // tracing until its samples are exhausted. The shading is pt3_device.cuh's.
@@ -66,12 +67,9 @@
 // (ray, window) pair is tested by the whole warp. The winners are the
 // resident scan's bit for bit.
 // Bound: the triangle tests of the windows each ray enters, charged per
-// lane; the residual writes are small next to them. It composes with tail
-// compaction: slots are per lane, so a continuation launch resumes a
-// survivor at slot cnt in its own column (rcol) of the residuals, with its
-// running radiance and count (acc_in, cnt_in). Nothing gathers or scatters
-// the residuals, and acc, cnt and every slot equal the uncompacted launch
-// bit for bit (the lane's sum continues in the same order).
+// lane; the residual writes are small next to them. It runs without tail
+// compaction (the lane queue, below, keeps a warp from idling behind its
+// longest lane), so slot j of lane i is row (j * 13 + r) * rres_n + i.
 //
 // STREAM (scenes above the resident mode's measured range,
 // ops/megakernel.RESIDENT_MAX_TRIANGLES): the triangle search is K6
@@ -133,9 +131,6 @@ struct KrngArgs {
   int* __restrict__ cnt_out;         // [N]
   float* __restrict__ resid_out;     // [12, N] (THRESH)
   float* __restrict__ rresid;        // [S*nb, 13, rres_n] (REPLAY)
-  const int* __restrict__ rcol;      // [N] a lane's column of rresid (REPLAY; null: lane)
-  const float* __restrict__ acc_in;  // [3, N] resumed radiance (REPLAY + RESUME)
-  const int* __restrict__ cnt_in;    // [N] resumed count, the next slot (REPLAY + RESUME)
   int* next_lane;                    // [1] the lane queue's head, 0 at launch (LANE_QUEUE)
   int rres_n;
   int n, S, nb, thresh;
@@ -173,7 +168,6 @@ __device__ __forceinline__ int next_alive(uint32_t lo, uint32_t hi, int s_cur,
 struct KrngLane {
   Lane L;
   uint32_t hlane, am_lo, am_hi, sdt;
-  int col;  // REPLAY: the lane's column of the residuals
 };
 
 // The lane's next alive sample (its first when `first`), from the mask
@@ -192,33 +186,13 @@ __device__ __forceinline__ void krng_refill(KrngLane& K, const KrngArgs& a,
   }
 }
 
-#ifdef PT3_K5_COUNT_SECTORS
-// A counting build (chip_smoke.py ALT_BUILDS): the requests of a table
-// load and the 32-B sectors they touch, summed over the launch, for the
-// threads of the warp that issue it together.
-__device__ unsigned long long k5_sector_count[2];  // requests, sectors
-
-__device__ __forceinline__ void count_table_sectors(const float4* p) {
-  const unsigned act = __activemask();
-  const unsigned peers =
-      __match_any_sync(act, (unsigned long long)reinterpret_cast<uintptr_t>(p) >> 5);
-  const int wl = threadIdx.x & 31;
-  if (wl == __ffs(peers) - 1) atomicAdd(&k5_sector_count[1], 1ull);
-  if (wl == __ffs(act) - 1) atomicAdd(&k5_sector_count[0], 1ull);
-}
-#endif
-
 // TABLE: the (u, acos u, v, p) of the lane's current sample and depth, one
 // 16-byte load from the lane-major table ((s * nb + d - 1) * N + lane),
 // issued before the winner search so that it hides its latency. The
 // threads of a warp hold lanes scattered over the launch (the lane queue),
 // so each touches its own sector: one load a bounce, not four.
 __device__ __forceinline__ float4 table_draws(const KrngLane& K, const KrngArgs& a, int lane) {
-  const float4* p = a.unif + (size_t)(K.L.s_cur * a.nb + K.L.d_cur - 1) * a.n + lane;
-#ifdef PT3_K5_COUNT_SECTORS
-  count_table_sectors(p);
-#endif
-  return __ldg(p);
+  return __ldg(a.unif + (size_t)(K.L.s_cur * a.nb + K.L.d_cur - 1) * a.n + lane);
 }
 
 // Shading on a hit with the lane's draws (K1's hash, or TABLE's `tab`),
@@ -267,9 +241,10 @@ constexpr int kMaxBlock = 128;
 constexpr int kCappedMinBlocks = 8;
 
 // REPLAY: the lane's slot for this iteration (slot cnt), rows (j * 13 + r)
-// * rres_n + col; writes the input state rows.
-__device__ __forceinline__ float* replay_slot_open(const KrngLane& K, const KrngArgs& a) {
-  float* slot = a.rresid + (size_t)K.L.cnt * 13 * a.rres_n + K.col;
+// * rres_n + lane; writes the input state rows.
+__device__ __forceinline__ float* replay_slot_open(const KrngLane& K, const KrngArgs& a,
+                                                   int lane) {
+  float* slot = a.rresid + (size_t)K.L.cnt * 13 * a.rres_n + lane;
 #pragma unroll
   for (int r = 0; r < 9; ++r) slot[(size_t)r * a.rres_n] = K.L.st[r];
   return slot;
@@ -309,7 +284,7 @@ __device__ __forceinline__ void krng_bounce_culled(const pt3::SceneView& s, Krng
                                                    const KrngArgs& a, int lane, bool active) {
   float4 tab = make_float4(0.f, 0.f, 0.f, 0.f);
   if (TABLE && active) tab = table_draws(K, a, lane);
-  float* slot = (SLOTS && active) ? replay_slot_open(K, a) : nullptr;
+  float* slot = (SLOTS && active) ? replay_slot_open(K, a, lane) : nullptr;
   if (active) K.L.cnt += 1;
   const pt3::Ray r{K.L.st[0], K.L.st[1], K.L.st[2], K.L.st[3], K.L.st[4], K.L.st[5]};
   float t;
@@ -345,8 +320,7 @@ __device__ __forceinline__ void krng_bounce_stream(const pt3::SceneView& s, Krng
 }
 
 // One bounce of every thread's lane in a loop that every thread of the
-// block (STREAM, THRESH) or warp (CULLED, REPLAY) runs; `active` lanes
-// trace.
+// block runs (STREAM, THRESH); `active` lanes trace.
 template <bool NO_GLOSSY, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_bounce_all(const pt3::SceneView& s, KrngLane& K,
                                                 const KrngArgs& a, int lane, bool active,
@@ -356,13 +330,12 @@ __device__ __forceinline__ void krng_bounce_all(const pt3::SceneView& s, KrngLan
   else if constexpr (MODE == kFlat) {
     if (active) krng_bounce_flat<NO_GLOSSY, TABLE>(s, K, a, lane);
   } else
-    krng_bounce_culled<NO_GLOSSY, MODE == kReplay, TABLE>(s, K, a, lane, active);
+    krng_bounce_culled<NO_GLOSSY, false, TABLE>(s, K, a, lane, active);
 }
 
 // A lane's state at the start of the launch: its first alive sample, or
-// (RESUME) the in-flight state of a compacted continuation, with (REPLAY)
-// its running sum and next slot.
-template <bool RESUME, int MODE, bool TABLE>
+// (RESUME) the in-flight state of a compacted continuation.
+template <bool RESUME, bool TABLE>
 __device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, int lane) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) K.L.st[r] = 0.0f;
@@ -374,19 +347,12 @@ __device__ __forceinline__ void krng_lane_init(KrngLane& K, const KrngArgs& a, i
   K.hlane = TABLE ? 0u : (uint32_t)a.lane_ids[lane] * pt3::kInP1;
   K.am_lo = TABLE ? 0u : (uint32_t)a.amask[lane];
   K.am_hi = TABLE ? 0u : (uint32_t)a.amask[a.n + lane];
-  K.col = (MODE == kReplay && a.rcol != nullptr) ? a.rcol[lane] : lane;
   if (RESUME) {
 #pragma unroll
     for (int r = 0; r < 10; ++r) K.L.st[r] = a.resid_in[(size_t)r * a.n + lane];
     K.L.s_cur = (int)a.resid_in[(size_t)10 * a.n + lane];
     K.L.d_cur = (int)a.resid_in[(size_t)11 * a.n + lane];
     K.sdt = pt3::sd_term(a.sample0, K.L.s_cur, K.L.d_cur);
-    if (MODE == kReplay && a.acc_in != nullptr) {  // continue the lane's sum and slots
-      K.L.acc[0] = a.acc_in[lane];
-      K.L.acc[1] = a.acc_in[a.n + lane];
-      K.L.acc[2] = a.acc_in[2 * a.n + lane];
-      K.L.cnt = a.cnt_in[lane];
-    }
   } else {
     krng_refill<TABLE>(K, a, lane, true);
   }
@@ -432,7 +398,7 @@ __device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const K
       if (((need >> wl) & 1u) && got < a.n) {
         lane = got;
         it = 0;
-        krng_lane_init<RESUME, MODE, TABLE>(K, a, lane);
+        krng_lane_init<RESUME, TABLE>(K, a, lane);
       }
       more = base + __popc(need) < a.n;
     }
@@ -447,13 +413,13 @@ __device__ __forceinline__ void krng_lane_queue(const pt3::SceneView& s, const K
   }
 }
 
-// STREAM, and every mode with tail compaction (THRESH): one lane a thread,
-// in a loop that every thread of the block runs (K6's votes and loads, and
-// THRESH's live count, take the whole block).
+// STREAM, and FLAT and CULLED with tail compaction (THRESH): one lane a
+// thread, in a loop that every thread of the block runs (K6's votes and
+// loads, and THRESH's live count, take the whole block).
 template <bool NO_GLOSSY, bool THRESH, bool RESUME, int MODE, bool TABLE>
 __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const KrngArgs& a,
                                                 unsigned char* smem) {
-  constexpr bool REPLAY = MODE == kReplay;
+  static_assert(MODE != kReplay, "REPLAY takes the lane queue");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = lane < a.n;
   const int li = valid ? lane : 0;
@@ -468,9 +434,9 @@ __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const K
     __syncthreads();
   }
   KrngLane K;
-  krng_lane_init<RESUME, MODE, TABLE>(K, a, li);
+  krng_lane_init<RESUME, TABLE>(K, a, li);
   if (!valid) K.L.st[9] = 0.0f;  // a thread past n stays in the loop, never live
-  const int max_iter = REPLAY ? a.S * a.nb : a.S * (a.nb + 1);
+  const int max_iter = a.S * (a.nb + 1);
   if constexpr (!THRESH) {
     // a dead lane stays dead (the refill runs in the bounce that ends a
     // path), so the block runs while any of its lanes is alive
@@ -496,14 +462,9 @@ __device__ __forceinline__ void krng_lane_block(const pt3::SceneView& s, const K
 }
 
 // Does this instance take the lane queue? Without tail compaction and
-// outside the stream mode. A build with -DPT3_K5_LANE_BLOCK (chip_smoke.py
-// ALT_BUILDS) runs K5 one lane a thread instead, its scene staged all the
-// same, so that the queue is timed against it on the same launches.
-template <bool THRESH, int MODE, bool TABLE>
+// outside the stream mode.
+template <bool THRESH, int MODE>
 __host__ __device__ constexpr bool uses_queue() {
-#ifdef PT3_K5_LANE_BLOCK
-  if (TABLE) return false;
-#endif
   return !THRESH && MODE != kStream;
 }
 
@@ -513,7 +474,7 @@ __device__ __forceinline__ void regen_krng_body(const pt3::SceneView& s_in, cons
   extern __shared__ __align__(16) unsigned char smem[];
   const pt3::SceneView s =
       MODE == kFlat ? pt3::flat_stage<true>(s_in, reinterpret_cast<float*>(smem)) : s_in;
-  if constexpr (uses_queue<THRESH, MODE, TABLE>())
+  if constexpr (uses_queue<THRESH, MODE>())
     krng_lane_queue<NO_GLOSSY, RESUME, MODE, TABLE>(s, a);
   else
     krng_lane_block<NO_GLOSSY, THRESH, RESUME, MODE, TABLE>(s, a, smem);
@@ -537,7 +498,7 @@ cudaError_t launch_one(pt3::SceneView s, const KrngArgs& a, int grid, int block,
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  if (uses_queue<THRESH, MODE, TABLE>()) {
+  if (uses_queue<THRESH, MODE>()) {
     // the lane queue's persistent blocks: as many as fit the card at once
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -567,8 +528,8 @@ template <bool NO_GLOSSY>
 cudaError_t launch_krng(pt3::SceneView s, const KrngArgs& a, int mode, bool thresh,
                         bool resume, int grid, int block, cudaStream_t st) {
   switch (mode) {
-    case kReplay:
-      return launch_krng_mode<NO_GLOSSY, kReplay>(s, a, thresh, resume, grid, block, 0, st);
+    case kReplay:  // neither thresh nor resume (the entry point's check)
+      return launch_one<NO_GLOSSY, false, false, kReplay>(s, a, grid, block, 0, st);
     case kStream:
       return launch_krng_mode<NO_GLOSSY, kStream>(
           s, a, thresh, resume, grid, block,
@@ -608,7 +569,7 @@ extern "C" int pt3_regen_table(const float* tri, const float* sph,
                  (size_t)n_windows * window < (size_t)n_tri)))
     return (int)cudaErrorInvalidValue;
   KrngArgs a{{0u, 0u, 0u}, 0, nullptr, nullptr, state0, nullptr, acc, cnt, nullptr, nullptr,
-             nullptr, nullptr, nullptr, next_lane, 0, n, S, nb, 0, eps,
+             next_lane, 0, n, S, nb, 0, eps,
              {nullptr, wbox, wbox1, n_windows, n_groups, window, fan}, nexta,
              reinterpret_cast<const float4*>(unif)};
   const int block = kMaxBlock;
@@ -626,17 +587,6 @@ extern "C" int pt3_regen_table(const float* tri, const float* sph,
   return (int)cudaGetLastError();
 }
 
-#ifdef PT3_K5_COUNT_SECTORS
-// The counting build's totals since the last call (requests, sectors), into
-// out[2] on the host; zeroes them.
-extern "C" int pt3_k5_sector_counts(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, k5_sector_count, 2 * sizeof(unsigned long long));
-  const unsigned long long zero[2] = {0ull, 0ull};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k5_sector_count, zero, sizeof(zero));
-  return (int)e;
-}
-#endif
-
 extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const float* tri_attr, const float* sph_attr,
                               int n_tri, int n_sph, int t_pad, float env_r,
@@ -645,8 +595,7 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
                               const int* lane_ids, const int* amask,
                               const float* state0, const float* resid_in,
                               float* acc, int* cnt, float* resid_out,
-                              float* rresid, const int* rcol, const float* acc_in,
-                              const int* cnt_in, int* next_lane, int rres_n,
+                              float* rresid, int* next_lane, int rres_n,
                               const float* tri_win,
                               const float* wbox, const float* wbox1, int n_windows,
                               int n_groups, int window, int fan, int n,
@@ -669,14 +618,14 @@ extern "C" int pt3_regen_krng(const float* tri, const float* sph,
   if (block <= 0 || block > kMaxBlock || block % 32 != 0 || (th && resid_out == nullptr) ||
       next_lane == nullptr ||
       (mode != kFlat && !boxed) ||
-      (replay && (stream_mode || rres_n <= 0 || (acc_in != nullptr && !resume))) ||
+      (replay && (stream_mode || th || resume || rres_n <= 0)) ||
       (boxed && (wbox1 == nullptr || n_windows <= 0 || window <= 0 ||
                  window % pt3::kTc != 0 || window > 1024 || fan < 1 || fan > 32 ||
                  n_groups != (n_windows + fan - 1) / fan ||
                  (size_t)n_windows * window < (size_t)n_tri)))
     return (int)cudaErrorInvalidValue;
   KrngArgs a{{seed0, seed1, seed2}, sample0, lane_ids, amask, state0, resid_in,
-             acc, cnt, resid_out, rresid, rcol, acc_in, cnt_in, next_lane, rres_n, n, S, nb,
+             acc, cnt, resid_out, rresid, next_lane, rres_n, n, S, nb,
              thresh, eps,
              {reinterpret_cast<const float4*>(tri_win), wbox, wbox1, n_windows, n_groups,
               window, fan},

@@ -13,16 +13,18 @@ JAX package's ``models/integrator.py``:
     hemisphere sample tinted by diffuse;
   * emission added per shading event; hard depth cutoff returning black.
 
-Three paths: ``trace_pass`` (one sample pass, one bounce per loop step —
-the path the CPU render and the golden images use; it runs in the camera's
-dtype, float32 or, on the CPU, float64, and with ``params.remat`` recomputes
-each bounce in the backward), ``trace_passes_fused``
-(the camera stage for S passes, then ONE regenerating megakernel launch:
-kernel K5 with table uniforms or K4 with in-kernel RNG, in stream mode for
-scenes above the resident range, ``uses_stream``) and
-``trace_passes_compact`` (the compacting wavefront: per bounce, the live
-lanes packed first, then kernel K10; no CLI path uses it). All draws come
-from the same threefry streams as the JAX package (ops/rng.py).
+Three paths, each after the one camera stage ``_first_bounce_state`` (as
+are models/replay.py's): ``trace_pass`` (one sample pass, one bounce per
+loop step — the path the CPU render and the golden images use; it runs in
+the camera's dtype, float32 or, on the CPU, float64, and with
+``params.remat`` recomputes each bounce in the backward),
+``trace_passes_fused`` (the camera stages of S passes, ``regen_front``,
+then ONE regenerating megakernel launch: kernel K5 with table uniforms or
+K4 with in-kernel RNG, in stream mode for scenes above the resident range,
+``uses_stream``) and ``trace_passes_compact`` (the compacting wavefront:
+per bounce, the live lanes packed first, then kernel K10; no CLI path uses
+it). All draws come from the same threefry streams as the JAX package
+(ops/rng.py).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from ..ops.intersect import Hits, intersect_scene
 from ..ops.intersect_kernel import PackedScene
 from ..ops.material_grad import material_grad
 from ..ops.vecmath import (
-    EPSILON as _VEPS,
     Onb,
     cone_sample,
     facos,
@@ -175,12 +176,6 @@ def sample_direction(mat: GatheredMat, hits: Hits, dirn, u, v, spec):
     return torch.where(spec, cone_dir, hemi_dir)
 
 
-def _static_no_glossy(materials) -> bool:
-    ca = materials.cone_angle.detach()
-    with tracing.span("pt3.sync.glossy"):
-        return bool(ca.numel() == 0 or float(ca.max()) < _VEPS)
-
-
 class PathState(NamedTuple):
     org: torch.Tensor  # [3, N]
     dirn: torch.Tensor  # [3, N]
@@ -306,9 +301,7 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     ``torch.utils.checkpoint``: the backward recomputes its intersection
     and samples from the carried path state instead of keeping them (the
     JAX package's ``jax.checkpoint`` of the scan step)."""
-    nu = params.first_bounce_u_samples
-    nv = params.first_bounce_v_samples
-    k = nu * nv
+    k = params.first_bounce_samples
     eps = params.epsilon
     r0 = px.shape[0]
     dev = px.device
@@ -316,35 +309,17 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
 
     backend = resolve_intersector(params, dev)
     packed = PackedScene(scene) if backend == "kernel" else None  # K2's, once a pass
-    dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
-                                     packed)
-
-    miss_colour = scene.environment[:, None].expand(3, r0)
     if params.preview:
-        return torch.where(hits0.hit, mat0.diffuse, miss_colour).T
+        _, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
+                                      packed)
+        return torch.where(hits0.hit, mat0.diffuse, scene.environment[:, None].expand(3, r0)).T
 
-    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev, dtype)
-    refl0 = effective_reflectivity(mat0, hits0, dir0)  # [R]
-    spec0 = p0 < refl0[:, None]  # [R, K]
-
-    hits0x = Hits(*(_expand(f, k) for f in hits0))
-    mat0x = GatheredMat(*(_expand(f, k) for f in mat0))
-    dir0x = _expand(dir0, k)
-    spec0f = spec0.reshape(-1)
-    dir1 = sample_direction(mat0x, hits0x, dir0x, u0.reshape(-1), v0.reshape(-1), spec0f)
-    refl0x = _expand(refl0, k)
-    beta1 = torch.where(spec0f, torch.ones((3, r0 * k), dtype=dtype, device=dev),
-                        mat0x.diffuse) * branch_weight(refl0x, spec0f)
-    alive1 = hits0x.hit
-    if params.kill_dead_paths:
-        alive1 = alive1 & torch.any(beta1 != 0.0, dim=0)
-    state = PathState(
-        org=hits0x.pos,
-        dirn=dir1,
-        beta=beta1,
-        acc=torch.zeros((3, r0 * k), dtype=dtype, device=dev),
-        alive=alive1,
-    )
+    rows, base, _ = _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
+                                        want_unif=False, packed=packed,
+                                        kill_dead=params.kill_dead_paths)
+    state = PathState(org=rows[0:3], dirn=rows[3:6], beta=rows[6:9],
+                      acc=torch.zeros((3, r0 * k), dtype=dtype, device=dev),
+                      alive=rows[9] != 0.0)
 
     def step(st, d):
         bu = _bounce_uniforms(key, d, r0 * k, dev, dtype)
@@ -355,29 +330,31 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     for d in range(1, n_bounces + 1):
         state = remat_step(step, state, d) if params.remat else step(state, d)
 
-    path_mean = state.acc.reshape(3, r0, k).mean(dim=2)
-    hit_colour = mat0.emission + path_mean
-    return torch.where(hits0.hit, hit_colour, miss_colour).T
+    # a lane that missed never lived: its path mean is exactly 0
+    return (base + state.acc.reshape(3, r0, k).mean(dim=2)).T
 
 
 @tracing.spanned("pt3.camera", device=True)
 def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
-                        want_unif: bool = True, packed=None):
+                        want_unif: bool = True, packed=None, no_glossy: bool = False,
+                        kill_dead: bool = True):
     """Camera stage + stratified K expansion for ONE sample pass.
 
     Returns (state_rows [10, R*K] = org3/dir3/beta3/alive1,
              base [3, R] = where(hit0, emission0, env),
              unif_rows [4*nb, R*K] (u, acos u, v, p) per depth) — on the same
     RNG streams as trace_pass, so the regenerating megakernel reproduces its
-    estimator. ``want_unif=False`` (in-kernel RNG) skips the tables.
-    ``packed``: the scene's pack for K2 (built by ``intersect_scene`` when
-    None). Traced as ``pt3.camera``.
+    estimator; the rows in the camera's dtype. ``want_unif=False``
+    (in-kernel RNG) skips the tables. ``packed``: the scene's pack for K2
+    (built by ``intersect_scene`` when None). ``no_glossy`` (a render's
+    pack's flag) skips the cone sample: bit-equal rows, since cone angles
+    below ``vecmath.EPSILON`` take the mirror direction. ``kill_dead``: the
+    zero-throughput kill. Traced as ``pt3.camera``.
     """
-    nu = params.first_bounce_u_samples
-    nv = params.first_bounce_v_samples
-    k = nu * nv
+    k = params.first_bounce_samples
     r0 = px.shape[0]
     dev = px.device
+    dtype = camera.centre.dtype
 
     dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
                                      packed)
@@ -385,30 +362,30 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
     miss_colour = scene.environment[:, None].expand(3, r0)
     base = torch.where(hits0.hit, mat0.emission, miss_colour)
 
-    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev)
+    u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev, dtype)
+    u0, v0 = u0.reshape(-1), v0.reshape(-1)
     refl0 = effective_reflectivity(mat0, hits0, dir0)
     spec0 = (p0 < refl0[:, None]).reshape(-1)
 
-    hits0x = Hits(*(_expand(f, k) for f in hits0))
-    mat0x = GatheredMat(*(_expand(f, k) for f in mat0))
     # per-pixel hoisting: the hemisphere basis and the mirror direction
     # depend only on the pixel's first hit (bit-exact: elementwise maps
     # commute with the fan-out)
-    no_glossy = _static_no_glossy(scene.materials)
     onb0x = Onb(*(_expand(c, k) for c in onb_from_z(hits0.normal)))
-    hemi_dir = hemisphere_sample(onb0x, u0.reshape(-1), v0.reshape(-1))
+    hemi_dir = hemisphere_sample(onb0x, u0, v0)
     mirror0x = _expand(reflect(dir0, hits0.normal), k)
     if no_glossy:
         cone_dir = mirror0x
     else:
-        cone_dir = cone_sample(mirror0x, mat0x.cone_angle, u0.reshape(-1), v0.reshape(-1))
+        cone_dir = cone_sample(mirror0x, _expand(mat0.cone_angle, k), u0, v0)
     dir1 = torch.where(spec0, cone_dir, hemi_dir)
-    beta1 = torch.where(spec0, torch.ones((3, r0 * k), device=dev), mat0x.diffuse) \
-        * branch_weight(_expand(refl0, k), spec0)
-    alive1 = hits0x.hit & torch.any(beta1 != 0.0, dim=0)
+    beta1 = torch.where(spec0, torch.ones((3, r0 * k), dtype=dtype, device=dev),
+                        _expand(mat0.diffuse, k)) * branch_weight(_expand(refl0, k), spec0)
+    alive1 = _expand(hits0.hit, k)
+    if kill_dead:
+        alive1 = alive1 & torch.any(beta1 != 0.0, dim=0)
 
     state_rows = torch.cat(
-        [hits0x.pos, dir1, beta1, alive1.to(torch.float32)[None, :]], dim=0
+        [_expand(hits0.pos, k), dir1, beta1, alive1.to(dtype)[None, :]], dim=0
     )  # [10, R*K]
 
     if not want_unif:
@@ -422,6 +399,38 @@ def lane_ids_for(px, py, width: int, k: int) -> torch.Tensor:
     invariant to dispatch tiling and the feedback sort."""
     return ((py * width + px).to(torch.int32)[:, None] * k
             + torch.arange(k, dtype=torch.int32, device=px.device)[None, :]).reshape(-1)
+
+
+def sort_order(sort_key):
+    """The feedback work-sort's permutation: the lanes by descending
+    ``sort_key`` (a stable sort), and its inverse."""
+    order = torch.argsort(-sort_key.to(torch.int64), stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return order, inv
+
+
+def regen_front(scene, camera, params: RenderParams, base_key, sample0: int, tile_idx: int,
+                px, py, n_passes: int, tri_chunk: int, packed, no_glossy: bool,
+                tables: bool = False):
+    """The camera stages of ``n_passes`` samples, keys fold(fold(base_key,
+    sample0 + s), tile_idx) -> (base_sum [3, R], state0 [S*10, N], and with
+    ``tables`` K5's lane-major table [S*nb, N, 4], else None)."""
+    nb = max(params.max_depth - 1, 0)
+    n = px.shape[0] * params.first_bounce_samples
+    base_sum = torch.zeros((3, px.shape[0]), device=px.device)
+    states, unifs = [], []
+    for s in range(n_passes):
+        key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
+        st_rows, base, _ = _first_bounce_state(
+            scene, camera, params, key, px, py, tri_chunk, "kernel", want_unif=False,
+            packed=packed, no_glossy=no_glossy,
+        )
+        base_sum = base_sum + base
+        states.append(st_rows)
+        if tables:
+            unifs.append(bounce_rows(key, nb, n, px.device, lane_major=True))
+    return base_sum, torch.cat(states, dim=0), torch.cat(unifs, dim=0) if tables else None
 
 
 def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: int,
@@ -443,7 +452,8 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     ``packed``: a prebuilt ``PackedSceneStream`` for this scene (its window
     boxes cull K4's and K5's searches on the card, or feed K6 where the
     scene streams; the plain versions also take a ``PackedSceneFused``);
-    the camera stages' K2 launches search it too.
+    the camera stages' K2 launches search it too, and skip the cone sample
+    where its ``no_glossy`` says no material is glossy.
     """
     from ..ops import kernel_rng
     from ..ops.megakernel import PackedSceneStream, fused_passes, fused_passes_krng
@@ -460,34 +470,18 @@ def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: i
     if packed is None:  # K4 and K5 cull their searches by its window boxes
         packed = PackedSceneStream(scene)
 
-    base_sum = torch.zeros((3, r0), device=dev)
-    states, unifs = [], []
-    for s in range(n_passes):
-        key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
-        st_rows, base, _ = _first_bounce_state(
-            scene, camera, params, key, px, py, tri_chunk, "kernel",
-            want_unif=False, packed=packed,
-        )
-        base_sum = base_sum + base
-        states.append(st_rows)
-        if not use_krng:  # K5's table, lane-major [nb, N, 4]
-            unifs.append(bounce_rows(key, nb, r0 * k, dev, lane_major=True))
-
+    base_sum, state0, unif = regen_front(scene, camera, params, base_key, sample0, tile_idx,
+                                         px, py, n_passes, tri_chunk, packed,
+                                         packed.no_glossy, tables=not use_krng)
     lane_counts = torch.zeros((r0 * k,), dtype=torch.int32, device=dev)
     if nb == 0:
         radiance = base_sum.T
     else:
-        state0 = torch.cat(states, dim=0)  # [S*10, N]
-        del states
-        unif = None if use_krng else torch.cat(unifs, dim=0)  # [S*nb, N, 4]
-        del unifs
         if use_krng:
             lane_ids = lane_ids_for(px, py, params.width, k)
         if sort_key is not None:
             with tracing.span("pt3.sort", dev):
-                order = torch.argsort(-sort_key.to(torch.int64), stable=True)
-                inv = torch.empty_like(order)
-                inv[order] = torch.arange(order.shape[0], device=dev)
+                order, inv = sort_order(sort_key)
                 state0 = state0[:, order]
                 if use_krng:
                     lane_ids = lane_ids[order]
@@ -550,7 +544,8 @@ def trace_passes_compact(scene, camera, params: RenderParams, base_key, sample0:
     for s in range(n_passes):
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
         st_rows, base, unif_rows = _first_bounce_state(
-            scene, camera, params, key, px, py, tri_chunk, "kernel", packed=packed)
+            scene, camera, params, key, px, py, tri_chunk, "kernel", packed=packed,
+            no_glossy=packed.no_glossy)
         if nb == 0:
             total = total + base
             continue

@@ -2,10 +2,11 @@
 
 The port of the JAX package's ``models/replay.py`` (``trace_pass_replay``):
 
-  * FORWARD: the camera stage (kernel K2 and the K-fold first bounce, in
-    PyTorch, differentiable), then all ``nb`` later bounces of the sample
-    pass in ONE launch of K7 (``ops/megakernel.fused_bounces``), which also
-    writes each bounce's input state [13, N] and winner (t, packed idx).
+  * FORWARD: the camera stage (``integrator._first_bounce_state``: kernel
+    K2 and the K-fold first bounce, in PyTorch, differentiable), then all
+    ``nb`` later bounces of the sample pass in ONE launch of K7
+    (``ops/megakernel.fused_bounces``), which also writes each bounce's
+    input state [13, N] and winner (t, packed idx).
     K7 culls its winner search by the window boxes of a
     ``PackedSceneStream`` (the winners are the unculled scan's bit for
     bit); the CPU's plain version scans every triangle.
@@ -23,17 +24,16 @@ The port of the JAX package's ``models/replay.py`` (``trace_pass_replay``):
 ``trace_passes_replay`` is the port of ``trace_passes_replay``, the
 REGENERATING replay chain for ``n_passes`` samples at once:
 
-  * FORWARD: one camera stage per sample (``integrator._first_bounce_state``,
-    K2 inside, differentiable), then ONE launch of K4 in replay mode
-    (``ops/megakernel.fused_passes_krng(replay=True)``): a dead lane reloads
-    its next sample's first-bounce state, and every live iteration writes
-    one residual slot (input state, winner, sample, depth). The launch culls
-    its winner search by the window boxes of a ``PackedSceneStream`` at
-    window 64; the radiance, counts and slots are bit-equal to an unculled
-    launch. It runs without tail compaction: its threads take their lanes
-    from a queue, so no warp idles behind its longest lane, and
-    compaction's block-synchronous loop cost more than the tail it cut
-    (PERF.md).
+  * FORWARD: one camera stage per sample (``integrator.regen_front``, the
+    render's front end: K2 inside, differentiable), then ONE launch of K4
+    in replay mode (``ops/megakernel.fused_passes_krng(replay=True)``): a
+    dead lane reloads its next sample's first-bounce state, and every live
+    iteration writes one residual slot (input state, winner, sample,
+    depth). The launch culls its winner search by the window boxes of a
+    ``PackedSceneStream`` at window 64; the radiance, counts and slots are
+    bit-equal to an unculled launch. It runs without tail compaction, as in the JAX package (K4
+    refuses replay with it): its threads take their lanes from a queue, so
+    no warp idles behind its longest lane.
   * BACKWARD: kernel K9 (``regen_replay_bwd``) walks each lane's realized
     slots in reverse and returns the first-bounce states' cotangent, which
     autograd carries through the S camera stages (K2's VJP). The feedback
@@ -75,19 +75,14 @@ from ..ops.megakernel import (
 from ..utils import tracing
 from ..utils.render_params import RenderParams
 from .integrator import (
-    GatheredMat,
     PathState,
-    _expand,
     _first_bounce_state,
-    _first_bounce_uniforms,
     bounce_from_hits,
-    bounce_rows,
-    branch_weight,
     camera_stage,
-    effective_reflectivity,
     lane_ids_for,
+    regen_front,
     resolve_intersector,
-    sample_direction,
+    sort_order,
 )
 from .materials import MaterialTable
 
@@ -217,60 +212,42 @@ def trace_pass_replay(scene, camera, params: RenderParams, key, px, py,
     scene.materials, scene.environment and the camera. Needs the kernel
     backend (CUDA kernels on the card, their plain versions on the CPU).
     ``packed``: the geometry's ``PackedSceneStream`` (built here when
-    None). The camera part, up to K7's chain and its uniforms included, is
-    traced as ``pt3.camera``."""
-    nu = params.first_bounce_u_samples
-    nv = params.first_bounce_v_samples
-    k = nu * nv
-    eps = params.epsilon
+    None). The camera part, K7's uniforms included, is
+    ``integrator._first_bounce_state`` (traced as ``pt3.camera``)."""
+    k = params.first_bounce_samples
     r0 = px.shape[0]
     dev = px.device
     backend = resolve_intersector(params, dev)
     if backend != "kernel":
         raise ValueError("trace_pass_replay needs the kernel intersector")
 
-    # camera + first hit + stratified K expansion: the streams and math of
-    # integrator.trace_pass (zero-throughput kill on)
-    with tracing.span("pt3.camera", dev):
-        geo = packed if packed is not None else PackedSceneStream(scene)
-        dir0, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk,
-                                         backend, geo)
-        miss_colour = scene.environment[:, None].expand(3, r0)
-        if params.preview:
-            return torch.where(hits0.hit, mat0.diffuse, miss_colour).T
-
-        u0, v0, p0 = _first_bounce_uniforms(params, key, r0, dev)
-        refl0 = effective_reflectivity(mat0, hits0, dir0)
-        spec0 = (p0 < refl0[:, None]).reshape(-1)
-        hits0x = Hits(*(_expand(f, k) for f in hits0))
-        mat0x = GatheredMat(*(_expand(f, k) for f in mat0))
-        dir1 = sample_direction(mat0x, hits0x, _expand(dir0, k), u0.reshape(-1),
-                                v0.reshape(-1), spec0)
-        beta1 = torch.where(spec0, torch.ones((3, r0 * k), device=dev), mat0x.diffuse) \
-            * branch_weight(_expand(refl0, k), spec0)
-        alive1 = hits0x.hit & torch.any(beta1 != 0.0, dim=0)
-        state0_rows = torch.cat([hits0x.pos, dir1, beta1, alive1.to(torch.float32)[None, :],
-                                 torch.zeros((3, r0 * k), device=dev)], dim=0)  # [13, R*K]
-        nb = max(params.max_depth - 1, 0)
-        if nb:
-            unifs = bounce_rows(key, nb, r0 * k, dev).reshape(nb, 4, r0 * k)
+    geo = packed if packed is not None else PackedSceneStream(scene)
+    if params.preview:
+        _, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
+                                      geo)
+        return torch.where(hits0.hit, mat0.diffuse, scene.environment[:, None].expand(3, r0)).T
+    nb = max(params.max_depth - 1, 0)
+    # the materials change every step: no pack's glossy flag holds for them
+    rows, base, unif_rows = _first_bounce_state(scene, camera, params, key, px, py, tri_chunk,
+                                                backend, want_unif=nb > 0, packed=geo)
 
     with tracing.span("pt3.sync.nrays"):  # a copy from host memory waits for the card
         nrays = torch.tensor(r0, dtype=torch.int64, device=dev)
     if nb == 0:
         acc = torch.zeros((3, r0 * k), device=dev)
     else:
+        state0_rows = torch.cat([rows, torch.zeros((3, r0 * k), device=dev)])  # [13, R*K]
         m = scene.materials
         acc = _Chain.apply(m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,
-                           scene.environment, state0_rows, unifs, scene, geo, nb, float(eps),
-                           kernel_bwd)
-        # live-lane count: alive1 enters bounce 1 (the later bounces are
-        # counted inside the chain and not returned, as in the JAX package)
-        nrays = nrays + alive1.sum()
+                           scene.environment, state0_rows,
+                           unif_rows.reshape(nb, 4, r0 * k), scene, geo, nb,
+                           float(params.epsilon), kernel_bwd)
+        # live-lane count: the lanes alive into bounce 1 (the later bounces
+        # are counted inside the chain and not returned, as in the JAX package)
+        nrays = nrays + (rows[9] != 0.0).sum()
 
-    path_mean = acc.reshape(3, r0, k).mean(dim=2)
-    hit_colour = mat0.emission + path_mean
-    radiance = torch.where(hits0.hit, hit_colour, miss_colour).T
+    # a lane that missed never lived: its path mean is exactly 0
+    radiance = (base + acc.reshape(3, r0, k).mean(dim=2)).T
     if with_ray_count:
         return radiance, nrays
     return radiance
@@ -425,29 +402,17 @@ def trace_passes_replay(scene, camera, params: RenderParams, base_key, sample0: 
     r0 = px.shape[0]
 
     geo = packed if packed is not None else PackedSceneStream(scene)
-    base_sum = torch.zeros((3, r0), device=dev)
-    states = []
-    for s in range(n_passes):
-        key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
-        st_rows, base, _ = _first_bounce_state(scene, camera, params, key, px, py,
-                                               tri_chunk, "kernel", want_unif=False,
-                                               packed=geo)
-        base_sum = base_sum + base
-        states.append(st_rows)
+    # the materials change every step: no pack's glossy flag holds for them
+    base_sum, state0, _ = regen_front(scene, camera, params, base_key, sample0, tile_idx, px,
+                                      py, n_passes, tri_chunk, geo, False)
     with tracing.span("pt3.sync.nrays"):
         nrays = torch.tensor(n_passes * r0, dtype=torch.int64, device=dev)
     cnt = torch.zeros((r0 * k,), dtype=torch.int32, device=dev)
     if nb == 0:
         radiance = base_sum.T
     else:
-        state0 = torch.cat(states, dim=0)  # [S*10, N]
-        del states
         lane_ids = lane_ids_for(px, py, params.width, k)
-        order = inv = None
-        if sort_key is not None:
-            order = torch.argsort(-sort_key.to(torch.int64), stable=True)
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(order.shape[0], device=dev)
+        order, inv = sort_order(sort_key) if sort_key is not None else (None, None)
         kw = kr.key_words(rng.stream_key(base_key, rng.KERNEL_RNG_STREAM))
         m = scene.materials
         diff = (m.emission, m.diffuse, m.ior, m.reflectivity, m.cone_angle,

@@ -51,11 +51,11 @@ _SIGNATURES = {
                         P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b,
     # seed0 seed1 seed2, sample0, lane, amask, state0, resid_in, acc, cnt,
-    # resid_out, replay_resid, replay_col, acc_in, cnt_in, next_lane,
-    # replay_n, tri_win, wbox, wbox1, n_windows, n_groups, window, fan, n,
-    # s_count, nb, eps, thresh, no_glossy, block, stream
+    # resid_out, replay_resid, next_lane, replay_n, tri_win, wbox, wbox1,
+    # n_windows, n_groups, window, fan, n, s_count, nb, eps, thresh,
+    # no_glossy, block, stream
     "pt3_regen_krng": [P, P, P, P, I, I, I, F, F, F, U, U, U, I,
-                       P, P, P, P, P, P, P, P, P, P, P, P, I,
+                       P, P, P, P, P, P, P, P, P, I,
                        P, P, P, I, I, I, I, I, I, I, F, I, I, I, P],
     # tri, sph, tri_attr, sph_attr, n_tri, n_sph, t_pad, env r g b, wbox,
     # wbox1, n_windows, n_groups, window, fan, state_in, unif, state_out,

@@ -35,11 +35,10 @@ over the packed survivors resumes it. Its ``replay`` mode (the regenerating
 training path's forward) also writes one residual slot per live iteration
 of a lane, ``[S*nb, 13, N]``: the input org/dir/beta, the winner (t, packed
 index), the sample and the depth; a lane's slots are exactly ``j < cnt``.
-Replay composes with the tail compaction (a continuation resumes a lane at
-slot ``cnt`` of its own column, with its running sum: ``ReplaySlots``) and
-culls its search by a ``PackedSceneStream``'s window boxes (the kernel
-needs them; the plain version also takes a ``PackedSceneFused`` and scans
-every triangle); both keep every output bit-equal.
+Replay runs without tail compaction, as in the JAX package, and culls its
+search by a ``PackedSceneStream``'s window boxes (the kernel needs them;
+the plain version also takes a ``PackedSceneFused`` and scans every
+triangle), which keeps every output bit-equal.
 Its resident mode (no ``replay``, no ``stream``) searches with a scan of
 the whole scene per lane when the scene is one 64-row chunk whose tables
 fit 48 KB of shared memory (``csrc/megakernel.cu: flat_fits``: they are
@@ -119,7 +118,6 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -571,38 +569,24 @@ def _next_alive(amask, s_cur, s_count: int, first: bool):
     return torch.where(nz_lo, s_lo, torch.where(nz_hi, s_hi, torch.full_like(s_lo, s_count)))
 
 
-class ReplaySlots(NamedTuple):
-    """Where a K4 launch in replay mode writes its residual slots: ``rres``
-    [S*nb, 13, N0] (written in place; slot j of a lane in column
-    ``col[lane]``, or in column ``lane`` when ``col`` is None). A
-    continuation launch (tail compaction) also takes each resumed lane's
-    running radiance ``acc_in`` [3, N] and count ``cnt_in`` [N] (its next
-    slot), so its slots continue its column and its radiance sum is the
-    one an uncompacted launch takes."""
-
-    rres: torch.Tensor
-    col: torch.Tensor | None = None
-    acc_in: torch.Tensor | None = None
-    cnt_in: torch.Tensor | None = None
-
-
 def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
                      seeds, sample0: int, eps: float, nb: int, s_count: int,
                      thresh: int = 0, no_glossy: bool = False, block: int = BLOCK,
-                     replay: ReplaySlots | None = None, stream: bool = False):
+                     rres: torch.Tensor | None = None, stream: bool = False):
     """Plain version of one K4 launch. lane_ids [N] int, amask [2, N] uint32
     words (int64), state0 [S*10, N] sample-major, resid_in [12, N] or None
     (resume), seeds: three uint32 ints. With ``thresh`` > 0, N is a multiple
     of ``block`` and each block of lanes stops once fewer than ``thresh`` of
     its lanes are alive. ``stream`` (``pk`` a PackedSceneStream) searches
     the triangles window by window (``stream_search_plain``): the same
-    winners, so the same outputs. With ``replay`` (a ``ReplaySlots``) the
-    launch also writes the replay residuals (slot j of a lane: the input
-    org3 dir3 beta3 of its j-th live iteration, the winner t (+inf on a
-    miss), its packed index (0 on a miss), the sample and the depth); with
-    ``pk`` a PackedSceneStream the replay search is culled by its boxes
-    (``stream_search_plain``: the same winners). Returns (acc [3, N], cnt
-    [N] int32, resid_out [12, N] or None)."""
+    winners, so the same outputs. With ``rres`` [S*nb, 13, N0] (no
+    ``thresh``, no ``resid_in``) the launch also writes the replay
+    residuals in place (slot j of lane i: the input org3 dir3 beta3 of its
+    j-th live iteration, the winner t (+inf on a miss), its packed index (0
+    on a miss), the sample and the depth); with ``pk`` a PackedSceneStream
+    the replay search is culled by its boxes (``stream_search_plain``: the
+    same winners). Returns (acc [3, N], cnt [N] int32, resid_out [12, N] or
+    None)."""
     n = state0.shape[1]
     dev = state0.device
     lanes = torch.arange(n, device=dev)
@@ -612,7 +596,7 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
     hlane = kr.mul32(lane_ids.to(torch.int64) & _M32, kr._IN_P1)
     amask = amask.to(torch.int64) & _M32
     seeds_col = torch.tensor(seeds, dtype=torch.int64, device=dev).reshape(3, 1)
-    culled = stream or (replay is not None and isinstance(pk, PackedSceneStream))
+    culled = stream or (rres is not None and isinstance(pk, PackedSceneStream))
 
     def refill(first: bool):
         nonlocal s_cur, d_cur, sdt
@@ -633,20 +617,16 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
         s_cur = resid_in[10].to(torch.int64)
         d_cur = resid_in[11].to(torch.int64)
         sdt = kr.sd_term(sample0, s_cur, d_cur)
-        if replay is not None and replay.acc_in is not None:
-            acc = replay.acc_in.clone()
-            cnt = replay.cnt_in.to(torch.int32).clone()
     else:
         st = torch.zeros((10, n), dtype=torch.float32, device=dev)
         s_cur = torch.zeros((n,), dtype=torch.int64, device=dev)
         d_cur = torch.zeros((n,), dtype=torch.int64, device=dev)
         sdt = torch.zeros((n,), dtype=torch.int64, device=dev)
         refill(first=True)
-    col = lanes if replay is None or replay.col is None else replay.col.long()
 
     it = 0
     # a sample takes at most nb iterations: S*nb replay slots suffice
-    while it < (s_count * nb if replay is not None else s_count * (nb + 1)):
+    while it < (s_count * nb if rres is not None else s_count * (nb + 1)):
         alive = st[9] != 0.0
         if thresh:
             tile_live = alive.reshape(-1, block).sum(dim=1)
@@ -658,11 +638,11 @@ def regen_krng_plain(pk: PackedSceneFused, lane_ids, amask, state0, resid_in,
             break
         slot_j = cnt.long()  # a live lane's slot is its iteration count
         t, idx, hit = _bounce_common(pk, st, acc, cnt, active, True, eps, culled)
-        if replay is not None:
+        if rres is not None:
             slot = torch.cat([st[0:9], torch.where(hit, t, torch.full_like(t, math.inf))[None],
                               torch.where(hit, idx, torch.zeros_like(idx)).to(torch.float32)[None],
                               s_cur.to(torch.float32)[None], d_cur.to(torch.float32)[None]])
-            replay.rres[slot_j[active], :, col[active]] = slot[:, active].T
+            rres[slot_j[active], :, lanes[active]] = slot[:, active].T
         u, v, p = kr.event_uniforms_premixed(((hlane + sdt) & _M32)[None, :], seeds_col)
         au = u if no_glossy else kr.acos01(u)
         _shade_plain(pk, st, acc, t, idx, hit, u, au, v, p, no_glossy)
@@ -967,16 +947,14 @@ def _regen_table_cuda(pk, state0, nexta, unif, eps, nb, s_count):
 
 
 def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
-                     nb, s_count, thresh, no_glossy, block, replay=None, stream=False):
+                     nb, s_count, thresh, no_glossy, block, rres=None, stream=False):
     n = state0.shape[1]
     dev = state0.device
     acc = torch.empty((3, n), dtype=torch.float32, device=dev)
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     resid_out = (torch.empty((12, n), dtype=torch.float32, device=dev)
                  if thresh else None)
-    rep = (replay.rres, replay.col, replay.acc_in, replay.cnt_in) if replay is not None \
-        else (None,) * 4
-    rres_n = replay.rres.shape[2] if replay is not None else 0
+    rres_n = rres.shape[2] if rres is not None else 0
     if not isinstance(pk, PackedSceneStream):
         raise ValueError("K4 on the card takes a PackedSceneStream: its culled search "
                          "reads the window boxes")
@@ -987,7 +965,7 @@ def _regen_krng_cuda(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps,
         *_scene_ptrs(pk), seeds[0], seeds[1], seeds[2], int(sample0),
         lane_ids.data_ptr(), amask.data_ptr(), state0.data_ptr(),
         _cuda.ptr(resid_in), acc.data_ptr(), cnt.data_ptr(), _cuda.ptr(resid_out),
-        *(_cuda.ptr(r) for r in rep), next_lane.data_ptr(), rres_n, *win, n, s_count, nb,
+        _cuda.ptr(rres), next_lane.data_ptr(), rres_n, *win, n, s_count, nb,
         float(eps), int(thresh), int(no_glossy), int(block), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pt3_regen_krng")
@@ -1160,10 +1138,10 @@ def alive_mask_words(state0: torch.Tensor, s_count: int) -> torch.Tensor:
 
 
 def _krng_launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb,
-                 s_count, thresh, no_glossy, block, replay, stream):
+                 s_count, thresh, no_glossy, block, rres, stream):
     launch = _regen_krng_cuda if lane_ids.device.type == "cuda" else regen_krng_plain
     return launch(pk, lane_ids, amask, state0, resid_in, seeds, sample0, eps, nb, s_count,
-                  thresh, no_glossy, block, replay, stream)
+                  thresh, no_glossy, block, rres, stream)
 
 
 @tracing.spanned("pt3.k4", device=True)
@@ -1179,16 +1157,17 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
     grouping at level boundaries differs). Returns (acc [3, N], cnt [N]);
     with ``replay``, (acc, cnt, resid): the replay residuals [S*nb, 13, N],
     of which a lane's slots j < cnt are written (``acc`` and ``cnt`` are
-    bit-equal to a launch without ``replay`` and without tail compaction:
-    a continuation launch resumes each lane's radiance sum and slots where
-    it stopped, in the lane's own column). The replay search is culled by
-    the window boxes of ``pk``, a PackedSceneStream (the same winners; on
-    the CPU a PackedSceneFused scans every triangle).
+    bit-equal to a launch without ``replay``). Replay runs without tail
+    compaction and outside the stream mode, as in the JAX package: either
+    raises ``ValueError``. The replay search is culled by the window boxes
+    of ``pk``, a PackedSceneStream (the same winners; on the CPU a
+    PackedSceneFused scans every triangle).
     ``stream`` (``pk`` a PackedSceneStream) searches the triangles with
     K6, window by window; ``acc`` and ``cnt`` are bit-equal to the
     resident launch."""
-    if replay and stream:
-        raise ValueError("replay residuals are incompatible with the stream mode")
+    if replay and (tail_frac > 0.0 or stream):
+        raise ValueError("replay residuals are incompatible with tail compaction and the "
+                         "stream mode")
     if stream and not isinstance(pk, PackedSceneStream):
         raise ValueError("stream=True needs a PackedSceneStream")
     if s_count > S_COUNT_MAX:
@@ -1220,9 +1199,9 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
         # only the slots j < cnt of a lane are written (zeros on the CPU)
         alloc = torch.zeros if dev.type == "cpu" else torch.empty
         rres = alloc((s_count * nb, 13, n), dtype=torch.float32, device=dev)
-    run = lambda lid, am, s0, res, th, rep: _krng_launch(
+    run = lambda lid, am, s0, res, th: _krng_launch(
         pk, lid, am, s0, res, seeds, sample0, eps, nb, s_count, th, no_glossy, block,
-        rep, stream)
+        rres, stream)
     if thresh:
         # tail compaction: every level but the last stops its blocks at
         # live < thresh; survivors (sorted by remaining samples) are packed
@@ -1231,18 +1210,14 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
         acc = cnt = None
         gidx = None  # survivor columns in original lane coordinates
         cur = (lane_ids, amask, state0, None)
-        rep = ReplaySlots(rres) if replay else None
         level_n = npad
         for level in range(levels + 1):
             n2 = (level_n // block) * thresh
             n2 = min(-(-n2 // block) * block, level_n)
             last = level == levels or level_n <= block or n2 >= level_n
-            acc_l, cnt_l, resid = run(*cur, 0 if last else thresh, rep)
+            acc_l, cnt_l, resid = run(*cur, 0 if last else thresh)
             if gidx is None:
                 acc, cnt = acc_l, cnt_l
-            elif replay:  # the continuation carried the lanes' sums and counts on
-                acc = acc.index_copy(1, gidx, acc_l)
-                cnt = cnt.index_copy(0, gidx, cnt_l)
             else:
                 acc = acc.index_add(1, gidx, acc_l)
                 cnt = cnt.index_add(0, gidx, cnt_l)
@@ -1256,14 +1231,9 @@ def fused_passes_krng(pk: PackedSceneFused, state0: torch.Tensor,
             gidx = idx2 if gidx is None else gidx[idx2]
             take = lambda a: a[..., idx2].contiguous()
             cur = (take(cur[0]), take(cur[1]), take(cur[2]), take(resid))
-            if replay:
-                # padding lanes never live: their columns are never written
-                rep = ReplaySlots(rres, gidx.to(torch.int32).contiguous(), take(acc_l),
-                                  take(cnt_l))
             level_n = n2
     else:
-        acc, cnt, _ = run(lane_ids, amask, state0, None, 0,
-                          ReplaySlots(rres) if replay else None)
+        acc, cnt, _ = run(lane_ids, amask, state0, None, 0)
     if pad:
         acc = acc[:, :n]
         cnt = cnt[:n]

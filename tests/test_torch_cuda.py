@@ -269,8 +269,7 @@ def test_regen_replay_kernels_match_plain_versions(dev, name):
     amask = mk.alive_mask_words(state0, s_count)
     pres = torch.zeros_like(res)
     pacc, pcnt, _ = mk.regen_krng_plain(pk, lanes, amask, state0, None, seeds, 0, 1e-4,
-                                        nb, s_count, 0, pk.no_glossy,
-                                        replay=mk.ReplaySlots(pres))
+                                        nb, s_count, 0, pk.no_glossy, rres=pres)
     real = (torch.arange(s_count * nb, device=dev)[:, None] < cnt[None, :])[:, None, :]
     same = torch.isclose(res, pres, rtol=1e-4, atol=1e-5) | ~real
     lanes_ok = (torch.all(torch.isclose(acc, pacc, rtol=1e-4, atol=1e-5), dim=0)
@@ -288,6 +287,8 @@ def test_regen_replay_kernels_match_plain_versions(dev, name):
     assert d0_ok.float().mean().item() >= 0.999
     for got, ref in zip(o1[1:], op[1:]):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-9
+    with pytest.raises(ValueError):  # the card's replay needs the boxes
+        mk.fused_passes_krng(mk.PackedSceneFused(scene), *a[1:], replay=True)
 
 
 def test_k9_unsorted_lanes_and_empty_lanes(dev):
@@ -324,33 +325,6 @@ def test_k9_unsorted_lanes_and_empty_lanes(dev):
     assert d0_ok.float().mean().item() >= 0.999
     for got, ref in zip(o1[1:], op[1:]):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max() + 1e-9
-
-
-@pytest.mark.parametrize("name", ["cornell", "suzanne"])
-def test_regen_replay_culled_tail_matches_uncompacted(dev, name):
-    """K4 replay (culled by the window boxes) with tail compaction, levels
-    1 and 2: acc, counts and the slots j < cnt bit-equal to the launch
-    without compaction, K9 on the compacted slots bit-equal to K9 on the
-    uncompacted ones; acc and counts bit-equal to the resident K4 without
-    replay."""
-    scene, state0, _, lanes = _state(name, dev, w=64)
-    a = (state0, lanes, (5, 6), 0, 1e-4, 3, 3)
-    ps = mk.PackedSceneStream(scene, window=64, fan=4)
-    full = mk.fused_passes_krng(ps, *a, replay=True)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    acc_bar = torch.randn((3, state0.shape[1]), generator=gen, device=dev)
-    b_full = mk.regen_replay_bwd(ps, lanes, (5, 6), 0, full[2], full[1], acc_bar, 3)
-    real = (torch.arange(9, device=dev)[:, None] < full[1][None, :])[:, None, :]
-    for levels in (1, 2):
-        got = mk.fused_passes_krng(ps, *a, replay=True, tail_frac=0.125, tail_levels=levels)
-        assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
-        assert torch.equal(torch.where(real, got[2], 0.0), torch.where(real, full[2], 0.0))
-        b_got = mk.regen_replay_bwd(ps, lanes, (5, 6), 0, got[2], got[1], acc_bar, 3)
-        assert all(torch.equal(x, y) for x, y in zip(b_got, b_full))
-    plain = mk.fused_passes_krng(mk.PackedSceneStream(scene), *a)
-    assert torch.equal(plain[0], full[0]) and torch.equal(plain[1], full[1])
-    with pytest.raises(ValueError):  # the card's replay needs the boxes
-        mk.fused_passes_krng(mk.PackedSceneFused(scene), *a, replay=True)
 
 
 @pytest.mark.parametrize("name", ["cornell", "suzanne"])

@@ -114,6 +114,39 @@ def test_k5_plain_matches_jax_interpret(name):
     assert cnt_t.sum() > 0
 
 
+@pytest.mark.parametrize("cone", [0.0, 5e-5])
+def test_first_bounce_state_glossy_flag_keeps_rows(cone):
+    """The camera stage's ``no_glossy`` flag only skips the cone sample: True
+    and False give bit-equal rows and a zero cone-angle gradient on suzanne
+    as built (every cone angle 0) and with every cone angle at 5e-5, above
+    a pack's 1e-9 threshold and below ``cone_sample``'s mirror cut-off
+    (1e-4). A render passes its pack's flag and the training paths pass
+    False on this invariant. A glossy cone (0.2) moves the rows, so the
+    specular branch is taken."""
+    kw = dict(width=W, height=W, first_bounce_u_samples=2, first_bounce_v_samples=2,
+              max_depth=NB + 1)
+    b = SBt()
+    cam = create_t(b, "suzanne", RPt(**kw))
+    scene = b.build()
+    px = torch.arange(W * W, dtype=torch.int32) % W
+    py = torch.arange(W * W, dtype=torch.int32) // W
+    key = rt.fold_in(rt.fold_in(rt.base_key(5), 0), 0)
+
+    def stage(angle, no_glossy):
+        ca = torch.full_like(scene.materials.cone_angle, angle).requires_grad_()
+        sc = scene._replace(materials=scene.materials._replace(cone_angle=ca))
+        rows, _, _ = fbs_t(sc, cam, RPt(**kw), key, px, py, 1024, "xla", want_unif=False,
+                           no_glossy=no_glossy)
+        grad, = torch.autograd.grad(rows[:9].sum(), ca, allow_unused=True)
+        return rows.detach(), torch.zeros_like(ca) if grad is None else grad
+
+    rows_t, grad_t = stage(cone, True)
+    rows_f, grad_f = stage(cone, False)
+    assert torch.equal(rows_t, rows_f)
+    assert not grad_t.any() and not grad_f.any()
+    assert not torch.equal(stage(0.2, False)[0], rows_f)
+
+
 def test_next_alive_table():
     state0 = torch.zeros((3 * 10, 4))
     state0[9::10] = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [1, 1, 0, 0]])

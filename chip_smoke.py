@@ -32,8 +32,9 @@ Phases (one line each, any failure stops the run):
      decides; each writes a .raw (build/chip_smoke/) and a PNG
      (chiprun_out/); every launch counter is set to 0 just before each
      render and read just after it, and K11's equals the render's card
-     calls of rng.uniforms, with no card draw by the plain threefry, and
-     K12's is 0 (a render's table does not require grad);
+     calls of rng.uniforms, with no card draw by the plain threefry,
+     K12's is 0 (a render's table does not require grad) and K13's is 2 a
+     camera stage (K13a and K13b: every stage of a render is K13);
   5. each render again, every K2 launch held bit for bit (t, idx) against
      its plain version and the older K2, the first one's kernel timed in
      turns with the older K2 and, on a mesh, with K2's builds whose
@@ -51,7 +52,11 @@ Phases (one line each, any failure stops the run):
      one lane a thread, its issue floor beside its bound and its
      registers; and the card's camera stage against the
      CPU's (whose rounding follows the JAX package's compiled CPU code) on
-     every tile of the CLI-default render's first pass;
+     every tile of the CLI-default render's first pass; K13 (the camera
+     stage as K13a + K13b) on each of those tiles bit for bit against the
+     eager stage on the card, its two kernels timed alone beside their
+     bytes' bound, the whole stage through K13 and eager (its plain
+     version);
   6. the training path through make_sharded_train_step: three replay steps
      on suzanne 512^2 (K=16, depth 5: the camera stage with K2, K7 with its
      residuals forward, four K8 launches backward), each split into forward
@@ -65,7 +70,8 @@ Phases (one line each, any failure stops the run):
      inputs, timed, K7 also bit for bit against the older K7 and timed in
      turns with it, K8's cot_in bit for bit against the older K8's and its
      other register caps', timed in turns with them (its kernels a call
-     from torch.profiler); K12 (the camera stage's material gather VJP: one
+     from torch.profiler); no K13 launch (the steps differentiate their
+     materials: every camera stage is eager); K12 (the camera stage's material gather VJP: one
      launch a pass, as many as the steps' gathers that differentiate the
      table) on the first step's call against its plain version and the
      float64 sums, bitwise repeatable, timed through its wrapper and alone
@@ -79,7 +85,8 @@ Phases (one line each, any failure stops the run):
      stages with K2, one K4 launch in replay mode forward, one K9 launch
      backward, then the camera stages' autograd), each split into forward
      and backward with its K2/K4/K9 time and peak memory, the launch
-     counters set to 0 just before the three steps and read just after;
+     counters set to 0 just before the three steps and read just after (no
+     K13 launch);
      the chain's K4 launch in replay mode (culled by the window boxes, no
      compaction) against its plain version, against K4 without replay (acc
      and counts bit-equal) and against the older K4's replay (bit for bit,
@@ -820,6 +827,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from pt_three_ways_tpu_torch.ops import _cuda
+    from pt_three_ways_tpu_torch.ops import camera_kernel as ck
     from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
     from pt_three_ways_tpu_torch.ops import material_grad as mg
     from pt_three_ways_tpu_torch.ops import megakernel as mk
@@ -928,7 +936,8 @@ def main(argv=None) -> int:
                  "K12": (mg, "_material_grad_cuda", mg.material_grad_plain)}
     wrappers = {"K2": ik.intersect_packed, "K5": mk.fused_passes, "K4": mk.fused_passes_krng,
                 "K7": mk.fused_bounces, "K8": mk.bounce_bwd_step, "K9": mk.regen_replay_bwd,
-                "K10": mk.bounce_step, "K11": rng.uniform_kernel, "K12": mg.material_grad}
+                "K10": mk.bounce_step, "K11": rng.uniform_kernel, "K12": mg.material_grad,
+                "K13a": ck.camera_rays, "K13b": ck.first_bounce}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -941,6 +950,7 @@ def main(argv=None) -> int:
         out = {k: fn.launches for k, fn in wrappers.items()}
         out["K6"] = mk.fused_passes_krng.stream_launches
         out["K4"] -= out["K6"]
+        out["K13"] = out.pop("K13a") + out.pop("K13b")
         return out
 
     @contextlib.contextmanager
@@ -1317,16 +1327,21 @@ def main(argv=None) -> int:
     # captured[path][what]: {config: (args, kwargs)} of the first call of
     # each configuration, in call order
     captured = {}
+    n_calls = {}  # n_calls[path][what]: the hooked function's calls
     rays = {"camera": 0, "bounce": torch.zeros((), dtype=torch.int64, device=dev)}
     path = {"tag": ""}
     spans = []  # (kernel, start event, end event) of every main-path launch
     restore = []
 
-    def capture(mod, name, what, config):
+    def capture(mod, name, what, config, strip=()):
+        """Keeps the first call of each configuration, without the keyword
+        arguments ``strip`` names."""
         orig = getattr(mod, name)
 
         def hook(*a, **kw):
-            captured[path["tag"]].setdefault(what, {}).setdefault(config(a, kw), (a, kw))
+            kept = {k: v for k, v in kw.items() if k not in strip}
+            captured[path["tag"]].setdefault(what, {}).setdefault(config(a, kw), (a, kept))
+            n_calls[path["tag"]][what] = n_calls[path["tag"]].get(what, 0) + 1
             # the launch counter is an attribute of the wrapper itself
             setattr(mod, name, orig)
             try:
@@ -1340,7 +1355,10 @@ def main(argv=None) -> int:
     capture(ik, "intersect_packed", "K2", lambda a, kw: 0)
     capture(mk, "fused_passes", "K5", lambda a, kw: a[5])
     capture(mk, "fused_passes_krng", "K4", lambda a, kw: (a[7], kw.get("tail_frac", 0.0)))
-    capture(integ, "_first_bounce_state", "camera", lambda a, kw: int(a[5][0]))  # per tile
+    # per tile; without the render's state0 slice and base sum, which would
+    # keep every tile's state0 alive (the stage then returns its own rows)
+    capture(integ, "_first_bounce_state", "camera", lambda a, kw: int(a[5][0]),
+            strip=("out", "base_sum"))
 
     def timed(kernel, counts_out, *a):
         """Launch with CUDA events around it; count the rays it traced."""
@@ -1369,13 +1387,13 @@ def main(argv=None) -> int:
     # the table-mode kernel (K5)
     renders = [
         ("cornell", "cornell", RenderParams(seed=1),
-         ("K2", "K4", "K11")),
+         ("K2", "K4", "K11", "K13")),
         ("cornell-square", "cornell", RenderParams(width=512, height=512,
                                                    samples_per_pixel=16, seed=1),
-         ("K2", "K4", "K5", "K11")),
+         ("K2", "K4", "K5", "K11", "K13")),
         ("suzanne", "suzanne", RenderParams(width=512, height=512,
                                             samples_per_pixel=16, seed=1),
-         ("K2", "K4", "K11")),
+         ("K2", "K4", "K11", "K13")),
     ]
     raw_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(raw_dir, exist_ok=True)
@@ -1384,6 +1402,7 @@ def main(argv=None) -> int:
     for tag, name, params, expect in renders:
         path["tag"] = tag
         captured[tag] = {}
+        n_calls[tag] = {}
         sb = SceneBuilder()
         camera = create_scene(sb, name, params)
         scene = sb.build()
@@ -1416,6 +1435,9 @@ def main(argv=None) -> int:
                 fail(f"kernel {k} was not launched by the {tag} render")
         if launches[tag]["K12"] != 0:
             fail(f"the {tag} render launched K12: its table does not require grad")
+        if launches[tag]["K13"] != 2 * n_calls[tag]["camera"]:
+            fail(f"the {tag} render launched K13 {launches[tag]['K13']} times for "
+                 f"{n_calls[tag]['camera']} camera stages (2 a stage: K13a, K13b)")
         check_draws(seen, launches[tag]["K11"], f"the {tag} render")
         kernel_ms = {}
         for k, a, b in spans:
@@ -1789,7 +1811,8 @@ def main(argv=None) -> int:
     # branch or winner.
     n = n_tight = n_ok = n_pix = n_base = 0
     cam_err = card_ms = cpu_s = 0.0
-    for a, kw in captured["cornell"]["camera"].values():
+    camera_calls = list(captured["cornell"]["camera"].values())
+    for a, kw in camera_calls:
         ms, card = once_ms(lambda: integ._first_bounce_state(*a, **kw))
         scene, camera, params, key, px, py = a[:6]
         t0 = time.time()
@@ -1814,6 +1837,65 @@ def main(argv=None) -> int:
           f"{n_pix} pixels, {n} paths: lanes agree to 1e-3 {n_ok / n:.6f} (to rtol "
           f"1e-4/atol 1e-5 {n_tight / n:.6f}), max|d| {cam_err:.3e} on them; pixels' "
           f"base agree {n_base / n_pix:.6f}; card {card_ms:.2f} ms cpu {cpu_s * 1e3:.0f} ms")
+
+    # K13 on the same tiles: the stage's rows and base bit for bit against
+    # the eager stage on the card (its plain version), its two kernels
+    # alone on the stage's own inputs (their launchers' arguments), with the
+    # bytes they must move: the rows and the base written, the uniforms, the
+    # pixels' rays and winners and each winning primitive's attribute row
+    # read once
+    k13_in = {}
+
+    def grab(name):
+        orig = getattr(ck, name)
+
+        def hook(*a, **kw):
+            k13_in[name] = a
+            return orig(*a, **kw)
+        return hook
+
+    gaps = {}
+    k13_ms = eager_ms = kern_ms = bytes13 = 0.0
+    err13 = 0.0
+    for a, kw in camera_calls:
+        with swapped(ck, "_camera_rays_cuda", grab("_camera_rays_cuda")), \
+                swapped(ck, "_first_bounce_cuda", grab("_first_bounce_cuda")):
+            ms_k, (rows_k, base_k, _) = once_ms(lambda: integ._first_bounce_state(*a, **kw))
+        with swapped(integ, "uses_camera_kernel", lambda *x: False):
+            ms_e, (rows_e, base_e, _) = once_ms(lambda: integ._first_bounce_state(*a, **kw))
+        k13_ms += ms_k
+        eager_ms += ms_e
+        for tag13, got, ref in (("row", rows_k, rows_e), ("base", base_k, base_e)):
+            ref = ref.contiguous()
+            for j in range(got.shape[0]):
+                d = (got[j].view(torch.int32).long() - ref[j].view(torch.int32).long()).abs()
+                if bool((d != 0).any()):
+                    key13 = f"{tag13} {j}"
+                    gaps[key13] = max(gaps.get(key13, 0), int(d.max()))
+            err13 = max(err13, float((got - ref).abs().nan_to_num(0.0).max()))
+        ra, fa = k13_in["_camera_rays_cuda"], k13_in["_first_bounce_cuda"]
+        kern_ms += events_ms(lambda: ck._camera_rays_cuda(*ra), 20)
+        kern_ms += events_ms(lambda: ck._first_bounce_cuda(*fa), 20)
+        pk13, idx13, t13 = fa[0], fa[4], fa[3]
+        won = torch.unique(idx13[torch.isfinite(t13)].long())
+        rows_read = (int((won < pk13.n_tri).sum()) * pk13.tri_attr.shape[1]
+                     + int((won >= pk13.n_tri).sum()) * pk13.sph_attr.shape[1]) * 4
+        bytes13 += (nbytes(*ra) + 24 * ra[1].shape[0]  # K13a: px, py, uniforms, camera; rays
+                    + nbytes(*fa[1:6], fa[7], fa[8]) + rows_read)  # K13b
+    n_st = len(camera_calls)
+    b13 = bytes13 / PEAK_BYTES_PER_S * 1e3 / n_st
+    if gaps:
+        fail(f"K13 vs the eager stage on the card: rows not bit-equal, the largest gap in "
+             f"float32 steps by row: {gaps} (max|d| {err13:.3e})")
+    checks["K13"] = {"cornell": dict(
+        launches=launches["cornell"]["K13"], max_abs_err=err13, ms=kern_ms / n_st,
+        kernel_ms=kern_ms / n_st, plain_ms=eager_ms / n_st, stage_ms=k13_ms / n_st,
+        bound_ms=b13, bound_by="bytes", prev_ms=None)}
+    print(f"phase 5 K13 cornell, {n_st} tiles' first stages ({n} paths): rows and base bit "
+          f"for bit the eager stage's on the card; K13a + K13b alone {kern_ms / n_st:.4f} ms "
+          f"a stage against a bound of {b13:.4f} ms (bytes); the stage through K13 "
+          f"{k13_ms / n_st:.3f} ms, eager {eager_ms / n_st:.3f} ms (its plain version; one "
+          f"call each, synchronised)")
 
     if args.until <= 5:
         return 0
@@ -1943,6 +2025,8 @@ def main(argv=None) -> int:
     for k in ("K2", "K7", "K8", "K11"):
         if tlaunch[k] <= 0:
             fail(f"kernel {k} was not launched by the training steps")
+    if tlaunch["K13a"] + tlaunch["K13b"] != 0:
+        fail(f"the training steps launched K13: {tlaunch}")
     if not tlaunch["K12"] == marks.get("gathers") == 3:
         fail(f"the training steps launched K12 {tlaunch['K12']} times for "
              f"{marks.get('gathers')} gathers that differentiate the table (3: one a pass)")
@@ -2339,6 +2423,8 @@ def main(argv=None) -> int:
     for k in ("K2", "K4", "K9"):
         if rlaunch[k] <= 0:
             fail(f"kernel {k} was not launched by the regen training steps")
+    if rlaunch["K13a"] + rlaunch["K13b"] != 0:
+        fail(f"the regen training steps launched K13: {rlaunch}")
     if rlaunch["K12"] != 3 * S:
         fail(f"the regen training steps launched K12 {rlaunch['K12']} times (3 x S={S}: one "
              "a camera stage)")
@@ -3627,7 +3713,7 @@ def main(argv=None) -> int:
     # under "by_path"
     head = {"K2": "cornell", "K5": "cornell-square", "K4": "cornell", "K7": "train",
             "K8": "train", "K4r": "regen-train", "K9": "regen-train", "K6": "sub3",
-            "K10": "compact", "K11": "cornell", "K12": "train"}
+            "K10": "compact", "K11": "cornell", "K12": "train", "K13": "cornell"}
     meta = {
         "K2": ("K2 intersect_packed", "pt_three_ways_tpu_torch/csrc/intersect.cu",
                "pt_three_ways_tpu/ops/pallas_intersect.py:351"),
@@ -3652,10 +3738,13 @@ def main(argv=None) -> int:
         "K12": ("K12 material_grad", "pt_three_ways_tpu_torch/csrc/material_grad.cu",
                 "pt_three_ways_tpu/models/integrator.py:113 (XLA's transpose of "
                 "the gather, a scatter-add; no pallas_call)"),
+        "K13": ("K13 camera_rays + first_bounce", "pt_three_ways_tpu_torch/csrc/camera_stage.cu",
+                "pt_three_ways_tpu/models/integrator.py:435 (XLA's fusion of the camera "
+                "stage; no pallas_call)"),
     }
     checks["K11"] = k11_checks
     rows = []
-    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10", "K11", "K12"):
+    for k in ("K2", "K5", "K4", "K7", "K8", "K4r", "K9", "K6", "K10", "K11", "K12", "K13"):
         name, source, replaces = meta[k]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          path=head[k], **{"library_ms": None, **checks[k][head[k]]},

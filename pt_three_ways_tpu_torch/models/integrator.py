@@ -25,6 +25,12 @@ K4 with in-kernel RNG, in stream mode for scenes above the resident range,
 per bounce, the live lanes packed first, then kernel K10; no CLI path uses
 it). All draws come from the same threefry streams as the JAX package
 (ops/rng.py).
+
+On a card, a stage that nothing differentiates (``uses_camera_kernel``: a
+render in float32) runs as kernel K13 (``ops/camera_kernel``) beside K2 and
+K11: five launches and no read by the host, the eager stage's rows bit for
+bit. The eager stage is K13's plain version: the CPU, float64 and training
+run it.
 """
 
 from __future__ import annotations
@@ -33,11 +39,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import rng
+from ..ops import camera_kernel, intersect_kernel, rng
 from ..ops.camera import Camera, generate_rays
 from ..ops.intersect import Hits, intersect_scene
 from ..ops.intersect_kernel import PackedScene
 from ..ops.material_grad import material_grad
+from ..ops.megakernel import PackedSceneFused
 from ..ops.vecmath import (
     Onb,
     cone_sample,
@@ -87,6 +94,30 @@ def uses_stream(params: RenderParams, scene, device) -> bool:
     from ..ops import megakernel
 
     return not megakernel.scene_fits_resident(scene)
+
+
+def _tensors(*trees):
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            yield t
+        elif isinstance(t, tuple):
+            yield from _tensors(*t)
+
+
+def differentiated(scene, camera) -> bool:
+    """True where autograd follows the camera stage: grad mode is on and a
+    camera, geometry or material tensor requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(scene, camera))
+
+
+def uses_camera_kernel(scene, camera, backend: str, device) -> bool:
+    """True when the camera stage runs as K13 (``ops/camera_kernel``): on a
+    CUDA ``device`` with a float32 camera and the kernel backend, where the
+    stage is not ``differentiated`` (the rule of ``gather_materials`` for
+    K12). The stage then also needs a ``PackedSceneFused`` (every render's
+    pack). The CPU, float64 and training take the eager stage."""
+    return (torch.device(device).type == "cuda" and backend == "kernel"
+            and camera.centre.dtype == torch.float32 and not differentiated(scene, camera))
 
 
 class GatheredMat(NamedTuple):
@@ -308,7 +339,10 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
     dtype = camera.centre.dtype
 
     backend = resolve_intersector(params, dev)
-    packed = PackedScene(scene) if backend == "kernel" else None  # K2's, once a pass
+    packed = None
+    if backend == "kernel":  # K2's, once a pass; K13 reads a fused pack's attribute rows
+        fused = not params.preview and uses_camera_kernel(scene, camera, backend, dev)
+        packed = (PackedSceneFused if fused else PackedScene)(scene)
     if params.preview:
         _, hits0, mat0 = camera_stage(scene, camera, params, key, px, py, tri_chunk, backend,
                                       packed)
@@ -337,7 +371,7 @@ def trace_pass(scene, camera: Camera, params: RenderParams, key, px, py,
 @tracing.spanned("pt3.camera", device=True)
 def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
                         want_unif: bool = True, packed=None, no_glossy: bool = False,
-                        kill_dead: bool = True):
+                        kill_dead: bool = True, out=None, base_sum=None):
     """Camera stage + stratified K expansion for ONE sample pass.
 
     Returns (state_rows [10, R*K] = org3/dir3/beta3/alive1,
@@ -349,8 +383,58 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
     (built by ``intersect_scene`` when None). ``no_glossy`` (a render's
     pack's flag) skips the cone sample: bit-equal rows, since cone angles
     below ``vecmath.EPSILON`` take the mirror direction. ``kill_dead``: the
-    zero-throughput kill. Traced as ``pt3.camera``.
+    zero-throughput kill. ``out`` [10, R*K] takes the state rows (a stage's
+    rows of a launch's state0) and ``base_sum`` [3, R] has base added in
+    place (base is then returned as None); neither may be differentiated.
+    With a ``PackedSceneFused`` where ``uses_camera_kernel`` holds, the
+    stage is K13. Traced as ``pt3.camera``.
     """
+    if isinstance(packed, PackedSceneFused) and uses_camera_kernel(scene, camera, backend,
+                                                                   px.device):
+        state_rows, base = _first_bounce_kernel(scene, camera, params, key, px, py, packed,
+                                                no_glossy, kill_dead, out, base_sum)
+    else:
+        state_rows, base = _first_bounce_eager(scene, camera, params, key, px, py, tri_chunk,
+                                               backend, packed, no_glossy, kill_dead)
+        if out is not None:
+            state_rows = out.copy_(state_rows)
+        if base_sum is not None:
+            base_sum += base
+            base = None
+    if not want_unif:
+        return state_rows, base, None
+    nb = max(params.max_depth - 1, 0)
+    return state_rows, base, bounce_rows(key, nb, px.shape[0] * params.first_bounce_samples,
+                                         px.device)
+
+
+def _first_bounce_kernel(scene, camera, params, key, px, py, packed, no_glossy, kill_dead,
+                         out, base_sum):
+    """The stage as K13 on the card: K11, K13a, K2, K11, K13b, and no read
+    by the host -> (state rows, base, or None where ``base_sum`` took it).
+    Counted in ``k13.stages``."""
+    k = params.first_bounce_samples
+    r0 = px.shape[0]
+    dev = px.device
+    cam_u = rng.uniforms(rng.stream_key(key, rng.CAMERA_STREAM), (4, r0), dev)
+    with tracing.span("pt3.camera.rays", dev):
+        org0, dir0 = camera_kernel.camera_rays(camera, px, py, cam_u)
+    live = torch.ones((r0,), dtype=torch.bool, device=dev)
+    t, idx = intersect_kernel.intersect_packed(packed, org0, dir0, params.epsilon, live=live)
+    fb_u = rng.uniforms(rng.stream_key(key, rng.FIRST_BOUNCE_STREAM), (3, r0, k), dev)
+    state = out if out is not None else torch.empty((10, r0 * k), device=dev)
+    base = base_sum if base_sum is not None else torch.empty((3, r0), device=dev)
+    camera_kernel.first_bounce(packed, org0, dir0, t, idx, fb_u,
+                               params.first_bounce_v_samples, state, base,
+                               base_sum is not None, no_glossy, kill_dead)
+    tracing.count("k13.stages", 1)
+    return state, None if base_sum is not None else base
+
+
+def _first_bounce_eager(scene, camera, params, key, px, py, tri_chunk, backend, packed,
+                        no_glossy, kill_dead):
+    """The stage in eager PyTorch, K13's plain version -> (state rows,
+    base)."""
     k = params.first_bounce_samples
     r0 = px.shape[0]
     dev = px.device
@@ -387,11 +471,7 @@ def _first_bounce_state(scene, camera, params, key, px, py, tri_chunk, backend,
     state_rows = torch.cat(
         [_expand(hits0.pos, k), dir1, beta1, alive1.to(dtype)[None, :]], dim=0
     )  # [10, R*K]
-
-    if not want_unif:
-        return state_rows, base, None
-    nb = max(params.max_depth - 1, 0)
-    return state_rows, base, bounce_rows(key, nb, r0 * k, dev)
+    return state_rows, base
 
 
 def lane_ids_for(px, py, width: int, k: int) -> torch.Tensor:
@@ -415,22 +495,33 @@ def regen_front(scene, camera, params: RenderParams, base_key, sample0: int, til
                 tables: bool = False):
     """The camera stages of ``n_passes`` samples, keys fold(fold(base_key,
     sample0 + s), tile_idx) -> (base_sum [3, R], state0 [S*10, N], and with
-    ``tables`` K5's lane-major table [S*nb, N, 4], else None)."""
+    ``tables`` K5's lane-major table [S*nb, N, 4], else None). Where the
+    stages are not ``differentiated``, each writes its rows into its slice
+    of state0 and adds its base into base_sum in place (K13 on the card);
+    autograd's stages are concatenated."""
     nb = max(params.max_depth - 1, 0)
     n = px.shape[0] * params.first_bounce_samples
-    base_sum = torch.zeros((3, px.shape[0]), device=px.device)
+    dtype = camera.centre.dtype
+    base_sum = torch.zeros((3, px.shape[0]), dtype=dtype, device=px.device)
+    slices = not differentiated(scene, camera)
+    state0 = torch.empty((n_passes * 10, n), dtype=dtype, device=px.device) if slices else None
     states, unifs = [], []
     for s in range(n_passes):
         key = rng.fold_in(rng.fold_in(base_key, sample0 + s), tile_idx)
         st_rows, base, _ = _first_bounce_state(
             scene, camera, params, key, px, py, tri_chunk, "kernel", want_unif=False,
             packed=packed, no_glossy=no_glossy,
+            out=state0[10 * s:10 * (s + 1)] if slices else None,
+            base_sum=base_sum if slices else None,
         )
-        base_sum = base_sum + base
-        states.append(st_rows)
+        if not slices:
+            base_sum = base_sum + base
+            states.append(st_rows)
         if tables:
             unifs.append(bounce_rows(key, nb, n, px.device, lane_major=True))
-    return base_sum, torch.cat(states, dim=0), torch.cat(unifs, dim=0) if tables else None
+    if not slices:
+        state0 = torch.cat(states, dim=0)
+    return base_sum, state0, torch.cat(unifs, dim=0) if tables else None
 
 
 def trace_passes_fused(scene, camera, params: RenderParams, base_key, sample0: int,

@@ -81,6 +81,15 @@ _SIGNATURES = {
     "pt3_threefry_uniform": [U, U, L, P, I, P],
     # ids, cot, n, n_mat, blocks, partial, out, dtype (0 float32, 1 float64), stream
     "pt3_material_grad": [P, P, I, I, I, P, P, I, P],
+    # px, py, unif, the camera's ten fields (centre, axis_x, axis_y, axis_z,
+    # aspect, plane_dist, recip_w, recip_h, aperture, focal_dist), org, dir,
+    # r, stream
+    "pt3_camera_rays": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, P],
+    # tri_attr, sph_attr, mat9, n_tri, n_sph, env r g b, org, dir, t, idx,
+    # fb_u, r, k, nv, inv_nu, inv_nv, state, base, accumulate, no_glossy,
+    # kill_dead, stream
+    "pt3_first_bounce": [P, P, P, I, I, F, F, F, P, P, P, P, P, I, I, I, F, F, P, P, I, I, I,
+                         P],
 }
 
 

@@ -29,20 +29,25 @@ Names, from the entry point down (``pt3.`` first):
       (``models/render.render_rounds``); train.step, train.forward,
       train.backward, train.update (``parallel/train``); scene.build;
   camera (the camera stage), camera.rays, rng (threefry uniforms);
-  k2, k4 (K4 and K5), k7, k8, k9, k10, k12: the kernels' public wrappers
-      (k12 inside the backward of a gather that differentiates the table);
+  k2, k4 (K4 and K5), k7, k8, k9, k10, k12, k13: the kernels' public
+      wrappers (k12 inside the backward of a gather that differentiates
+      the table; k13 around K13a, inside camera.rays, and K13b, the camera
+      stage of a render on the card);
   sort: the feedback sort's permutations of K4's lanes, before and after
       its launch (``models/integrator.trace_passes_fused``);
   sync.<site>: a copy between the card and the host that waits for the
       card, the host's wait: a read back (drain, autotune, glossy,
       aperture, pack, materials) or a copy from pageable host memory,
       which PyTorch ends with a stream synchronisation (onb, nrays,
-      inputs, scene).
+      inputs, scene); aperture and onb open only in the eager camera
+      stage, never in K13's.
 
 Counters: ``k4.live_bounces``, the live bounces of the render's K4 and K5
 launches (``models/integrator.trace_passes_fused``, after each launch's
 span); ``rng.kernel_draws``, the uniforms K11 drew (``ops/rng
-.uniform_kernel``, inside ``pt3.rng``).
+.uniform_kernel``, inside ``pt3.rng``); ``k13.stages``, the camera stages
+that ran as K13 (``models/integrator._first_bounce_state``; an eager stage
+counts nothing).
 """
 
 from __future__ import annotations

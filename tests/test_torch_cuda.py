@@ -49,7 +49,14 @@ is on. K12 (the material gather's VJP) within 1e-5 of the sum of |cot| of
 the float64 sums for 1, 4, 101, 340 and 2,000 materials (its slices) over
 0, 1, 262,144 and 4,194,304 lanes, bit-identical on a second launch, in
 float64 too; a train step launches it once, and two give bit-identical
-tables.
+tables. K13 (the camera stage of a render): the ten state rows and the base
+bit for bit the eager stage's on the card, on cornell through its lens and
+its pinhole, suzanne and bbc-owl, with and without the glossy cone and the
+kill, on a tile whose pixels and lanes are no multiple of the block; so is
+regen_front's state0 and base sum against the eager stages'; a render
+launches K13a and K13b once each a stage, K2 once and K11 twice, and counts
+its stages in ``k13.stages``; a train step launches no K13; a cornell 64^2
+render equals the same render with every stage eager, bit for bit.
 """
 
 import numpy as np
@@ -60,6 +67,7 @@ from pt_three_ways_tpu_torch.models import integrator as integ
 from pt_three_ways_tpu_torch.models.catalog import create_scene
 from pt_three_ways_tpu_torch.models.render import render
 from pt_three_ways_tpu_torch.models.scene import SceneBuilder, auto_epsilon
+from pt_three_ways_tpu_torch.ops import camera_kernel as ck
 from pt_three_ways_tpu_torch.ops import intersect_kernel as ik
 from pt_three_ways_tpu_torch.ops import kernel_rng, rng
 from pt_three_ways_tpu_torch.ops import material_grad as mg
@@ -753,3 +761,157 @@ def test_k12_is_the_train_steps_material_gather_vjp(dev):
     names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
     assert not any("indexing_backward" in k or "index_put" in k for k in names), names
     assert all(torch.equal(a, b) for a, b in zip(s1.materials, s2.materials))
+
+
+def _k13_tile(name, dev, lens=True, w=48, h=37):
+    """A ragged tile (R = w*h - 5, not a multiple of K13's 256-thread
+    blocks, nor R*K) of ``name`` on the card with its pack; ``lens=False``
+    sets the aperture to 0 (the pinhole path)."""
+    params = RenderParams(width=w, height=h, max_depth=4, seed=3)
+    sb = SceneBuilder()
+    camera = create_scene(sb, name, params)
+    scene = sb.build()
+    params = params.replace(epsilon=auto_epsilon(scene, camera))
+    if not lens:
+        camera = camera._replace(aperture=torch.zeros_like(camera.aperture))
+    scene, camera = scene.to(dev), camera.to(dev)
+    r = w * h - 5
+    px = torch.arange(r, dtype=torch.int32, device=dev) % w
+    py = torch.arange(r, dtype=torch.int32, device=dev) // w
+    return scene, camera, params, px, py, mk.PackedSceneStream(scene)
+
+
+def _ulp_gaps(a, b):
+    """Per row, the largest distance in float32 steps between a and b."""
+    ai, bi = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ai = torch.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
+    bi = torch.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
+    return (ai - bi).abs().amax(dim=-1).tolist()
+
+
+@pytest.mark.parametrize("kill_dead", [True, False])
+@pytest.mark.parametrize("no_glossy", [False, True])
+@pytest.mark.parametrize("name, lens", [("cornell", True), ("cornell", False),
+                                        ("suzanne", True), ("bbc-owl", True)])
+def test_k13_matches_eager_stage_bitwise(dev, name, lens, no_glossy, kill_dead):
+    """The camera stage as K13 (a render's: float32, the kernel backend, a
+    PackedSceneFused, nothing differentiated) against the eager stage, its
+    plain version, on the card: the ten state rows and the base bit for bit,
+    on cornell's glossy sphere through its lens and its pinhole, suzanne's
+    mesh and the owl's Fresnel spheres (aperture 0.1)."""
+    scene, camera, params, px, py, pk = _k13_tile(name, dev, lens)
+    key = rng.fold_in(rng.fold_in(rng.base_key(2 ** 33 + 19), 3), 1)
+    before = (ck.camera_rays.launches, ck.first_bounce.launches)
+    with torch.no_grad():
+        rows, base, _ = integ._first_bounce_state(scene, camera, params, key, px, py, 1024,
+                                                  "kernel", want_unif=False, packed=pk,
+                                                  no_glossy=no_glossy, kill_dead=kill_dead)
+        e_rows, e_base = integ._first_bounce_eager(scene, camera, params, key, px, py, 1024,
+                                                   "kernel", pk, no_glossy, kill_dead)
+    assert (ck.camera_rays.launches, ck.first_bounce.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    assert rows.shape == e_rows.shape and rows.dtype == torch.float32
+    assert torch.equal(rows.view(torch.int32), e_rows.contiguous().view(torch.int32)), \
+        f"rows' ulp gaps {_ulp_gaps(rows, e_rows)}"
+    assert torch.equal(base.view(torch.int32), e_base.contiguous().view(torch.int32)), \
+        f"base's ulp gaps {_ulp_gaps(base, e_base)}"
+    assert 0.1 < float(rows[9].mean()) <= 1.0
+
+
+@pytest.mark.parametrize("name", ["cornell", "suzanne", "bbc-owl"])
+def test_k13_regen_front_matches_eager_stages(dev, name):
+    """regen_front on the card (K13 writing each stage into its slice of
+    state0 and adding its base into base_sum) against the concatenation and
+    the sum of the eager stages."""
+    scene, camera, params, px, py, pk = _k13_tile(name, dev, w=40, h=23)
+    base_key = rng.base_key(2 ** 33 + 23)
+    with torch.no_grad():
+        base_sum, state0, _ = integ.regen_front(scene, camera, params, base_key, 7, 2, px, py,
+                                                3, 1024, pk, pk.no_glossy)
+        rows, total = [], torch.zeros((3, px.shape[0]), device=dev)
+        for s in range(3):
+            key = rng.fold_in(rng.fold_in(base_key, 7 + s), 2)
+            st, base = integ._first_bounce_eager(scene, camera, params, key, px, py, 1024,
+                                                 "kernel", pk, pk.no_glossy, True)
+            rows.append(st)
+            total = total + base
+    assert torch.equal(state0.view(torch.int32), torch.cat(rows).view(torch.int32))
+    assert torch.equal(base_sum.view(torch.int32), total.view(torch.int32))
+
+
+def test_k13_launches_per_render_stage(dev):
+    """A render launches, per camera stage, K13a and K13b once each, K2 once
+    and K11 twice, and counts each stage in ``k13.stages``."""
+    params = RenderParams(width=64, height=64, samples_per_pixel=8, seed=1)
+    sb = SceneBuilder()
+    camera = create_scene(sb, "cornell", params)
+    scene = sb.build()
+    params = params.replace(epsilon=auto_epsilon(scene, camera))
+    per_stage = []
+    stage = integ._first_bounce_state
+    wrappers = (ck.camera_rays, ck.first_bounce, ik.intersect_packed, rng.uniform_kernel)
+
+    def counted(*a, **kw):
+        before = [f.launches for f in wrappers]
+        out = stage(*a, **kw)
+        per_stage.append(tuple(f.launches - b for f, b in zip(wrappers, before)))
+        return out
+
+    tracing.reset()
+    tracing.enable()
+    integ._first_bounce_state = counted
+    try:
+        render(scene, camera, params, device="cuda")
+        counters = tracing.snapshot()["counters"]
+    finally:
+        integ._first_bounce_state = stage
+        tracing.disable()
+        tracing.reset()
+    assert per_stage and set(per_stage) == {(1, 1, 1, 2)}, per_stage
+    assert counters["k13.stages"] == len(per_stage)
+
+
+def test_k13_not_in_a_train_step(dev):
+    """A training step differentiates its materials: every camera stage is
+    the eager one, K13 launches nothing and counts no stage."""
+    from pt_three_ways_tpu_torch.parallel.train import TrainState, make_sharded_train_step
+
+    params = RenderParams(width=16, height=16, first_bounce_u_samples=2,
+                          first_bounce_v_samples=2, max_depth=4, intersector="kernel")
+    sb = SceneBuilder()
+    camera = create_scene(sb, "cornell", params)
+    scene = sb.build()
+    px = torch.arange(256, dtype=torch.int32) % 16
+    py = torch.arange(256, dtype=torch.int32) // 16
+    step = make_sharded_train_step(scene, params, device="cuda")
+    before = (ck.camera_rays.launches, ck.first_bounce.launches)
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("pt3.train.step"):
+            step(TrainState(scene.materials, camera, 0), rng.base_key(2), px, py,
+                 torch.full((256, 3), 0.25))
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert (ck.camera_rays.launches, ck.first_bounce.launches) == before
+    assert "k13.stages" not in counters
+
+
+def test_k13_cornell_render_matches_eager_render(dev, monkeypatch):
+    """A cornell 64^2 render with K13 equals, bit for bit, the same render
+    with every camera stage eager."""
+    params = RenderParams(width=64, height=64, samples_per_pixel=8, seed=1)
+    sb = SceneBuilder()
+    camera = create_scene(sb, "cornell", params)
+    scene = sb.build()
+    params = params.replace(epsilon=auto_epsilon(scene, camera))
+    before = ck.first_bounce.launches
+    k13 = render(scene, camera, params, device="cuda")
+    assert ck.first_bounce.launches > before
+    monkeypatch.setattr(integ, "uses_camera_kernel", lambda *a: False)
+    before = ck.first_bounce.launches
+    eager = render(scene, camera, params, device="cuda")
+    assert ck.first_bounce.launches == before
+    assert np.array_equal(k13.sum, eager.sum) and np.array_equal(k13.count, eager.count)

@@ -313,13 +313,15 @@ def _regen_launch(pk, state0, lane_ids, key_words, sample0, order, inv, eps, nb,
                   s_count, replay):
     """K4 on the feedback sort's lane order (``order``; ``inv`` unsorts the
     outputs). With ``replay`` also the residuals and the lane ids, both in
-    sorted lane space."""
+    sorted lane space, and the counter ``k4.replay_slots``."""
     if order is not None:
         state0 = state0[:, order]
         lane_ids = lane_ids[order]
     out = fused_passes_krng(pk, state0, lane_ids, key_words, sample0, eps, nb, s_count,
                             replay=replay)
     acc, cnt = out[0], out[1]
+    if replay:  # a lane's count is its realized slots (and its live bounces)
+        tracing.count("k4.replay_slots", cnt)
     if order is not None:
         acc = acc[:, inv]
         cnt = cnt[inv]

@@ -44,7 +44,9 @@ Names, from the entry point down (``pt3.`` first):
 
 Counters: ``k4.live_bounces``, the live bounces of the render's K4 and K5
 launches (``models/integrator.trace_passes_fused``, after each launch's
-span); ``rng.kernel_draws``, the uniforms K11 drew (``ops/rng
+span); ``k4.replay_slots``, the residual slots K4 wrote in replay mode, one
+a live bounce (``models/replay._regen_launch``, after its launch's span);
+``rng.kernel_draws``, the uniforms K11 drew (``ops/rng
 .uniform_kernel``, inside ``pt3.rng``); ``k13.stages``, the camera stages
 that ran as K13 (``models/integrator._first_bounce_state``; an eager stage
 counts nothing).
